@@ -1,0 +1,118 @@
+"""Carry scene, camera and G-buffer state between the two packages.
+
+Plain functions on numpy leaves; this module imports neither JAX nor the
+JAX package. The ``*_to_numpy`` functions read the leaves of any object
+with the fields of the JAX package's ``Scene``, ``Camera`` or ``GBuffer``
+(its own, or the port's) with ``np.asarray``; the ``*_from_numpy``
+functions build the port's dataclasses from them. ``MaterialTable`` is the
+differentiable parameter set and the ``GBuffer`` the resumable state, so
+with these a test gives both packages the same scene, camera and
+accumulator.
+
+Scene dict layout (keys as the Scene fields):
+  vertices, normals, uvs, mat_id, light_indices, has_lights,
+  materials: {albedo, emittance, roughness, ior, extinction, transparent, tex_id},
+  textures: {buffer, offset, width, height},
+  shade_table (may be None),
+  cbvh (may be None): {tri_const, clu_bbox, num_triangles}.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from isaklm_raytracer_tpu_torch.accel.cluster import ClusterBVH
+from isaklm_raytracer_tpu_torch.camera.camera import Camera
+from isaklm_raytracer_tpu_torch.scene.types import (
+    GBuffer,
+    MaterialTable,
+    Scene,
+    TextureAtlas,
+)
+
+_SCENE = ("vertices", "normals", "uvs", "mat_id", "light_indices")
+_MATERIALS = ("albedo", "emittance", "roughness", "ior", "extinction", "transparent", "tex_id")
+_TEXTURES = ("buffer", "offset", "width", "height")
+_CAMERA = ("position", "yaw", "pitch", "fov", "aperture_radius")
+_GBUFFER = ("frame", "sq_luminance", "count")
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def _leaves(obj, names) -> dict:
+    return {k: _np(getattr(obj, k)) for k in names}
+
+
+def scene_to_numpy(scene) -> dict:
+    """The numpy leaves of a JAX-package or port Scene."""
+    cbvh = scene.cbvh
+    return {
+        **_leaves(scene, _SCENE),
+        "has_lights": bool(scene.has_lights),
+        "materials": _leaves(scene.materials, _MATERIALS),
+        "textures": _leaves(scene.textures, _TEXTURES),
+        "shade_table": None if scene.shade_table is None else _np(scene.shade_table),
+        "cbvh": None if cbvh is None else {
+            "tri_const": _np(cbvh.tri_const),
+            "clu_bbox": _np(cbvh.clu_bbox),
+            "num_triangles": int(cbvh.num_triangles),
+        },
+    }
+
+
+def scene_from_numpy(leaves: dict, device="cpu") -> Scene:
+    """A port Scene on ``device`` from a dict of numpy leaves."""
+    cbvh = leaves.get("cbvh")
+    shade = leaves.get("shade_table")
+    return Scene(
+        **{k: _tensor(leaves[k], device) for k in _SCENE},
+        materials=MaterialTable(
+            **{k: _tensor(leaves["materials"][k], device) for k in _MATERIALS}
+        ),
+        textures=TextureAtlas(
+            **{k: _tensor(leaves["textures"][k], device) for k in _TEXTURES}
+        ),
+        cbvh=None if cbvh is None else ClusterBVH(
+            tri_const=_tensor(cbvh["tri_const"], device),
+            clu_bbox=_tensor(cbvh["clu_bbox"], device),
+            num_triangles=int(cbvh["num_triangles"]),
+        ),
+        shade_table=None if shade is None else _tensor(shade, device),
+        has_lights=bool(leaves["has_lights"]),
+    )
+
+
+def camera_to_numpy(camera) -> dict:
+    """The numpy leaves of a JAX-package or port Camera."""
+    return _leaves(camera, _CAMERA)
+
+
+def camera_from_numpy(position, yaw, pitch, fov, aperture_radius, device="cpu") -> Camera:
+    """A port Camera from a Camera's leaves."""
+    return Camera(*(
+        _tensor(np.asarray(x, np.float32), device)
+        for x in (position, yaw, pitch, fov, aperture_radius)
+    ))
+
+
+def gbuffer_to_numpy(gbuffer) -> dict:
+    """The numpy leaves of a JAX-package or port GBuffer."""
+    return _leaves(gbuffer, _GBUFFER)
+
+
+def gbuffer_from_numpy(frame, sq_luminance, count, device="cpu") -> GBuffer:
+    """A port GBuffer from a GBuffer's leaves."""
+    return GBuffer(
+        frame=_tensor(np.asarray(frame, np.float32), device),
+        sq_luminance=_tensor(np.asarray(sq_luminance, np.float32), device),
+        count=_tensor(np.asarray(count, np.int32), device),
+    )

@@ -1,0 +1,99 @@
+"""Counter-mode Threefry-2x32 sampler, bit-exact with the JAX package.
+
+Port of ``isaklm_raytracer_tpu/math/rng.py``. Every variate is a pure
+function of (sample key words, global pixel id, stream, dimension), so
+images do not depend on chunking, compaction or ray order.
+
+Torch on the CPU cannot add or shift ``uint32`` tensors, so the 32-bit words
+live in ``int64`` tensors (or Python ints) and every add and shift is masked
+with ``& 0xFFFFFFFF``. The same code therefore runs on Python ints (the
+per-sample key words, computed on the host) and on tensors (per-ray words).
+"""
+
+from __future__ import annotations
+
+import torch
+
+CAMERA_STREAM = 255
+_DIMS_PER_STREAM = 64  # max variate PAIRS per stream
+_MASK = 0xFFFFFFFF
+
+
+def _rotl(x, r):
+    return ((x << r) & _MASK) | (x >> (32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds (Random123).
+
+    Arguments are 32-bit words held in Python ints or int64 tensors with
+    values in [0, 2**32). Returns two words of the same kind.
+    """
+    ks0 = k0
+    ks1 = k1
+    ks2 = 0x1BD11BDA ^ k0 ^ k1
+    x0 = (x0 + ks0) & _MASK
+    x1 = (x1 + ks1) & _MASK
+
+    def four(x0, x1, rots):
+        for r in rots:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        return x0, x1
+
+    ra = (13, 15, 26, 6)
+    rb = (17, 29, 16, 24)
+    x0, x1 = four(x0, x1, ra)
+    x0, x1 = (x0 + ks1) & _MASK, (x1 + ks2 + 1) & _MASK
+    x0, x1 = four(x0, x1, rb)
+    x0, x1 = (x0 + ks2) & _MASK, (x1 + ks0 + 2) & _MASK
+    x0, x1 = four(x0, x1, ra)
+    x0, x1 = (x0 + ks0) & _MASK, (x1 + ks1 + 3) & _MASK
+    x0, x1 = four(x0, x1, rb)
+    x0, x1 = (x0 + ks1) & _MASK, (x1 + ks2 + 4) & _MASK
+    x0, x1 = four(x0, x1, ra)
+    x0, x1 = (x0 + ks2) & _MASK, (x1 + ks0 + 5) & _MASK
+    return x0, x1
+
+
+def sample_key_words(seed: int, index: int) -> tuple[int, int]:
+    """Key words of sample ``index`` of a render seeded with ``seed``.
+
+    The JAX package draws them as
+    ``key_data(fold_in(PRNGKey(seed), index))``. With the default threefry
+    implementation and 32-bit mode, ``PRNGKey(seed)`` is ``[0, seed mod
+    2**32]`` and ``fold_in(key, i)`` hashes the counter ``[0, i]`` under
+    that key, which is what this returns.
+    """
+    return threefry2x32(0, seed & _MASK, 0, index & _MASK)
+
+
+def _to_unit(bits: torch.Tensor) -> torch.Tensor:
+    # 24 high bits -> [0, 1): exact in float32, never returns 1.0.
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def uniforms(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """n uniform [0,1) variates per ray: (n, R) float32.
+
+    key_words: the (k0, k1) per-sample key words (``sample_key_words``).
+    pixel_ids: (R,) GLOBAL pixel/ray ids, the counter word.
+    stream: bounce index or CAMERA_STREAM.
+    """
+    if n > 2 * _DIMS_PER_STREAM:
+        raise ValueError(
+            f"uniforms(n={n}) exceeds the stream's {2 * _DIMS_PER_STREAM} "
+            "variates; counter words would collide with the next stream"
+        )
+    if not 0 <= stream <= CAMERA_STREAM:
+        raise ValueError(f"stream {stream} outside [0, {CAMERA_STREAM}]")
+    k0, k1 = (int(k) & _MASK for k in key_words)
+    w0 = pixel_ids.to(torch.int64) & _MASK
+    base = stream * _DIMS_PER_STREAM
+    rows = []
+    for p in range(-(-n // 2)):
+        w1 = torch.full_like(w0, base + p)
+        a, b = threefry2x32(k0, k1, w0, w1)
+        rows.append(_to_unit(a))
+        rows.append(_to_unit(b))
+    return torch.stack(rows[:n])
