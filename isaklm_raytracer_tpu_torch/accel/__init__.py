@@ -1,16 +1,22 @@
+import os
+
 import numpy as np
 import torch
 
 from isaklm_raytracer_tpu_torch.accel.cluster import (
+    CLUSTER_WIDTH,
     ClusterBVH,
     build_cluster_bvh,
     cluster_order,
+    padded_clusters,
+    with_blocks,
 )
 from isaklm_raytracer_tpu_torch.accel.traverse import (
     HitAttributes,
     hit_attributes,
     nearest_hit_brute,
 )
+from isaklm_raytracer_tpu_torch.kernels.intersect import VMEM_TABLE_LIMIT
 
 
 def prepare_scene(scene, device="cpu"):
@@ -21,12 +27,16 @@ def prepare_scene(scene, device="cpu"):
     1. renumbers the triangles with ``cluster_order`` so the intersector
        reconstructs triangle ids as c*128 + lane; every per-triangle array
        and the light list are permuted consistently;
-    2. builds the cluster tables (``tri_const``, ``clu_bbox``);
+    2. builds the cluster tables (``tri_const``, ``clu_bbox``,
+       ``clu_bbox_t``) and, for a scene whose cluster table exceeds
+       ``VMEM_TABLE_LIMIT`` (the blocked kernel's scenes), the blocked
+       layout with ``ISAKLM_BLK_BRANCH`` clusters per block (default 128,
+       as the JAX package);
     3. packs the (T, 32) shading rows
        [p1 p2 p3 | n1 n2 n3 | uv1 uv2 uv3 | mat_id | pad].
 
-    No KD tree is built: the port has no KD traversal. The blocked and MXU
-    tables wait for the kernels that read them.
+    No KD tree is built: the port has no KD traversal. No MXU tiles are
+    built: no ported kernel reads them.
     """
     verts = np.asarray(scene.vertices)
     order = cluster_order(verts)
@@ -54,10 +64,18 @@ def prepare_scene(scene, device="cpu"):
             mat_id=mat_id,
             light_indices=lights,
             shade_table=table,
-            cbvh=build_cluster_bvh(verts),
+            cbvh=build_cluster_bvh(verts, blk_branch=_blk_branch(num)),
         ),
         device,
     )
+
+
+def _blk_branch(num_triangles: int):
+    """Clusters per block for a scene too big for the queue kernel's table
+    budget, else None (the JAX package's rule, accel/__init__.py:62-84)."""
+    if padded_clusters(num_triangles) * 16 * CLUSTER_WIDTH * 4 <= VMEM_TABLE_LIMIT:
+        return None
+    return int(os.environ.get("ISAKLM_BLK_BRANCH", "128"))
 
 
 def move_scene(scene, device):
@@ -88,4 +106,5 @@ __all__ = [
     "move_scene",
     "nearest_hit_brute",
     "prepare_scene",
+    "with_blocks",
 ]

@@ -1,10 +1,12 @@
-"""Cluster tables for the flat intersector.
+"""Cluster tables for the flat, queue and blocked intersectors.
 
-Port of the part of ``isaklm_raytracer_tpu/accel/cluster.py`` that the flat
-kernel reads: ``cluster_order`` and the ``tri_const``/``clu_bbox`` tables of
-``build_cluster_bvh``. Triangles are spatially renumbered and packed into
-clusters of 128; cluster c holds triangle ids [c*128, (c+1)*128), and its
-(16, 128) constant tile holds, per triangle slot (lane):
+Port of the part of ``isaklm_raytracer_tpu/accel/cluster.py`` that those
+kernels read: ``cluster_order``, the ``tri_const``/``clu_bbox`` tables of
+``build_cluster_bvh``, the component-major box table ``clu_bbox_t`` and the
+blocked layout (``with_blocks``, ``blk_branch=``). Triangles are spatially
+renumbered and packed into clusters of 128; cluster c holds triangle ids
+[c*128, (c+1)*128), and its (16, 128) constant tile holds, per triangle
+slot (lane):
 
   rows 0-2   geometric normal n = cross(e1, e2)          (unnormalised)
   rows 3-5   edge e1 = p2 - p1
@@ -18,13 +20,20 @@ clusters of 128; cluster c holds triangle ids [c*128, (c+1)*128), and its
   row 15     lanes 0-7 = the cluster's bbox row (minxyz, maxxyz, 0, 0)
 
 Pad slots are all zeros; the intersection test rejects them because
-``ddn == 0`` (or a NaN comparison is false). The oct, blocked and MXU
-tables of the JAX package belong to kernels not ported yet.
+``ddn == 0`` (or a NaN comparison is false).
+
+The blocked layout groups ``blk_branch`` consecutive clusters into a block
+of ``blk_branch + 1`` tiles: a HEADER tile whose rows 0-5 hold the
+block's cluster boxes component-major (lane k = cluster k of the block)
+and row 6 their validity, then the block's cluster tiles. ``blk_bbox_t``
+holds the block boxes the same way. The oct and MXU tables of the JAX
+package belong to kernels not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,10 +49,23 @@ class ClusterBVH:
     tri_const: torch.Tensor  # (C, 16, 128) f32
     clu_bbox: torch.Tensor  # (C, 8) f32; pad clusters carry inverted boxes
     num_triangles: int = 0
+    # Component-major boxes: rows 0-5 = min xyz / max xyz along lanes
+    # (padded to a 128 multiple), row 6 = validity (0.0 kills padding: an
+    # inverted +-3e38 box does not fail the slab test once it saturates).
+    clu_bbox_t: Optional[torch.Tensor] = None  # (8, 128-pad of C) f32
+    blk_const: Optional[torch.Tensor] = None  # (NB, blk_branch + 1, 16, 128) f32
+    blk_bbox_t: Optional[torch.Tensor] = None  # (8, 128-pad of NB) f32
+    blk_branch: int = 0
 
     @property
     def num_clusters(self) -> int:
         return self.tri_const.shape[0]
+
+    @property
+    def vmem_bytes(self) -> int:
+        """Bytes of the cluster table; the queue kernel's size rule reads it
+        (the JAX package's name, for its VMEM budget)."""
+        return self.num_clusters * 16 * CLUSTER_WIDTH * 4
 
     @property
     def real_clusters(self) -> int:
@@ -51,10 +73,17 @@ class ClusterBVH:
         return max(1, -(-self.num_triangles // CLUSTER_WIDTH))
 
     def to(self, device) -> "ClusterBVH":
+        def t(x):
+            return None if x is None else torch.as_tensor(x).to(device)
+
         return ClusterBVH(
-            tri_const=torch.as_tensor(self.tri_const).to(device),
-            clu_bbox=torch.as_tensor(self.clu_bbox).to(device),
+            tri_const=t(self.tri_const),
+            clu_bbox=t(self.clu_bbox),
             num_triangles=self.num_triangles,
+            clu_bbox_t=t(self.clu_bbox_t),
+            blk_const=t(self.blk_const),
+            blk_bbox_t=t(self.blk_bbox_t),
+            blk_branch=self.blk_branch,
         )
 
 
@@ -88,17 +117,85 @@ def cluster_order(vertices: np.ndarray) -> np.ndarray:
     return out
 
 
-def build_cluster_bvh(vertices: np.ndarray) -> ClusterBVH:
-    """Host-side build over ALREADY renumbered triangles (cluster.py:324-389).
+def padded_clusters(num_triangles: int) -> int:
+    """Clusters of the table of ``num_triangles``, padded to CLUSTER_PAD."""
+    num_clusters = max(1, -(-num_triangles // CLUSTER_WIDTH))
+    return -(-num_clusters // CLUSTER_PAD) * CLUSTER_PAD
 
-    vertices: (T, 3, 3) float32 in ``cluster_order`` order. Leaves are host
-    numpy arrays; ``ClusterBVH.to`` moves them to a device.
+
+def _bbox_t(bbox: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Component-major 128-padded box table (see ClusterBVH.clu_bbox_t)."""
+    n = bbox.shape[0]
+    n_pad = -(-n // 128) * 128
+    out = np.zeros((8, n_pad), np.float32)
+    out[0:6, :n] = bbox[:, 0:6].T
+    out[6, :n] = valid.astype(np.float32)
+    return out
+
+
+def _build_blocks_np(tri_const: np.ndarray, clu_bbox: np.ndarray, branch: int):
+    """The blocked layout (see the module docstring): (blk_const, blk_bbox_t)."""
+    if not 1 <= branch <= CLUSTER_WIDTH:
+        raise ValueError(f"blk_branch must be in [1, {CLUSTER_WIDTH}] (header lanes), got {branch}")
+    num_clusters = clu_bbox.shape[0]
+    if num_clusters % branch:  # pad with inverted-box (always-culled) clusters
+        pad = branch - num_clusters % branch
+        tri_const = np.concatenate(
+            [tri_const, np.zeros((pad,) + tri_const.shape[1:], np.float32)]
+        )
+        pad_box = np.zeros((pad, 8), np.float32)
+        pad_box[:, 0:3] = 3e38
+        pad_box[:, 3:6] = -3e38
+        clu_bbox = np.concatenate([clu_bbox, pad_box])
+        num_clusters += pad
+    num_blk = num_clusters // branch
+    has_any = clu_bbox[:, 0] <= clu_bbox[:, 3]
+
+    blk = np.zeros((num_blk, branch + 1, 16, CLUSTER_WIDTH), np.float32)
+    hdr_box = clu_bbox.reshape(num_blk, branch, 8)
+    blk[:, 0, 0:6, :branch] = np.moveaxis(hdr_box[:, :, 0:6], 1, 2)
+    blk[:, 0, 6, :branch] = has_any.reshape(num_blk, branch).astype(np.float32)
+    blk[:, 1:] = tri_const.reshape(num_blk, branch, 16, CLUSTER_WIDTH)
+
+    blk_bbox = np.zeros((num_blk, 8), np.float32)
+    blk_bbox[:, 0:3] = np.where(
+        has_any.reshape(num_blk, branch, 1), hdr_box[:, :, 0:3], 3e38
+    ).min(axis=1)
+    blk_bbox[:, 3:6] = np.where(
+        has_any.reshape(num_blk, branch, 1), hdr_box[:, :, 3:6], -3e38
+    ).max(axis=1)
+    blk_valid = has_any.reshape(num_blk, branch).any(axis=1)
+    return blk, _bbox_t(blk_bbox, blk_valid)
+
+
+def with_blocks(cbvh: ClusterBVH, branch: int = 32) -> ClusterBVH:
+    """``cbvh`` with the blocked layout of ``branch`` clusters per block
+    (``branch`` <= 128, the header's lanes), built on the host from its
+    tables and moved to the device they lie on."""
+    device = torch.as_tensor(cbvh.tri_const).device
+    blk, blk_bbox_t = _build_blocks_np(
+        np.asarray(torch.as_tensor(cbvh.tri_const).cpu()),
+        np.asarray(torch.as_tensor(cbvh.clu_bbox).cpu()),
+        branch,
+    )
+    return dataclasses.replace(
+        cbvh,
+        blk_const=torch.from_numpy(blk).to(device),
+        blk_bbox_t=torch.from_numpy(blk_bbox_t).to(device),
+        blk_branch=branch,
+    )
+
+
+def build_cluster_bvh(vertices: np.ndarray, blk_branch: Optional[int] = None) -> ClusterBVH:
+    """Host-side build over ALREADY renumbered triangles (cluster.py:324-430).
+
+    vertices: (T, 3, 3) float32 in ``cluster_order`` order. ``blk_branch``
+    also builds the blocked layout from the numpy intermediates. Leaves are
+    host numpy arrays; ``ClusterBVH.to`` moves them to a device.
     """
     vertices = np.asarray(vertices, np.float32)
     num_tris = vertices.shape[0]
-
-    num_clusters = max(1, -(-num_tris // CLUSTER_WIDTH))
-    num_clusters = -(-num_clusters // CLUSTER_PAD) * CLUSTER_PAD
+    num_clusters = padded_clusters(num_tris)
 
     tri_ids = np.full(num_clusters * CLUSTER_WIDTH, -1, np.int64)
     tri_ids[:num_tris] = np.arange(num_tris)
@@ -142,4 +239,15 @@ def build_cluster_bvh(vertices: np.ndarray) -> ClusterBVH:
     clu_bbox[has_any, 3:6] = vmax[has_any]
     tri_const[:, 15, 0:8] = clu_bbox
 
-    return ClusterBVH(tri_const=tri_const, clu_bbox=clu_bbox, num_triangles=num_tris)
+    blk = blk_bbox_t = None
+    if blk_branch is not None:
+        blk, blk_bbox_t = _build_blocks_np(tri_const, clu_bbox, blk_branch)
+    return ClusterBVH(
+        tri_const=tri_const,
+        clu_bbox=clu_bbox,
+        num_triangles=num_tris,
+        clu_bbox_t=_bbox_t(clu_bbox, has_any),
+        blk_const=blk,
+        blk_bbox_t=blk_bbox_t,
+        blk_branch=0 if blk_branch is None else blk_branch,
+    )

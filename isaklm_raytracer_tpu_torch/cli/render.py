@@ -6,11 +6,14 @@ Usage:
       --camera 0 1.2 -1.8 0 0.15 --out renders/demo.png
 
 Port of ``isaklm_raytracer_tpu/cli/render.py`` for one device. Scenes: the
-procedural ``cornell`` and ``demo`` presets. It renders on the CUDA card
-when there is one, else on the CPU. The flags of features not
-ported yet (JSON manifests, the hero scene, checkpoints, several devices,
-multi-host, the interactive preview, running without the cluster tables)
-are rejected with an error that names them. Progress lines go to stderr.
+procedural ``cornell``, ``demo`` and ``hero`` presets (``hero`` is the
+2M-triangle ``hero_scene()``). It renders on the device that ``--device``
+names: ``cuda`` (the default) raises when there is no card, ``cpu`` runs
+the plain PyTorch versions of the kernels (the counterpart of the JAX CLI
+honouring JAX_PLATFORMS). The flags of features not ported yet (JSON
+manifests, checkpoints, several devices, multi-host, the interactive
+preview, running without the cluster tables) are rejected with an error
+that names them. Progress lines go to stderr.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ import time
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--scene", default="cornell", help="cornell | demo")
+    p.add_argument("--scene", default="cornell", help="cornell | demo | hero")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="render on the CUDA card (the default; raises without one) "
+                        "or on the CPU")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--min-samples", type=int, default=100)
@@ -51,8 +57,8 @@ def parse_args(argv=None):
 
 def _reject_unported(args) -> None:
     unported = []
-    if args.scene not in ("cornell", "demo"):
-        unported.append(f"--scene {args.scene} (only cornell and demo are ported)")
+    if args.scene not in ("cornell", "demo", "hero"):
+        unported.append(f"--scene {args.scene} (only cornell, demo and hero are ported)")
     if args.checkpoint:
         unported.append("--checkpoint")
     if args.devices not in ("auto", "1"):
@@ -81,12 +87,21 @@ def main(argv=None) -> int:
     from isaklm_raytracer_tpu_torch.camera import Camera
     from isaklm_raytracer_tpu_torch.config import RenderConfig
     from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
-    from isaklm_raytracer_tpu_torch.integrator.render import render, resolve_image
+    from isaklm_raytracer_tpu_torch.integrator.render import (
+        intersector_name,
+        render,
+        resolve_image,
+    )
     from isaklm_raytracer_tpu_torch.io.png import save_png
     from isaklm_raytracer_tpu_torch.scene import procedural
     from isaklm_raytracer_tpu_torch.scene.types import GBuffer
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda: no CUDA card (torch.cuda.is_available() is False); "
+            "pass --device cpu to render on the CPU"
+        )
+    device = torch.device(args.device)
     # every rate line names what it was measured on
     device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     config = RenderConfig(
@@ -102,14 +117,17 @@ def main(argv=None) -> int:
     t0 = time.time()
     if args.scene == "cornell":
         scene = procedural.cornell_box(glossy=True)
-    else:
+    elif args.scene == "demo":
         scene = procedural.material_demo_scene()
+    else:
+        scene = procedural.hero_scene()
     scene = prepare_scene(scene, device)
     print(
         f"triangle count: {scene.num_triangles}\n"
         f"light count: {scene.num_lights if scene.has_lights else 0}\n"
         f"scene build: {time.time() - t0:.1f}s\n"
-        f"device: {device} ({device_name})",
+        f"device: {device} ({device_name})\n"
+        f"intersector: {intersector_name(scene.cbvh)}",
         file=sys.stderr,
     )
 

@@ -14,9 +14,10 @@
 // Per ray the running best starts at (t_max, 2^31-1) and the triangles are
 // walked in id order with a strict `<` update, so ties go to the lowest id.
 // The test is `_make_intersect` (intersect.py:225-254) operation for
-// operation; the library is built with --fmad=false so that every product
-// and sum rounds as in the plain PyTorch version, which makes the two agree
-// bit for bit.
+// operation (`tri_hit` of intersect_common.cuh, shared with the queue and
+// blocked kernels); the library is built with --fmad=false so that every
+// product and sum rounds as in the plain PyTorch version, which makes the
+// two agree bit for bit.
 //
 // What bounds it on the H100: about 40 flops per ray per triangle and no
 // memory traffic to speak of (a 6-cluster table is 48 KB, a ray 32 bytes),
@@ -30,17 +31,16 @@
 // help stage the tiles; a block whose rays are all inactive returns at
 // once, which replaces the TPU path's Morton sort of dead lanes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "intersect_common.cuh"
 
 namespace {
 
-constexpr int kWidth = 128;        // triangles per cluster (lanes)
-constexpr int kTileRows = 16;      // rows of one cluster tile in memory
+using isaklm::kBigId;
+using isaklm::kTileRows;
+using isaklm::kWidth;
+
 constexpr int kRows = 15;          // rows the test reads (row 15 is the bbox)
 constexpr int kThreads = 128;      // rays per block
-constexpr int kBigId = 0x7FFFFFFF;
-constexpr float kMiss = 3.4e38f;   // intersect.py _INF
 
 __global__ void __launch_bounds__(kThreads)
 flat_intersect_kernel(const float* __restrict__ tri, int num_clusters,
@@ -85,22 +85,9 @@ flat_intersect_kernel(const float* __restrict__ tri, int num_clusters,
         const float np1 = e.y, p1e1 = e.z, p1e2 = e.w;
         const float ca = f.x, cb = f.y, cc = f.z;
 
-        const float ddn = dx * nx + dy * ny + dz * nz;
-        const float odn = ox * nx + oy * ny + oz * nz;
-        const float s = (np1 - odn) / ddn;
-        const float de1 = dx * e1x + dy * e1y + dz * e1z;
-        const float oe1 = ox * e1x + oy * e1y + oz * e1z;
-        const float d20 = oe1 + s * de1 - p1e1;
-        const float de2 = dx * e2x + dy * e2y + dz * e2z;
-        const float oe2 = ox * e2x + oy * e2y + oz * e2z;
-        const float d21 = oe2 + s * de2 - p1e2;
-        const float bb = d20 * ca - d21 * cb;
-        const float c3 = d21 * cc - d20 * cb;
-        const float aa = 1.0f - bb - c3;
-        const bool inside = (aa >= 0.0f) & (aa <= 1.0f) & (bb >= 0.0f) &
-                            (bb <= 1.0f) & (c3 >= 0.0f) & (c3 <= 1.0f);
-        const bool valid = (ddn != 0.0f) & (s >= t_eps) & inside;
-        const float tval = valid ? s : kMiss;
+        const float tval = isaklm::tri_hit(ox, oy, oz, dx, dy, dz, nx, ny, nz,
+                                           e1x, e1y, e1z, e2x, e2y, e2z, np1,
+                                           p1e1, p1e2, ca, cb, cc, t_eps);
         if (tval < best_t) {
           best_t = tval;
           best_id = c * kWidth + lane;

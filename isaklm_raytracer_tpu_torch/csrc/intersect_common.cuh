@@ -1,0 +1,170 @@
+// Pieces shared by the intersector kernels of this directory.
+//
+// Port of the maths that the Pallas kernels of
+// isaklm_raytracer_tpu/kernels/intersect.py share:
+//   - `tri_hit`: the ray/triangle test `_make_intersect` (intersect.py:
+//     217-256), operation for operation, on one triangle slot of a
+//     (16, 128) cluster tile (accel/cluster.py layout);
+//   - `slab`: the NaN-conservative slab test of `_make_box_any` and
+//     `_dense_near` (intersect.py:121-149, 155-197);
+//   - `accept`: the running-best update of the shared output contract.
+// Every library that includes this file is built with --fmad=false, so
+// each product and sum rounds as in the plain PyTorch versions.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace isaklm {
+
+constexpr int kWidth = 128;        // triangles per cluster (lanes)
+constexpr int kTileRows = 16;      // rows of one cluster tile in memory
+constexpr int kTile = kTileRows * kWidth;  // floats per tile
+constexpr int kBigId = 0x7FFFFFFF; // "no triangle won" (the seed id)
+constexpr float kMiss = 3.4e38f;   // intersect.py _INF: a rejected candidate
+
+// One ray of the (R, 8) [ox oy oz dx dy dz active t_max] layout, with the
+// reciprocal direction the slab test needs (1/+-0 = +-inf).
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float ix, iy, iz;
+  float t_max;
+  bool active;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int64_t r) {
+  const float4* row = reinterpret_cast<const float4*>(rays + 8 * r);
+  const float4 a = row[0];  // ox oy oz dx
+  const float4 b = row[1];  // dy dz active t_max
+  Ray ray;
+  ray.ox = a.x; ray.oy = a.y; ray.oz = a.z;
+  ray.dx = a.w; ray.dy = b.x; ray.dz = b.y;
+  ray.ix = 1.0f / ray.dx; ray.iy = 1.0f / ray.dy; ray.iz = 1.0f / ray.dz;
+  ray.active = b.z > 0.0f;
+  ray.t_max = b.w;
+  return ray;
+}
+
+// The candidate t of one triangle slot, or kMiss when the test rejects it.
+// The constants are rows 0-14 of the slot: n, e1, e2, n.p1, p1.e1, p1.e2
+// and the three Cramer coefficients. Pad slots are all zeros: ddn == 0.
+__device__ __forceinline__ float tri_hit(
+    float ox, float oy, float oz, float dx, float dy, float dz,
+    float nx, float ny, float nz, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, float np1, float p1e1, float p1e2,
+    float ca, float cb, float cc, float t_eps) {
+  const float ddn = dx * nx + dy * ny + dz * nz;
+  const float odn = ox * nx + oy * ny + oz * nz;
+  const float s = (np1 - odn) / ddn;
+  const float de1 = dx * e1x + dy * e1y + dz * e1z;
+  const float oe1 = ox * e1x + oy * e1y + oz * e1z;
+  const float d20 = oe1 + s * de1 - p1e1;
+  const float de2 = dx * e2x + dy * e2y + dz * e2z;
+  const float oe2 = ox * e2x + oy * e2y + oz * e2z;
+  const float d21 = oe2 + s * de2 - p1e2;
+  const float bb = d20 * ca - d21 * cb;
+  const float c3 = d21 * cc - d20 * cb;
+  const float aa = 1.0f - bb - c3;
+  const bool inside = (aa >= 0.0f) & (aa <= 1.0f) & (bb >= 0.0f) &
+                      (bb <= 1.0f) & (c3 >= 0.0f) & (c3 <= 1.0f);
+  const bool valid = (ddn != 0.0f) & (s >= t_eps) & inside;
+  return valid ? s : kMiss;
+}
+
+// The running best of the shared contract. It starts at (t_max, kBigId).
+// A candidate wins if it is nearer, or as near with a lower id than a
+// triangle that already won: ties go to the lowest id whatever order the
+// clusters are visited in, and a candidate at exactly t_max never beats
+// the seed.
+__device__ __forceinline__ void accept(float t, int id, float& best_t, int& best_id) {
+  if (t < best_t || (t == best_t && best_id != kBigId && id < best_id)) {
+    best_t = t;
+    best_id = id;
+  }
+}
+
+// Intersects every slot of one (16, 128) tile in device memory, rows
+// k * 128 + lane; `base` is the id of lane 0. The threads of a warp that
+// walk the same tile read the same addresses (broadcast loads).
+__device__ __forceinline__ void intersect_tile(
+    const float* __restrict__ tile, int base, const Ray& r, float t_eps,
+    float& best_t, int& best_id) {
+  for (int lane = 0; lane < kWidth; ++lane) {
+    const float* q = tile + lane;
+    const float t = tri_hit(
+        r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+        __ldg(q + 0 * kWidth), __ldg(q + 1 * kWidth), __ldg(q + 2 * kWidth),
+        __ldg(q + 3 * kWidth), __ldg(q + 4 * kWidth), __ldg(q + 5 * kWidth),
+        __ldg(q + 6 * kWidth), __ldg(q + 7 * kWidth), __ldg(q + 8 * kWidth),
+        __ldg(q + 9 * kWidth), __ldg(q + 10 * kWidth), __ldg(q + 11 * kWidth),
+        __ldg(q + 12 * kWidth), __ldg(q + 13 * kWidth), __ldg(q + 14 * kWidth),
+        t_eps);
+    accept(t, base + lane, best_t, best_id);
+  }
+}
+
+// Slab test of one box (min xyz, max xyz) against a ray. Returns whether
+// the ray pierces it and, if so, the entry distance clamped at 0.
+// Conservative under NaN, as the Pallas kernels: an origin on a slab with
+// a zero direction component gives 0 * inf = NaN, every comparison with
+// NaN is false, so the box counts as pierced and its entry is 0 (visit
+// first). jnp.minimum/maximum propagate NaN where fminf/fmaxf drop it, so
+// the NaN case is decided before them.
+__device__ __forceinline__ bool slab(
+    float bx0, float by0, float bz0, float bx1, float by1, float bz1,
+    const Ray& r, float t_eps, float& entry) {
+  const float t1x = (bx0 - r.ox) * r.ix, t2x = (bx1 - r.ox) * r.ix;
+  const float t1y = (by0 - r.oy) * r.iy, t2y = (by1 - r.oy) * r.iy;
+  const float t1z = (bz0 - r.oz) * r.iz, t2z = (bz1 - r.oz) * r.iz;
+  if ((t1x != t1x) | (t2x != t2x) | (t1y != t1y) | (t2y != t2y) |
+      (t1z != t1z) | (t2z != t2z)) {
+    entry = 0.0f;
+    return true;
+  }
+  const float near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  if ((near > far) | (far < t_eps)) return false;
+  entry = fmaxf(near, 0.0f);
+  return true;
+}
+
+// The next box of a front-to-back walk over `n` component-major boxes in
+// shared memory (rows 0-5 min/max xyz, row 6 validity; row k of box i at
+// boxes[k * n + i]): the pierced valid box with the least (entry, index)
+// after the cursor (cur_e, cur_i) whose entry is at most best_t. Returns
+// its index, or -1; its entry goes to `entry`. A box behind the cursor
+// was visited or had its entry beyond an earlier best_t, which only
+// shrinks, so the cursor needs no visited set.
+__device__ __forceinline__ int next_box(
+    const float* __restrict__ boxes, int n, const Ray& r, float t_eps,
+    float best_t, float cur_e, int cur_i, float& entry) {
+  int best = -1;
+  float best_e = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    if (!(boxes[6 * n + i] > 0.0f)) continue;
+    float e;
+    if (!slab(boxes[i], boxes[n + i], boxes[2 * n + i], boxes[3 * n + i],
+              boxes[4 * n + i], boxes[5 * n + i], r, t_eps, e)) continue;
+    if (e > best_t) continue;
+    if (e < cur_e || (e == cur_e && i <= cur_i)) continue;
+    if (best < 0 || e < best_e) {  // i ascends: ties keep the lower index
+      best = i;
+      best_e = e;
+    }
+  }
+  entry = best_e;
+  return best;
+}
+
+// Copies rows 0-6 of a component-major (8, stride) box table, boxes
+// [0, n), to shared memory as boxes[k * n + i].
+__device__ __forceinline__ void stage_boxes(
+    const float* __restrict__ table, int stride, int n, float* boxes) {
+  for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) {
+    const int k = i / n, b = i - k * n;
+    boxes[i] = table[(int64_t)k * stride + b];
+  }
+}
+
+}  // namespace isaklm

@@ -15,6 +15,7 @@ bit-identical to the masked full step.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -26,51 +27,78 @@ from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
 from isaklm_raytracer_tpu_torch.integrator.path_trace import trace_paths
 from isaklm_raytracer_tpu_torch.kernels.intersect import (
     FLAT_CLUSTER_LIMIT,
+    VMEM_TABLE_LIMIT,
+    nearest_hit_blk,
     nearest_hit_flat,
+    nearest_hit_queue,
 )
 from isaklm_raytracer_tpu_torch.math import rng
 from isaklm_raytracer_tpu_torch.math.color import correct_color, luminance
 from isaklm_raytracer_tpu_torch.scene.types import GBuffer, Scene
 
-# The JAX package's budget for its VMEM-resident queue kernel; scenes over
-# FLAT_CLUSTER_LIMIT clusters pick that kernel below it and the blocked
-# kernel above it (integrator/render.py intersector_name).
-VMEM_TABLE_LIMIT = 6 * 1024 * 1024
+# The JAX package's intersector names (ISAKLM_INTERSECTOR). The port has the
+# first three; each other one names the ROADMAP item that ports it.
+_INTERSECTORS = {
+    "flat": nearest_hit_flat,
+    "queue": nearest_hit_queue,
+    "blk": nearest_hit_blk,
+}
+_UNPORTED = {
+    "flat_mxu": "ROADMAP B7 (_flat_mxu_kernel)",
+    "hbm": "ROADMAP B6 (_hbm_kernel)",
+    "blk_mxu": "ROADMAP B7 (_blk_kernel with mxu=True)",
+}
 
 
-def intersector_name(cbvh, device) -> str:
-    """The intersector for a prepared scene, picked like the JAX package's
-    ``intersector_name``: "flat" for at most FLAT_CLUSTER_LIMIT real
-    clusters. On the CPU the flat contract's plain version serves any size;
-    on CUDA a larger scene needs a kernel not ported yet, and this raises
-    rather than take another path."""
-    if cbvh.real_clusters <= FLAT_CLUSTER_LIMIT or torch.device(device).type != "cuda":
-        return "flat"
-    table_bytes = cbvh.num_clusters * 16 * 128 * 4
-    kernel = (
-        "_vmem_kernel (nearest_hit_cluster)"
-        if table_bytes <= VMEM_TABLE_LIMIT
-        else "_blk_kernel (nearest_hit_cluster_blk)"
-    )
-    raise NotImplementedError(
-        f"scene has {cbvh.real_clusters} real clusters (> {FLAT_CLUSTER_LIMIT}); "
-        f"on CUDA it needs {kernel} of isaklm_raytracer_tpu/kernels/intersect.py, "
-        "which is not ported yet"
-    )
+def intersector_name(cbvh) -> str:
+    """The intersector for a prepared scene, picked by the JAX package's
+    auto rule: "flat" for at most FLAT_CLUSTER_LIMIT real clusters, "queue"
+    for a cluster table of at most VMEM_TABLE_LIMIT bytes, "blk" above it.
+    The same name serves every device: its kernel on CUDA, its plain
+    version on the CPU.
+
+    ISAKLM_INTERSECTOR overrides the rule with flat, queue or blk; the JAX
+    package's other names raise NotImplementedError with the ROADMAP item
+    that ports them, and an unknown name or a missing table raises
+    ValueError, as in the JAX package."""
+    override = os.environ.get("ISAKLM_INTERSECTOR", "auto")
+    if override != "auto":
+        if override in _UNPORTED:
+            raise NotImplementedError(
+                f"ISAKLM_INTERSECTOR={override!r} is not ported yet: {_UNPORTED[override]}"
+            )
+        if override not in _INTERSECTORS:
+            raise ValueError(
+                f"ISAKLM_INTERSECTOR={override!r}: unknown intersector (expected one "
+                f"of {(*_INTERSECTORS, *_UNPORTED)} or 'auto')"
+            )
+        name = override
+    elif cbvh.real_clusters <= FLAT_CLUSTER_LIMIT:
+        name = "flat"
+    elif cbvh.vmem_bytes <= VMEM_TABLE_LIMIT:
+        name = "queue"
+    else:
+        name = "blk"
+    if name == "blk" and cbvh.blk_const is None:
+        raise ValueError(
+            "the blk intersector needs cbvh.blk_const: prepare_scene builds it for "
+            "scenes over VMEM_TABLE_LIMIT, accel.with_blocks for any scene"
+        )
+    return name
 
 
 def make_trace_fn(scene: Scene, config: RenderConfig):
     """The intersector: trace(o, d, active=None, t_max=None) -> (t, idx, hit).
-    The flat intersector for a prepared scene. A scene without cluster
-    tables gets the brute-force oracle on the CPU; on CUDA it raises, since
-    every nearest-hit query there goes through the kernel."""
+    For a prepared scene, the one ``intersector_name`` picks. A scene
+    without cluster tables gets the brute-force oracle on the CPU; on CUDA
+    it raises, since every nearest-hit query there goes through a kernel."""
     if scene.cbvh is not None:
-        intersector_name(scene.cbvh, scene.device)
-        return functools.partial(nearest_hit_flat, scene.cbvh, t_eps=config.t_epsilon)
+        trace = _INTERSECTORS[intersector_name(scene.cbvh)]
+        return functools.partial(trace, scene.cbvh, t_eps=config.t_epsilon)
     if torch.device(scene.device).type == "cuda":
         raise ValueError(
             "scene has no cluster tables: call accel.prepare_scene first (on CUDA "
-            "every nearest-hit query goes through the flat kernel)"
+            "every nearest-hit query goes through a kernel)"
         )
     return functools.partial(
         nearest_hit_brute, vertices=scene.vertices, t_eps=config.t_epsilon

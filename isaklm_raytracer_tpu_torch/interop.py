@@ -14,7 +14,8 @@ Scene dict layout (keys as the Scene fields):
   materials: {albedo, emittance, roughness, ior, extinction, transparent, tex_id},
   textures: {buffer, offset, width, height},
   shade_table (may be None),
-  cbvh (may be None): {tri_const, clu_bbox, num_triangles}.
+  cbvh (may be None): {tri_const, clu_bbox, num_triangles, clu_bbox_t,
+    blk_const, blk_bbox_t, blk_branch} (the blocked tables may be None).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ _MATERIALS = ("albedo", "emittance", "roughness", "ior", "extinction", "transpar
 _TEXTURES = ("buffer", "offset", "width", "height")
 _CAMERA = ("position", "yaw", "pitch", "fov", "aperture_radius")
 _GBUFFER = ("frame", "sq_luminance", "count")
+_CBVH = ("tri_const", "clu_bbox", "clu_bbox_t", "blk_const", "blk_bbox_t")
 
 
 def _np(x) -> np.ndarray:
@@ -45,6 +47,8 @@ def _np(x) -> np.ndarray:
 
 
 def _tensor(x, device) -> torch.Tensor:
+    if x is None:
+        return None
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
@@ -62,9 +66,10 @@ def scene_to_numpy(scene) -> dict:
         "textures": _leaves(scene.textures, _TEXTURES),
         "shade_table": None if scene.shade_table is None else _np(scene.shade_table),
         "cbvh": None if cbvh is None else {
-            "tri_const": _np(cbvh.tri_const),
-            "clu_bbox": _np(cbvh.clu_bbox),
+            **{k: None if getattr(cbvh, k) is None else _np(getattr(cbvh, k))
+               for k in _CBVH},
             "num_triangles": int(cbvh.num_triangles),
+            "blk_branch": int(cbvh.blk_branch),
         },
     }
 
@@ -82,9 +87,9 @@ def scene_from_numpy(leaves: dict, device="cpu") -> Scene:
             **{k: _tensor(leaves["textures"][k], device) for k in _TEXTURES}
         ),
         cbvh=None if cbvh is None else ClusterBVH(
-            tri_const=_tensor(cbvh["tri_const"], device),
-            clu_bbox=_tensor(cbvh["clu_bbox"], device),
+            **{k: _tensor(cbvh.get(k), device) for k in _CBVH},
             num_triangles=int(cbvh["num_triangles"]),
+            blk_branch=int(cbvh.get("blk_branch", 0)),
         ),
         shade_table=None if shade is None else _tensor(shade, device),
         has_lights=bool(leaves["has_lights"]),

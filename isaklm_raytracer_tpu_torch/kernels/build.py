@@ -2,8 +2,9 @@
 
 Each source is compiled by nvcc alone into a shared library with a plain C
 interface, which ``ctypes`` loads; nothing includes PyTorch's headers, so a
-build takes seconds. The library file name carries a hash of the source and
-the flags, so a stale build is never loaded. Libraries go to ``_build/``
+build takes seconds. The library file name carries a hash of the source,
+of every header of ``csrc/`` and of the flags, so a stale build is never
+loaded, not even after a change to a shared header. Libraries go to ``_build/``
 inside the package (listed in .gitignore).
 """
 
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -46,11 +48,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+    """Where the library built from ``csrc/<source>`` lives: the name
+    hashes the source, every ``csrc/*.cuh`` (name and bytes) and the flags."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(source: str, rebuild: bool = False) -> tuple[Path, float, str]:
@@ -76,6 +80,14 @@ def build(source: str, rebuild: bool = False) -> tuple[Path, float, str]:
         )
     os.replace(tmp, out)  # atomic: a reader never sees half a library
     return out, seconds, proc.stdout + proc.stderr
+
+
+def build_all(sources, rebuild: bool = False) -> dict:
+    """``build`` of every source at once, one nvcc process each, all
+    started together. Returns {source: build's result}."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        futures = {s: pool.submit(build, s, rebuild) for s in sources}
+        return {s: f.result() for s, f in futures.items()}
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -2,8 +2,10 @@
 
 Port of the small-scene part of ``isaklm_raytracer_tpu/scene/procedural.py``
 in numpy, so that the port builds its scenes without the JAX package.
-The same arithmetic gives the same float32 geometry. ``hero_scene``,
-``glass_box_scene`` and ``triangle_soup`` are not ported yet.
+The same arithmetic and the same RNG streams give the same float32
+geometry: the Cornell box, the textured demo, the glass box, the random
+triangle soup and the hero scene (terrain + icosphere field, 2M triangles
+by default).
 """
 
 from __future__ import annotations
@@ -239,3 +241,175 @@ def _add_icosphere(b: SceneBuilder, center, radius, mat: int, subdiv: int = 1):
             n2=b_,
             n3=c,
         )
+
+
+def glass_box_scene(subdiv: int = 2) -> Scene:
+    """Cornell-style box dominated by a large transparent sphere -- the
+    worst case for a bounded bounce loop: inside the glass the specular
+    weight is forced to 1 (path_tracing.cuh:194) and throughput stays
+    ~0.995 per bounce, so Russian roulette kills slowly and deep chains
+    carry real energy. Used to QUANTIFY the max_bounces truncation bias
+    (the reference loop is unbounded, path_tracing.cuh:279-319)."""
+    b = SceneBuilder()
+    ior = 1.25
+    white = b.add_material(albedo=(0.73, 0.73, 0.73), roughness=0.3, ior=ior)
+    glass = b.add_material(
+        albedo=(0.995, 0.995, 0.995), roughness=0.001, ior=1.51, transparent=1.0
+    )
+    light = b.add_material(
+        albedo=(0.78, 0.78, 0.78), emittance=(15.0, 15.0, 15.0),
+        roughness=0.3, ior=ior,
+    )
+    lo, hi = -1.0, 1.0
+    b.add_quad((lo, lo, lo), (hi, lo, lo), (hi, lo, hi), (lo, lo, hi), white)
+    b.add_quad((lo, hi, hi), (hi, hi, hi), (hi, hi, lo), (lo, hi, lo), white)
+    b.add_quad((lo, lo, hi), (hi, lo, hi), (hi, hi, hi), (lo, hi, hi), white)
+    b.add_quad((lo, lo, lo), (lo, lo, hi), (lo, hi, hi), (lo, hi, lo), white)
+    b.add_quad((hi, lo, hi), (hi, lo, lo), (hi, hi, lo), (hi, hi, hi), white)
+    s = 0.4
+    y = hi - 1e-3
+    b.add_quad((-s, y, s), (s, y, s), (s, y, -s), (-s, y, -s), light)
+    _add_icosphere(b, center=(0.0, -0.3, 0.2), radius=0.55, mat=glass,
+                   subdiv=subdiv)
+    return b.build()
+
+
+def triangle_soup(
+    num_triangles: int, seed: int = 0, extent: float = 10.0, tri_size: float = 0.35
+) -> Scene:
+    """Random diffuse triangles in a cube -- KD-tree stress fixture."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-extent, extent, (num_triangles, 1, 3)).astype(np.float32)
+    offsets = rng.normal(0.0, tri_size, (num_triangles, 3, 3)).astype(np.float32)
+    vertices = centers + offsets
+
+    b = SceneBuilder()
+    white = b.add_material(albedo=(0.7, 0.7, 0.7), roughness=0.4, ior=1.0001)
+    light = b.add_material(albedo=(1, 1, 1), emittance=(30.0, 30.0, 30.0))
+    del white, light
+
+    edge1 = vertices[:, 1] - vertices[:, 0]
+    edge2 = vertices[:, 2] - vertices[:, 0]
+    geo_n = np.cross(edge1, edge2)
+    lens = np.linalg.norm(geo_n, axis=-1, keepdims=True)
+    geo_n = geo_n / np.where(lens > 0, lens, 1.0)
+    normals = np.repeat(geo_n[:, None, :], 3, axis=1)
+    uvs = np.ones((num_triangles, 3, 2), np.float32)
+    mat_id = np.zeros(num_triangles, np.int32)
+    mat_id[: max(num_triangles // 100, 1)] = 1  # a few emitters
+
+    return build_scene(
+        vertices,
+        normals,
+        uvs,
+        mat_id,
+        MaterialTable.stack(b.materials),
+    )
+
+
+def hero_scene(num_triangles: int = 2_000_000, seed: int = 7) -> Scene:
+    """~2M-triangle interior: displaced height-field terrain + icosphere
+    field inside a lit box (stand-in for the stripped README hero scene,
+    README.md:12)."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    ior = 1.25
+    white = b.add_material(albedo=(0.73, 0.73, 0.73), roughness=0.3, ior=ior)
+    gold = b.add_material(
+        albedo=(0.97, 0.74, 0.33), roughness=0.05, ior=0.27732, extinction=2.9278
+    )
+    glass = b.add_material(
+        albedo=(0.995, 0.995, 0.995), roughness=0.001, ior=1.51, transparent=1.0
+    )
+    light = b.add_material(
+        albedo=(0.78, 0.78, 0.78), emittance=(40.0, 36.0, 28.0), roughness=0.3, ior=ior
+    )
+
+    # Room shell.
+    lo, hi, h = -8.0, 8.0, 8.0
+    b.add_quad((lo, h, hi), (hi, h, hi), (hi, h, lo), (lo, h, lo), white)
+    b.add_quad((lo, 0, hi), (hi, 0, hi), (hi, h, hi), (lo, h, hi), white)
+    s = 2.0
+    b.add_quad((-s, h - 1e-3, s), (s, h - 1e-3, s), (s, h - 1e-3, -s), (-s, h - 1e-3, -s), light)
+    shell = b.build()  # small builder part; we fuse arrays below
+
+    # Height-field floor: g x g grid -> 2 g^2 triangles; pick g to land near
+    # the target count after adding the sphere field.
+    sphere_budget = min(num_triangles // 5, 320 * 1280)
+    n_spheres = max(sphere_budget // 1280, 1)  # 1280 tris per subdiv-3 sphere
+    grid_tris = num_triangles - n_spheres * 1280
+    g = max(int(np.sqrt(grid_tris / 2.0)), 2)
+
+    xs = np.linspace(lo, hi, g + 1, dtype=np.float32)
+    zs = np.linspace(lo, hi, g + 1, dtype=np.float32)
+    xx, zz = np.meshgrid(xs, zs, indexing="ij")
+    yy = (
+        0.35 * np.sin(xx * 1.7) * np.cos(zz * 1.3)
+        + 0.15 * np.sin(xx * 5.1 + 1.0) * np.sin(zz * 4.3)
+    ).astype(np.float32)
+    pts = np.stack([xx, yy, zz], axis=-1)  # (g+1, g+1, 3)
+
+    p00 = pts[:-1, :-1].reshape(-1, 3)
+    p10 = pts[1:, :-1].reshape(-1, 3)
+    p11 = pts[1:, 1:].reshape(-1, 3)
+    p01 = pts[:-1, 1:].reshape(-1, 3)
+    tri1 = np.stack([p00, p10, p11], axis=1)
+    tri2 = np.stack([p00, p11, p01], axis=1)
+    grid_vertices = np.concatenate([tri1, tri2], axis=0)
+
+    e1 = grid_vertices[:, 1] - grid_vertices[:, 0]
+    e2 = grid_vertices[:, 2] - grid_vertices[:, 0]
+    gn = np.cross(e1, e2)
+    lens = np.linalg.norm(gn, axis=-1, keepdims=True)
+    gn = gn / np.where(lens > 0, lens, 1.0)
+    flip = gn[:, 1:2] < 0  # keep floor normals up
+    gn = np.where(flip, -gn, gn)
+    grid_normals = np.repeat(gn[:, None, :], 3, axis=1)
+
+    # Sphere field: ONE subdiv-3 icosphere template (1280 tris), instanced
+    # by broadcast -- building 320 spheres triangle-by-triangle through
+    # SceneBuilder took minutes of host time at 2M-tri scale.
+    tb = SceneBuilder()
+    _add_icosphere(tb, (0.0, 0.0, 0.0), 1.0, 0, subdiv=3)
+    unit_v = np.stack(tb.vertices)  # (1280, 3, 3)
+    unit_n = np.stack(tb.normals)  # (1280, 3, 3) smooth normals
+
+    mats = rng.choice([white, gold, glass], n_spheres, p=[0.5, 0.3, 0.2])
+    # Draw per-sphere randoms in the same interleaved order as the round-3
+    # per-sphere loop: same RNG stream, matching geometry up to f32
+    # rounding (the old loop scaled in float64 and rounded once; the
+    # broadcast below rounds radii to f32 first, so last-ulp vertex
+    # differences are possible).
+    cxz = np.empty((n_spheres, 2))
+    radii = np.empty(n_spheres)
+    cy = np.empty(n_spheres)
+    for i in range(n_spheres):
+        cxz[i] = rng.uniform(lo + 1, hi - 1, 2)
+        radii[i] = rng.uniform(0.15, 0.45)
+        cy[i] = 1.0 + rng.uniform(0, 2.5)
+    centers = np.stack([cxz[:, 0], cy, cxz[:, 1]], axis=1).astype(np.float32)
+
+    sphere_vertices = (
+        unit_v[None] * radii[:, None, None, None].astype(np.float32)
+        + centers[:, None, None, :]
+    ).reshape(-1, 3, 3).astype(np.float32)
+    sphere_normals = np.broadcast_to(
+        unit_n[None], (n_spheres,) + unit_n.shape
+    ).reshape(-1, 3, 3).astype(np.float32)
+    sphere_mat = np.repeat(mats.astype(np.int32), unit_v.shape[0])
+
+    vertices = np.concatenate(
+        [np.asarray(shell.vertices), grid_vertices, sphere_vertices]
+    )
+    normals = np.concatenate(
+        [np.asarray(shell.normals), grid_normals, sphere_normals]
+    )
+    uvs = np.ones((len(vertices), 3, 2), np.float32)
+    mat_id = np.concatenate(
+        [
+            np.asarray(shell.mat_id),
+            np.zeros(len(grid_vertices), np.int32),  # white floor
+            sphere_mat,
+        ]
+    )
+    return build_scene(vertices, normals, uvs, mat_id, MaterialTable.stack(b.materials))

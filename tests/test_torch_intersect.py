@@ -14,6 +14,8 @@ and skips without one. ``python3 chip_smoke.py`` checks the kernel on the
 card at the main path's shapes.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ from isaklm_raytracer_tpu.accel.cluster import build_cluster_bvh as jbuild
 from isaklm_raytracer_tpu.accel.cluster import cluster_order as jorder
 from isaklm_raytracer_tpu.accel.traverse import nearest_hit_brute as jbrute
 from isaklm_raytracer_tpu.kernels.intersect import nearest_hit_cluster_flat
-from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh
+from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh, with_blocks
 from isaklm_raytracer_tpu_torch.accel.traverse import nearest_hit_brute
 from isaklm_raytracer_tpu_torch.integrator.render import intersector_name
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
@@ -112,14 +114,56 @@ def test_cpu_wrapper_runs_plain_version_without_launch():
         ki.flat_intersect(tri.double(), rays, 1e-5)
 
 
-def test_large_scene_on_cuda_names_the_kernel_to_port():
+def test_intersector_selection_by_size_and_override(monkeypatch):
+    """The JAX package's auto rule, on every device: flat up to 64 real
+    clusters, queue up to a 6 MB cluster table (768 clusters), blk above;
+    ISAKLM_INTERSECTOR picks flat, queue or blk, and the JAX package's other
+    names raise with the ROADMAP item that ports them."""
     r = np.random.default_rng(2)
-    cbvh = build_cluster_bvh(_soup(r, 65 * 128))
-    assert cbvh.real_clusters == 65
-    assert intersector_name(cbvh, "cpu") == "flat"
-    with pytest.raises(NotImplementedError, match="_vmem_kernel"):
-        intersector_name(cbvh, "cuda")
-    assert intersector_name(build_cluster_bvh(_soup(r, 64 * 128)), "cuda") == "flat"
+    monkeypatch.delenv("ISAKLM_INTERSECTOR", raising=False)
+    flat = build_cluster_bvh(_soup(r, 64 * 128))
+    queue = build_cluster_bvh(_soup(r, 65 * 128))
+    assert (flat.real_clusters, queue.real_clusters) == (64, 65)
+    assert intersector_name(flat) == "flat"
+    assert intersector_name(queue) == "queue"
+    big = SimpleNamespace(real_clusters=769, vmem_bytes=832 * 16 * 128 * 4, blk_const=None)
+    with pytest.raises(ValueError, match="blk_const"):
+        intersector_name(big)
+    big.blk_const = np.zeros((7, 129, 16, 128), np.float32)
+    assert intersector_name(big) == "blk"
+    for name in ("flat", "queue"):
+        monkeypatch.setenv("ISAKLM_INTERSECTOR", name)
+        assert intersector_name(queue) == name
+    monkeypatch.setenv("ISAKLM_INTERSECTOR", "blk")
+    with pytest.raises(ValueError, match="with_blocks"):
+        intersector_name(queue)
+    assert intersector_name(with_blocks(queue.to("cpu"), 16)) == "blk"
+    for name, item in (("hbm", "B6"), ("flat_mxu", "B7"), ("blk_mxu", "B7")):
+        monkeypatch.setenv("ISAKLM_INTERSECTOR", name)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            intersector_name(queue)
+    monkeypatch.setenv("ISAKLM_INTERSECTOR", "nope")
+    with pytest.raises(ValueError, match="unknown intersector"):
+        intersector_name(queue)
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """A changed header shared by the kernels gives a new library name, so a
+    stale build is never loaded; no nvcc needed."""
+    from isaklm_raytracer_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    first = build.library_path("k.cu")
+    assert build.library_path("k.cu") == first
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    second = build.library_path("k.cu")
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = build.library_path("k.cu")
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edit\n')
+    assert len({first, second, third, build.library_path("k.cu")}) == 4
+    assert first.name.startswith("libk_") and first.suffix == ".so"
 
 
 @pytest.mark.cuda
@@ -141,3 +185,33 @@ def test_cuda_kernel_matches_plain_version_bit_for_bit():
         pt, pid = ki.flat_intersect_plain(tri, rays, 1e-5)
         torch.cuda.synchronize()
         assert torch.equal(kt, pt) and torch.equal(kid, pid), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["queue", "blk"])
+def test_cuda_walk_kernels_match_plain_versions(kernel):
+    """The queue and blocked kernels against their plain versions on the
+    card, at the bench's ray counts: bit for bit, pruning included (a
+    difference would need a cluster entry rounded past a hit inside it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    r = np.random.default_rng(4)
+    verts = _soup(r, 17000)
+    cbvh = build_cluster_bvh(verts, blk_branch=16).to("cuda")
+    if kernel == "queue":
+        args, run, plain = (cbvh.clu_bbox_t, cbvh.tri_const), ki.queue_intersect, ki.queue_intersect_plain
+    else:
+        args, run, plain = (cbvh.blk_bbox_t, cbvh.blk_const), ki.blk_intersect, ki.blk_intersect_plain
+    for n in (2048, 777):
+        for case in sorted(CASES):
+            o, d = _rays(r, n)
+            act, t_max = CASES[case](r, n)
+            rays = ki.prep_rays(
+                torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda(),
+                None if act is None else torch.from_numpy(act).cuda(),
+                None if t_max is None else torch.from_numpy(t_max).cuda(),
+            )
+            kt, kid = run(*args, rays, 1e-5)
+            pt, pid = plain(*args, rays, 1e-5)
+            torch.cuda.synchronize()
+            assert torch.equal(kt, pt) and torch.equal(kid, pid), (kernel, n, case)

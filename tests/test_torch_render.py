@@ -151,19 +151,29 @@ def test_cli_renders_png(tmp_path):
     assert cli.main([
         "--scene", "demo", "--width", "32", "--height", "32", "--max-bounces", "3",
         "--min-samples", "2", "--max-samples", "4", "--camera", "0", "1.2", "-1.8", "0", "0.15",
-        "--out", out,
+        "--out", out, "--device", "cpu",
     ]) == 0
     img = _read_png(out)
     assert img.shape == (32, 32, 3) and img.mean() > 5
 
 
 @pytest.mark.parametrize("flags", [
-    ["--scene", "hero"], ["--checkpoint", "x.npz"], ["--preview"], ["--multihost"],
+    ["--devices", "2"], ["--checkpoint", "x.npz"], ["--preview"], ["--multihost"],
     ["--devices", "4"], ["--no-kd"], ["--scene", "scene.json"],
 ])
 def test_cli_rejects_unported_flags(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main([*flags, "--width", "8", "--height", "8"])
+
+
+def test_cli_without_card_raises_unless_cpu(monkeypatch, tmp_path):
+    """--device cuda (the default) names the missing card instead of
+    falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cli.main(["--scene", "demo", "--width", "8", "--height", "8",
+                   "--out", str(tmp_path / "x.png")])
+    assert not (tmp_path / "x.png").exists()
 
 
 def test_port_imports_no_jax():
