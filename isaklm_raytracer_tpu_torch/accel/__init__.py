@@ -16,11 +16,14 @@ from isaklm_raytracer_tpu_torch.accel.traverse import (
     hit_attributes,
     nearest_hit_brute,
 )
+from isaklm_raytracer_tpu_torch.config import resolve_device
 from isaklm_raytracer_tpu_torch.kernels.intersect import VMEM_TABLE_LIMIT
 
 
-def prepare_scene(scene, device="cpu"):
-    """Build the acceleration tables of a Scene and move it to ``device``.
+def prepare_scene(scene, device="cuda"):
+    """Build the acceleration tables of a Scene and move it to ``device``:
+    the card unless the caller passes "cpu"; without a card the default
+    raises (``config.resolve_device``).
 
     Port of ``isaklm_raytracer_tpu.accel.prepare_scene``:
 
@@ -38,6 +41,7 @@ def prepare_scene(scene, device="cpu"):
     No KD tree is built: the port has no KD traversal. No MXU tiles are
     built: no ported kernel reads them.
     """
+    device = resolve_device(device)
     verts = np.asarray(scene.vertices)
     order = cluster_order(verts)
     inv = np.empty_like(order)

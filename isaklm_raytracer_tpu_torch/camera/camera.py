@@ -3,6 +3,7 @@
 Port of ``Camera`` and ``generate_rays`` of
 ``isaklm_raytracer_tpu/camera/camera.py`` (reference camera.cuh:15-26,
 path_tracing.cuh:327-336, 379-391). ``camera_movement`` is not ported yet.
+Pose leaves that require grad carry gradients through ``generate_rays``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import math
 
 import torch
 
+from isaklm_raytracer_tpu_torch.config import resolve_device
 from isaklm_raytracer_tpu_torch.math import sampling, transforms
 
 
@@ -27,11 +29,20 @@ class Camera:
 
     @staticmethod
     def create(position, yaw=0.0, pitch=0.0, fov=math.pi / 2, aperture_radius=0.0,
-               device=None) -> "Camera":
+               device="cuda") -> "Camera":
+        """A camera on ``device``: the card unless the caller passes "cpu";
+        without a card the default raises (``config.resolve_device``)."""
+        device = resolve_device(device)
+
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
 
         return Camera(f32(position), f32(yaw), f32(pitch), f32(fov), f32(aperture_radius))
+
+    def replace(self, **changes) -> "Camera":
+        """A copy with some leaves replaced, e.g. by tensors that require
+        grad (the JAX package's ``Camera.replace``)."""
+        return dataclasses.replace(self, **changes)
 
     def rotation(self) -> torch.Tensor:
         """3x3 view rotation = rotation_matrix(yaw, pitch) (camera.cuh:22-25)."""

@@ -85,7 +85,7 @@ def main(argv=None) -> int:
 
     from isaklm_raytracer_tpu_torch.accel import prepare_scene
     from isaklm_raytracer_tpu_torch.camera import Camera
-    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.config import RenderConfig, resolve_device
     from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
     from isaklm_raytracer_tpu_torch.integrator.render import (
         intersector_name,
@@ -96,12 +96,7 @@ def main(argv=None) -> int:
     from isaklm_raytracer_tpu_torch.scene import procedural
     from isaklm_raytracer_tpu_torch.scene.types import GBuffer
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda: no CUDA card (torch.cuda.is_available() is False); "
-            "pass --device cpu to render on the CPU"
-        )
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     # every rate line names what it was measured on
     device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     config = RenderConfig(

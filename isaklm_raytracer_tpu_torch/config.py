@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -74,6 +76,19 @@ class RenderConfig:
     @property
     def num_pixels(self) -> int:
         return self.width * self.height
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. Raises when the card is asked for and there is none;
+    nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA card (torch.cuda.is_available() is False); "
+            "ask for the CPU (device 'cpu', --device cpu) to run there"
+        )
+    return device
 
 
 PI = math.pi

@@ -87,14 +87,33 @@ def intersector_name(cbvh) -> str:
     return name
 
 
+def blk_sort_mode() -> str:
+    """Ray ordering for the blk intersector, as the JAX package's
+    ``blk_sort_mode``: "morton" (the default; the origin/direction Morton
+    key) or "block" (the first-needed-block key of
+    ``kernels.intersect.first_block_keys``). ISAKLM_BLK_SORT overrides;
+    any other value raises ValueError."""
+    mode = os.environ.get("ISAKLM_BLK_SORT", "morton")
+    if mode not in ("block", "morton"):
+        raise ValueError(f"ISAKLM_BLK_SORT={mode!r}: expected 'block' or 'morton'")
+    return mode
+
+
 def make_trace_fn(scene: Scene, config: RenderConfig):
     """The intersector: trace(o, d, active=None, t_max=None) -> (t, idx, hit).
-    For a prepared scene, the one ``intersector_name`` picks. A scene
-    without cluster tables gets the brute-force oracle on the CPU; on CUDA
-    it raises, since every nearest-hit query there goes through a kernel."""
+    For a prepared scene, the one ``intersector_name`` picks, ordering its
+    rays as the JAX package's ``_pick_cluster_kernel`` does: Morton for
+    flat and queue, ``blk_sort_mode`` for blk. A scene without cluster
+    tables gets the brute-force oracle on the CPU; on CUDA it raises, since
+    every nearest-hit query there goes through a kernel."""
     if scene.cbvh is not None:
-        trace = _INTERSECTORS[intersector_name(scene.cbvh)]
-        return functools.partial(trace, scene.cbvh, t_eps=config.t_epsilon)
+        # read for every scene, as the JAX package does: a bad value raises
+        blk_sort = {"block": "block", "morton": True}[blk_sort_mode()]
+        name = intersector_name(scene.cbvh)
+        return functools.partial(
+            _INTERSECTORS[name], scene.cbvh, t_eps=config.t_epsilon,
+            sort_rays=blk_sort if name == "blk" else True,
+        )
     if torch.device(scene.device).type == "cuda":
         raise ValueError(
             "scene has no cluster tables: call accel.prepare_scene first (on CUDA "

@@ -21,6 +21,15 @@ window (t < t_max); ties go to the lowest id. ``nearest_hit_*`` wrap that
 into the intersector interface (t, idx, hit): a hit is an id that WON, not
 a finite t.
 
+Ray ordering, as the JAX package's ``_prep_rays``/``_unpack``: before a
+call each ``nearest_hit_*`` wrapper may sort its rays (``sort_rays``) and
+scatters the results back to the caller's order. ``True`` (the default) is
+the Morton key of ``coherence_perm``; ``"block"`` (blk only) sorts by
+``first_block_keys`` (``csrc/first_block_keys.cu`` <- ``_first_blocks_kernel``
+of ``first_block_keys``): the first and second block a ray enters and its
+direction octant. Every ray's result is computed on its own, so the order
+changes no result, only the kernels' coherence.
+
 On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches its kernel or raises; a failed build raises too. ``COUNTS``
 records kernel launches and plain calls on CUDA tensors, so a run can show
@@ -42,9 +51,16 @@ FLAT_CLUSTER_LIMIT = 64  # as the JAX package: at most this many real clusters
 # FLAT_CLUSTER_LIMIT clusters take the queue kernel up to this table size
 # and the blocked kernel above it (integrator.render.intersector_name).
 VMEM_TABLE_LIMIT = 6 * 1024 * 1024
-SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu")
+SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu",
+           "first_block_keys.cu")
+# The JAX package's packet sizes: the ordering sorts a call's rays only when
+# there are more of them than one packet (DEFAULT_PACKET for flat and queue,
+# the render path's BLK_PACKET for blk).
+DEFAULT_PACKET = 256
+BLK_PACKET = 128
 _INF = 3.4e38  # unbounded t_max seed and the value of a rejected candidate
 _BIG_ID = 2**31 - 1
+_CUT = 1e38  # block entry keys at or above this mean "not pierced"
 # The queue and blocked kernels stage 7 floats per box in shared memory;
 # a block may use at most 232,448 bytes of it on the H100.
 _MAX_SHARED_BOXES = 232_448 // (7 * 4)
@@ -57,17 +73,19 @@ _PAIR_CHUNK = 4096
 class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
+    KERNELS = ("flat", "queue", "blk", "first_blocks")
+
     def __init__(self) -> None:
         self.reset()
 
     def reset(self) -> None:
-        for kernel in ("flat", "queue", "blk"):
+        for kernel in self.KERNELS:
             setattr(self, f"{kernel}_kernel", 0)
             setattr(self, f"{kernel}_plain_cuda", 0)
 
     def plain_cuda(self) -> int:
         """Plain-version calls on CUDA tensors, all kernels together."""
-        return self.flat_plain_cuda + self.queue_plain_cuda + self.blk_plain_cuda
+        return sum(getattr(self, f"{kernel}_plain_cuda") for kernel in self.KERNELS)
 
 
 COUNTS = LaunchCounts()
@@ -83,6 +101,15 @@ _ENTRY_ARGS = {
     # bbox_t, stride, num_blocks, blk, branch, rays, num_rays, t_eps, out_t,
     # out_id, stats (or null)
     "blk_intersect": [_P, _I, _I, _P, _I, _P, _I, _F, _P, _P, _P],
+    # bbox_t, stride (= the padded block count n), rays, num_rays, t_eps, out_key
+    "first_block_keys": [_P, _I, _P, _I, _F, _P],
+}
+# the COUNTS attribute prefix of each entry point
+_COUNTER = {
+    "flat_intersect": "flat",
+    "queue_intersect": "queue",
+    "blk_intersect": "blk",
+    "first_block_keys": "first_blocks",
 }
 
 
@@ -103,7 +130,7 @@ def _launch(name: str, rays: torch.Tensor, *args) -> None:
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    counter = name.replace("_intersect", "_kernel")
+    counter = f"{_COUNTER[name]}_kernel"
     setattr(COUNTS, counter, getattr(COUNTS, counter) + 1)
 
 
@@ -421,6 +448,158 @@ def blk_intersect(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
     return (out_t, out_id, out_stats) if stats else (out_t, out_id)
 
 
+# --- first-block keys -----------------------------------------------------
+
+
+def check_key_capacity(n: int) -> None:
+    """Raise unless every key of an ``n``-wide block table fits below the
+    "pierces nothing" key _BIG_ID - 1. The largest key of a ray that pierces
+    a block is 8n^2 + 8n - 1 (first block n - 1, second "none" n, octant 7);
+    the JAX package's assert (n + 1) * n * 8 < 2**31 admits the same n."""
+    if 8 * n * n + 8 * n - 1 >= _BIG_ID - 1:
+        raise ValueError(f"{n} blocks overflow the int32 first-block key")
+
+
+def _check_keys(bbox_t, rays):
+    _check_rays(rays, bbox_t)
+    if bbox_t.dim() != 2 or bbox_t.shape[0] != 8 or bbox_t.shape[1] < 1:
+        raise ValueError(f"block box table must be (8, n >= 1), got {tuple(bbox_t.shape)}")
+    check_key_capacity(bbox_t.shape[1])
+
+
+def _first_keys(bbox_t: torch.Tensor, rays: torch.Tensor, t_eps: float) -> torch.Tensor:
+    """``_first_blocks_kernel`` on a slice of rays, operation for operation."""
+    n = bbox_t.shape[1]
+    ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]
+    dx, dy, dz = rays[:, 3:4], rays[:, 4:5], rays[:, 5:6]
+    ix, iy, iz = 1.0 / dx, 1.0 / dy, 1.0 / dz
+    t1x, t2x = (bbox_t[0:1] - ox) * ix, (bbox_t[3:4] - ox) * ix
+    t1y, t2y = (bbox_t[1:2] - oy) * iy, (bbox_t[4:5] - oy) * iy
+    t1z, t2z = (bbox_t[2:3] - oz) * iz, (bbox_t[5:6] - oz) * iz
+    # torch.minimum/maximum propagate NaN as jnp.minimum/maximum do
+    near = torch.maximum(
+        torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+        torch.minimum(t1z, t2z),
+    )
+    far = torch.minimum(
+        torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+        torch.maximum(t1z, t2z),
+    )
+    miss = (near > far) | (far < t_eps)  # false on NaN: a conservative hit
+    key = torch.where(miss, _INF, torch.maximum(near, torch.zeros_like(near)))
+    key = torch.where(key != key, 0.0, key)  # NaN: visit first
+    key = torch.where(bbox_t[6:7] > 0.0, key, _INF)
+
+    iota = torch.arange(n, dtype=torch.int32, device=rays.device)
+    first = key.min(dim=1, keepdim=True).values
+    fidx = torch.where(key <= first, iota, _BIG_ID).min(dim=1, keepdim=True).values
+    key2 = torch.where(iota == fidx, _INF, key)
+    second = key2.min(dim=1, keepdim=True).values
+    sidx = torch.where(key2 <= second, iota, _BIG_ID).min(dim=1, keepdim=True).values
+    sidx = torch.where(second >= _CUT, n, sidx)
+    octant = (dx > 0.0).int() + 2 * (dy > 0.0).int() + 4 * (dz > 0.0).int()
+    comp = (fidx * (n + 1) + sidx) * 8 + octant
+    comp = torch.where(first >= _CUT, _BIG_ID - 1, comp)
+    return torch.where(rays[:, 6:7] > 0.0, comp, _BIG_ID)[:, 0]
+
+
+def first_block_keys_plain(bbox_t: torch.Tensor, rays: torch.Tensor, t_eps: float):
+    """Plain PyTorch version of the first-block key (any device): the dense
+    (ray, block) slab pass of ``_first_blocks_kernel``, reduced per ray to
+    its least and second-least (entry, index) pairs."""
+    _check_keys(bbox_t, rays)
+    if rays.is_cuda:
+        COUNTS.first_blocks_plain_cuda += 1
+    t_eps = float(np.float32(t_eps))
+    step = max(1, _MASK_ELEMS // bbox_t.shape[1])
+    keys = torch.empty((rays.shape[0],), dtype=torch.int32, device=rays.device)
+    for start in range(0, rays.shape[0], step):
+        keys[start:start + step] = _first_keys(bbox_t, rays[start:start + step], t_eps)
+    return keys
+
+
+def first_block_keys(bbox_t: torch.Tensor, rays: torch.Tensor, t_eps: float):
+    """The first-block key kernel on CUDA tensors, its plain version on CPU
+    tensors.
+
+    bbox_t: (8, n) float32 component-major block boxes (``blk_bbox_t``; n is
+    its padded width); rays: (R, 8) float32, column 7 ignored. Returns (R,)
+    int32 keys ((first * (n + 1) + second) * 8 + octant), where first and
+    second are the blocks the ray enters first and second (second = n when
+    it enters one), _BIG_ID - 1 for a ray that pierces no block and _BIG_ID
+    for an inactive one.
+    """
+    _check_keys(bbox_t, rays)
+    if not rays.is_cuda:
+        return first_block_keys_plain(bbox_t, rays, t_eps)
+    _check_contiguous("first_block_keys", bbox_t, rays)
+    _check_shared(bbox_t.shape[1], "block")
+    keys = torch.empty((rays.shape[0],), dtype=torch.int32, device=rays.device)
+    _launch(
+        "first_block_keys", rays,
+        bbox_t.data_ptr(), bbox_t.shape[1], rays.data_ptr(), rays.shape[0], float(t_eps),
+        keys.data_ptr(),
+    )
+    return keys
+
+
+# --- ray ordering ---------------------------------------------------------
+
+_SPREAD3 = ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3), (2, 0x09249249))
+
+
+def _spread3(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of each int64 to every third bit
+    (``_spread3_u32``; the values stay below 2**30, so no mask is lost)."""
+    for shift, mask in _SPREAD3:
+        v = (v | (v << shift)) & mask
+    return v
+
+
+def coherence_perm(o: torch.Tensor, d: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``_coherence_perm``: a stable argsort of
+    Morton(origin, 5 bits an axis over the batch's box) << 15 |
+    Morton(direction, 5 bits an axis over [-1, 1]), inactive rays last."""
+    lo = o.min(dim=0).values
+    span = torch.clamp_min(o.max(dim=0).values - lo, 1e-12)
+    qo = torch.clamp((o - lo) / span * 31.0, 0.0, 31.0)
+    qd = torch.clamp((d * 0.5 + 0.5) * 31.0, 0.0, 31.0)
+    s = _spread3(torch.cat([qo, qd], dim=1).to(torch.int64))
+    mo = s[:, 0] | (s[:, 1] << 1) | (s[:, 2] << 2)
+    md = s[:, 3] | (s[:, 4] << 1) | (s[:, 5] << 2)
+    key = torch.where(act > 0.0, (mo << 15) | md, _BIG_ID)
+    return torch.argsort(key, stable=True)
+
+
+def ray_order(rays: torch.Tensor, sort_rays, packet: int, bbox_t=None, t_eps: float = 1e-5):
+    """The permutation ``_prep_rays`` sorts the rays of one call by, or None:
+    caller order for ``sort_rays`` False or at most ``packet`` rays, else
+    Morton (True) or the stable argsort of ``first_block_keys`` ("block",
+    which needs the block boxes ``bbox_t``)."""
+    if sort_rays not in (False, True, "block"):
+        raise ValueError(f"sort_rays={sort_rays!r}: expected False, True or 'block'")
+    if sort_rays == "block" and bbox_t is None:
+        raise ValueError("sort_rays='block' needs the block boxes (blk only)")
+    if not sort_rays or rays.shape[0] <= packet:
+        return None
+    if sort_rays == "block":
+        return torch.argsort(first_block_keys(bbox_t, rays, t_eps), stable=True)
+    return coherence_perm(rays[:, 0:3], rays[:, 3:6], rays[:, 6])
+
+
+def _ordered(kernel, rays: torch.Tensor, perm):
+    """kernel(rays) with the rays in ``perm`` order, every output scattered
+    back to the caller's order (``_unpack``)."""
+    if perm is None:
+        return kernel(rays)
+    out = []
+    for x in kernel(rays[perm]):
+        back = torch.empty_like(x)
+        back[perm] = x
+        out.append(back)
+    return tuple(out)
+
+
 # --- the intersector interface --------------------------------------------
 
 
@@ -451,45 +630,54 @@ def unpack(best_t: torch.Tensor, best_id: torch.Tensor):
 
 
 @torch.no_grad()
-def nearest_hit_flat(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None):
+def nearest_hit_flat(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None,
+                     sort_rays=True):
     """Batched nearest hit against every real cluster of ``cbvh``.
 
     o, d: (R, 3) -> detached (t (R,), idx (R,) int32, hit (R,) bool).
     ``t_max`` (R,) optionally seeds each ray's search window (NEE shadow
     rays); a ray with no hit strictly inside its window reports a miss.
+    ``sort_rays`` (True: Morton, as the JAX package; False: caller order)
+    orders the rays of a call of more than DEFAULT_PACKET rays.
     """
     tri = cbvh.tri_const[: cbvh.real_clusters]
-    best_t, best_id = flat_intersect(tri, prep_rays(o, d, active, t_max), t_eps)
-    return unpack(best_t, best_id)
+    rays = prep_rays(o, d, active, t_max)
+    out = _ordered(lambda r: flat_intersect(tri, r, t_eps), rays,
+                   ray_order(rays, sort_rays, DEFAULT_PACKET))
+    return unpack(*out)
 
 
 @torch.no_grad()
-def nearest_hit_queue(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None):
+def nearest_hit_queue(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None,
+                      sort_rays=True):
     """Batched nearest hit through the queue intersector, the counterpart of
     the JAX package's ``nearest_hit_cluster``; arguments and results as
     ``nearest_hit_flat``."""
     if cbvh.clu_bbox_t is None:
         raise ValueError("nearest_hit_queue needs cbvh.clu_bbox_t (build_cluster_bvh)")
-    best_t, best_id = queue_intersect(
-        cbvh.clu_bbox_t, cbvh.tri_const, prep_rays(o, d, active, t_max), t_eps
-    )
-    return unpack(best_t, best_id)
+    rays = prep_rays(o, d, active, t_max)
+    out = _ordered(lambda r: queue_intersect(cbvh.clu_bbox_t, cbvh.tri_const, r, t_eps),
+                   rays, ray_order(rays, sort_rays, DEFAULT_PACKET))
+    return unpack(*out)
 
 
 @torch.no_grad()
 def nearest_hit_blk(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None,
-                    stats: bool = False):
+                    stats: bool = False, sort_rays=True):
     """Batched nearest hit through the blocked intersector, the counterpart
     of the JAX package's ``nearest_hit_cluster_blk`` (either ``per_ray``
     mode: they differ only in the TPU schedule). Arguments and results as
-    ``nearest_hit_flat``; ``stats`` (CUDA only) also returns (R, 2) int32
+    ``nearest_hit_flat``, but sorted above BLK_PACKET rays, and
+    ``sort_rays="block"`` orders by ``first_block_keys``. ``stats`` (CUDA only) also returns (R, 2) int32
     block visits and clusters intersected per ray."""
     if cbvh.blk_const is None:
         raise ValueError(
             "nearest_hit_blk needs cbvh.blk_const: prepare_scene builds it for big "
             "scenes, accel.with_blocks for any"
         )
-    out = blk_intersect(
-        cbvh.blk_bbox_t, cbvh.blk_const, prep_rays(o, d, active, t_max), t_eps, stats
+    rays = prep_rays(o, d, active, t_max)
+    out = _ordered(
+        lambda r: blk_intersect(cbvh.blk_bbox_t, cbvh.blk_const, r, t_eps, stats), rays,
+        ray_order(rays, sort_rays, BLK_PACKET, cbvh.blk_bbox_t, t_eps),
     )
     return unpack(out[0], out[1]) + tuple(out[2:])

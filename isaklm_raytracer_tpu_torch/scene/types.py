@@ -57,6 +57,11 @@ class MaterialTable:
             tex_id=col("tex_id", -1),
         )
 
+    def replace(self, **changes) -> "MaterialTable":
+        """A copy with some leaves replaced, e.g. by tensors that require
+        grad (the JAX package's ``MaterialTable.replace``)."""
+        return dataclasses.replace(self, **changes)
+
     def to(self, device) -> "MaterialTable":
         return MaterialTable(**{
             f.name: _to(getattr(self, f.name), device)

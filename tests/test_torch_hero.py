@@ -86,7 +86,7 @@ def test_prepare_hero_20k_identical():
     light list of the queue kernel's scene, bit for bit; neither package
     builds blocked tables for it."""
     want = interop.scene_to_numpy(jprepare(jproc.hero_scene(20_000), build_kd=False))
-    got = interop.scene_to_numpy(prepare_scene(procedural.hero_scene(20_000)))
+    got = interop.scene_to_numpy(prepare_scene(procedural.hero_scene(20_000), "cpu"))
     _assert_tree_equal(got, want)
     assert got["cbvh"]["blk_const"] is None and got["cbvh"]["num_triangles"] == 19_688
 
@@ -251,8 +251,8 @@ def test_cpu_wrappers_run_plain_versions_without_launch():
 def hero_small():
     """hero_small_32 as tests/golden_cases.py renders it."""
     config = RenderConfig(width=32, height=32, max_bounces=3, ray_chunk=0, min_samples=1)
-    camera = Camera.create((0.0, 2.0, -6.0), fov=np.pi / 2)
-    return prepare_scene(procedural.hero_scene(20_000)), camera, config
+    camera = Camera.create((0.0, 2.0, -6.0), fov=np.pi / 2, device="cpu")
+    return prepare_scene(procedural.hero_scene(20_000), "cpu"), camera, config
 
 
 def test_golden_hero_small_32_through_queue(hero_small):

@@ -47,9 +47,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = {
     # as tests/golden_cases.py
     "cornell_64": (lambda: procedural.cornell_box(glossy=True),
-                   lambda: Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2), 4),
+                   lambda: Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2, device="cpu"), 4),
     "demo_textured_64": (lambda: procedural.material_demo_scene(textured=True),
-                         lambda: Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2), 2),
+                         lambda: Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2,
+                                                       device="cpu"), 2),
 }
 
 
@@ -57,7 +58,7 @@ CASES = {
 def test_golden_image(name):
     scene_fn, camera_fn, spp = CASES[name]
     config = RenderConfig(width=64, height=64, max_bounces=4, ray_chunk=0, min_samples=1)
-    gb = render(prepare_scene(scene_fn()), camera_fn(), config, num_samples=spp, seed=11)
+    gb = render(prepare_scene(scene_fn(), "cpu"), camera_fn(), config, num_samples=spp, seed=11)
     got = resolve_image(gb, config).numpy()
     with np.load(os.path.join(GOLDEN_DIR, f"{name}.npz")) as data:
         want = data["image"]
@@ -70,8 +71,8 @@ def test_golden_image(name):
 @pytest.fixture(scope="module")
 def cornell():
     return (
-        prepare_scene(procedural.cornell_box(include_blockers=False)),
-        Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2),
+        prepare_scene(procedural.cornell_box(include_blockers=False), "cpu"),
+        Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2, device="cpu"),
     )
 
 

@@ -54,7 +54,7 @@ def test_prepare_scene_identical(name):
     bit for bit."""
     jax_fn, port_fn = SCENES[name]
     want = interop.scene_to_numpy(jprepare(jax_fn()))
-    got = interop.scene_to_numpy(prepare_scene(port_fn()))
+    got = interop.scene_to_numpy(prepare_scene(port_fn(), "cpu"))
     _assert_tree_equal(got, want)
     assert got["cbvh"]["num_triangles"] == want["cbvh"]["num_triangles"]
 
