@@ -9,9 +9,10 @@ Phases, each printing its own lines, its wall seconds as it ends, and
 raising on failure:
 
 1. card: name and power limit as nvidia-smi reports them;
-2. build: compiles the four kernels of ``csrc/`` (three intersectors and
-   the first-block keys) with nvcc, one process per source, all started
-   together, and prints each one's ptxas register and spill lines;
+2. build: compiles the eight kernels of ``csrc/`` (six intersectors, the
+   first-block keys and the null kernel) with nvcc, one process per
+   source, all started together, and prints each one's ptxas register and
+   spill lines;
 3. kernel flat: the flat intersector against its plain PyTorch version
    (exact) and against the brute-force oracle (the bench.py gate: hit masks
    equal, relative t error <= 1e-3, ids differ only at ties), on random
@@ -19,11 +20,16 @@ raising on failure:
    active masks, NEE-style t_max windows and an all-inactive batch, at 2048
    and 777 rays and (demo) at every ray count the 512x512 main path gives
    the kernel; then both timed at 262,144 rays, in turns;
-4. kernel queue: the queue intersector on the 20k hero scene and on a
+4. kernel flat_mxu: the flat intersector over MXU tile pairs, checked in
+   phase 3 on the same rays as the flat kernel (equal to its plain version
+   and to the flat kernel bit for bit, so the oracle gate holds for both);
+   timed against its plain version at 262,144 rays, and beside the flat
+   kernel in turns;
+5. kernel queue: the queue intersector on the 20k hero scene and on a
    triangle soup of about 700 clusters (near the 6 MB table bound), against
    its plain version (exact) and the oracle at 2048 and 777 rays in the
    same four activity cases; then both timed at 262,144 rays, in turns;
-5. kernel blk: the blocked intersector on the full 2M-triangle hero scene
+6. kernel blk: the blocked intersector on the full 2M-triangle hero scene
    with camera rays of the bench camera, bounce rays that start on the
    surfaces those hit, and NEE rays toward the lights with t_max windows.
    Against its plain version: exact at 2048 and 777 rays; at 65,536 rays of
@@ -35,36 +41,55 @@ raising on failure:
    and plain timed in turns at the largest ray count at which the plain
    version takes at most PLAIN_BUDGET_S; the kernel alone, with its per-ray
    visit counts, at the 230,400 rays of one 640x360 wavefront;
-6. kernel first_blocks: the first-block key kernel on the same hero camera,
+7. kernel hbm: the oct intersector, checked in phase 5 on the same rays as
+   the queue kernel (equal to its plain version and to the queue kernel
+   bit for bit); its per-ray cluster counts on a soup whose cluster count
+   is padded; then every check and timing of phase 6 on the hero;
+8. kernel blk_mxu: the blocked intersector over MXU blocks of the hero's
+   branch, every check and timing of phase 6, each wavefront equal to the
+   blocked kernel's bit for bit, both kernels timed in turns;
+9. kernel first_blocks: the first-block key kernel on the same hero camera,
    bounce and NEE rays against its plain version (key for key) at 2048,
    777 and the whole wavefront, in the four activity cases; the key's
    leading factor against a numpy slab oracle at 256 rays; kernel and
    plain timed in turns at 230,400 camera rays, the argsort of the keys
    on its own;
-7. ordering: the blocked path on each hero wavefront in caller order,
+10. fixed cost: the counterpart of scripts/fixed_cost_probe.py on the hero
+   with 65,536 rays that miss everything, per call and per 128-ray block,
+   by CUDA events and by the host clock: the whole blocked call in Morton
+   and in caller order, prep_rays + ray_order alone, and the null kernel
+   with the blocked kernel's shared memory and without it;
+11. ordering: the blocked path on each hero wavefront in caller order,
    Morton order and block order, each bit-equal to caller order; the
    kernel alone on the sorted rays, the key + argsort, and the whole call,
    in turns; s/sample of the demo (flat) and hero (blk) in one pass under
    each order; the blocked kernel alone on the rays of every intersector
    call of one hero sample, in caller and Morton order;
-8. goldens: cornell_64 and demo_textured_64 (flat) and hero_small_32
+12. goldens: cornell_64 and demo_textured_64 (flat) and hero_small_32
    (queue) on the card, against tests/golden/*.npz (the tolerance of
    tests/test_torch_render.py: every value within 1e-4 but at most 8 of
    the image, which stay within 3e-4 -- the goldens carry XLA's fused FMA
    and approximate-rsqrt rounding, and the JAX package's own ops run one
    by one miss them by as much) and against the port on the CPU. The
    hero_small_32 render is the queue kernel's main-path run;
-9. main path: the CLI renders the demo at 512x512 with 8 bounces and the
-   default Cornell box at 512x512 (the flat kernel's path), then the hero
-   scene at 640x360 with 6 bounces (the blocked kernel's path). For each
-   path the launch counts are zeroed just before and read just after: its
-   kernel must have launched and no plain version may have run on CUDA;
-10. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
+13. main path: the CLI renders the demo at 512x512 with 8 bounces and the
+   default Cornell box at 512x512 (the flat kernel's path), the demo again
+   under ISAKLM_INTERSECTOR=flat_mxu, then the hero scene at 640x360 with 6
+   bounces (the blocked kernel's path) and again under
+   ISAKLM_INTERSECTOR=hbm, and ``render`` draws two samples of the hero
+   with MXU blocks under ISAKLM_INTERSECTOR=blk_mxu and under the default
+   rule. For each path the launch counts are zeroed just before and read
+   just after: its kernel must have launched, no other intersector, and no
+   plain version may have run on CUDA; each override's image must equal
+   the default intersector's bit for bit;
+14. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
    steps, demo 512x512x8 and hero 640x360x6, at the CLI's ray_chunk (16384)
    and in one pass (0), in turns, and one torch.profiler sample at each:
    CUDA kernels per sample, summed device kernel time and the
-   intersector's share;
-11. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
+   intersector's share; then in one pass each override beside its default
+   (demo: flat, flat_mxu; hero: blk, blk_mxu, hbm), in turns, with one
+   profiled sample each;
+15. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
    the material albedo) through the entry points: demo 512x512x8 and hero
    640x360x6 at ray_chunk 0 and 16384, the hero again in one pass under
    ISAKLM_BLK_SORT=block (the first-block key kernel's main-path run);
@@ -82,6 +107,7 @@ when there is no CUDA card or the port is missing.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -302,16 +328,19 @@ def activity(rng, n, device):
 
 
 def check_kernel(name, kernel, plain, tables, scene, rng, device, sizes,
-                 strict=BENCH_RAYS) -> float:
+                 strict=BENCH_RAYS, variants=()) -> dict:
     """Kernel vs plain (exact) and vs brute (bench.py gate) on one scene, at
     each ray count of ``sizes``, in the four activity cases; the gate is
-    strict at the counts of ``strict``. Returns the largest
-    |t_kernel - t_plain|."""
+    strict at the counts of ``strict``. Each of ``variants`` (label,
+    kernel, plain, tables), another intersector of the same scene, runs on
+    the same rays and must equal both its plain version and ``kernel`` bit
+    for bit, so the gate holds for it as for ``kernel``. Returns {name and
+    each label: the largest |t_kernel - t_plain|}."""
     from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 
     verts = scene.vertices.reshape(-1, 3).cpu().numpy()
     lo, hi = verts.min(axis=0), verts.max(axis=0)
-    worst = 0.0
+    worst = dict.fromkeys([name, *(v[0] for v in variants)], 0.0)
     for n in sizes:
         o, d = random_rays(rng, n, lo, hi, device)
         oracle = brute(o, d, scene.vertices, rays_per_call=n)
@@ -320,12 +349,21 @@ def check_kernel(name, kernel, plain, tables, scene, rng, device, sizes,
             kout = kernel(*tables, rays, 1e-5)
             pout = plain(*tables, rays, 1e-5)
             torch.cuda.synchronize()
-            worst = max(worst, exact(f"{name} {n} {case}", kout, pout))
+            worst[name] = max(worst[name], exact(f"{name} {n} {case}", kout, pout))
+            for label, v_kernel, v_plain, v_tables in variants:
+                vout = v_kernel(*v_tables, rays, 1e-5)
+                worst[label] = max(worst[label], exact(f"{label} {n} {case}", vout,
+                                                       v_plain(*v_tables, rays, 1e-5)))
+                exact(f"{label} {n} {case} == {name}", vout, kout)
             t_k, i_k, h_k = ki.unpack(*kout)
             oracle_gate(f"kernel {name} rays={n} {case}", t_k, i_k, h_k, oracle, act,
                         t_max, n in strict)
             if case == "none active" and (h_k.any() or (i_k != -1).any()):
                 raise RuntimeError("all-inactive batch reported hits")
+    for label in worst:
+        log(f"kernel {label}: equal to its plain version"
+            + (f" and to {name}" if label != name else "")
+            + f" at {list(sizes)} rays in the cases {ACTIVITY_CASES}")
     return worst
 
 
@@ -340,6 +378,20 @@ def time_in_turns(label, kernel_fn, plain_fn, plain_reps=5, plain_warmup=2):
     log(f"time {label}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, "
         f"outputs equal")
     return (k1 + k2) / 2, (p1 + p2) / 2, kernel_out
+
+
+def kernels_in_turns(label, fns: dict, reps: int = 20) -> dict:
+    """Two kernels on the same inputs, in turns a, b, b, a, outputs equal
+    bit for bit. Returns {name: [ms, ms]}."""
+    (a, fa), (b, fb) = fns.items()
+    times, outs = {}, {}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        ms, outs[name] = cuda_ms(fn, reps=reps)
+        times.setdefault(name, []).append(ms)
+    exact(f"{label}: {b} == {a}", outs[b], outs[a])
+    log(f"time {label}: " + "; ".join(f"{n} {t[0]:.4f}/{t[1]:.4f} ms" for n, t in times.items())
+        + ", outputs equal")
+    return times
 
 
 def hero_ray_sets(scene, rng, device):
@@ -393,40 +445,40 @@ def hero_ray_sets(scene, rng, device):
     }
 
 
-def check_blk_hero(scene, rng, device):
-    """Phase 5. Returns (worst |dt|, ms, plain_ms, ray count timed,
-    {kind: kernel ms at the wavefront}, the bound of the timed call, the
-    hero ray sets)."""
+def check_walk_hero(name, walk, plain, nearest, scene, sets, lifted, box_t, group_size,
+                    cluster_bytes, group_bytes, wavefront_reps=20):
+    """Phases kernel blk, hbm and blk_mxu on the full hero, through
+    walk(rays, stats=False), its plain(rays) and nearest(o, d, t_max=...)
+    (the ``nearest_hit_*`` wrapper), over the group boxes ``box_t`` of
+    ``group_size`` clusters. ``cluster_bytes`` and ``group_bytes`` are the
+    table bytes the walk reads for a winning cluster and for its group.
+    Returns (worst |dt|, ms, plain_ms, ray count timed, {kind: kernel ms at
+    the wavefront}, the bound of the timed call)."""
     from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 
-    cbvh = scene.cbvh
-    tables = (cbvh.blk_bbox_t, cbvh.blk_const)
-    sets, lifted = hero_ray_sets(scene, rng, device)
     worst, checked, near_ties = 0.0, 0, []
     for kind, (o, d, t_max) in sets.items():
         for n in BENCH_RAYS:
             rays = ki.prep_rays(o[:n], d[:n], None, None if t_max is None else t_max[:n])
-            worst = max(worst, exact(f"blk hero {kind} {n}",
-                                     ki.blk_intersect(*tables, rays, 1e-5),
-                                     ki.blk_intersect_plain(*tables, rays, 1e-5)))
+            worst = max(worst, exact(f"{name} hero {kind} {n}", walk(rays), plain(rays)))
         n = min(65536, o.shape[0])
         rays = ki.prep_rays(o[:n], d[:n], None, None if t_max is None else t_max[:n])
-        kt, kid = ki.blk_intersect(*tables, rays, 1e-5)
-        pt, pid = ki.blk_intersect_plain(*tables, rays, 1e-5)
+        kt, kid = walk(rays)
+        pt, pid = plain(rays)
         torch.cuda.synchronize()
         differ = torch.nonzero((kt != pt) | (kid != pid)).flatten()
         checked += n
         if differ.numel():
             dt = (kt[differ] - pt[differ]).abs()
             if (dt > NEAR_TIE_TOL * torch.clamp_min(pt[differ], 1.0)).any():
-                raise RuntimeError(f"blk hero {kind}: a near-tie beyond {NEAR_TIE_TOL}")
+                raise RuntimeError(f"{name} hero {kind}: a near-tie beyond {NEAR_TIE_TOL}")
             worst = max(worst, float(dt.max()))
             sub = (o[:n][differ], d[:n][differ], None if t_max is None else t_max[:n][differ])
             t_k, i_k, h_k = ki.unpack(kt[differ], kid[differ])
-            oracle_gate(f"blk hero {kind} near-ties", t_k, i_k, h_k,
+            oracle_gate(f"{name} hero {kind} near-ties", t_k, i_k, h_k,
                         brute(sub[0], sub[1], scene.vertices), None, sub[2], False)
             near_ties.append((kind, int(differ.numel()), float(dt.max())))
-        log(f"kernel blk hero {kind}: {n} rays vs plain, {int((kid != _BIG_ID).sum())} hits, "
+        log(f"kernel {name} hero {kind}: {n} rays vs plain, {int((kid != _BIG_ID).sum())} hits, "
             f"{int(differ.numel())} near-ties")
         # the oracle at bench.py's hero count: the gate on lifted origins,
         # the disagreements at exact surface origins counted
@@ -435,68 +487,65 @@ def check_blk_hero(scene, rng, device):
         for label, (o_s, d_s, tm) in variants:
             o_s, d_s = o_s[:m], d_s[:m]
             tm = None if tm is None else tm[:m]
-            t_k, i_k, h_k = ki.nearest_hit_blk(cbvh, o_s, d_s, t_max=tm)
+            t_k, i_k, h_k = nearest(o_s, d_s, t_max=tm)
             oracle = brute(o_s, d_s, scene.vertices)
             if label or kind == "camera":
-                oracle_gate(f"kernel blk hero {kind}{label} rays={m}", t_k, i_k, h_k,
+                oracle_gate(f"kernel {name} hero {kind}{label} rays={m}", t_k, i_k, h_k,
                             oracle, None, tm, True)
             else:
                 pairs = origin_disagreements(t_k, i_k, h_k, oracle, tm)
-                log(f"kernel blk hero {kind} rays={m}, origins exactly on a surface: "
+                log(f"kernel {name} hero {kind} rays={m}, origins exactly on a surface: "
                     f"{len(pairs)} disagree with the oracle (kernel t, oracle t): {pairs}")
     allowed = int(NEAR_TIE_SHARE * checked)
     total = sum(c for _, c, _ in near_ties)
-    log(f"kernel blk hero: {checked} rays vs plain, near-ties {total} "
+    log(f"kernel {name} hero: {checked} rays vs plain, near-ties {total} "
         f"(allowed {allowed}: {NEAR_TIE_SHARE:.3%}) {near_ties}")
     if total > allowed:
-        raise RuntimeError("blk hero: more near-ties than allowed")
+        raise RuntimeError(f"{name} hero: more near-ties than allowed")
 
     # timing: kernel and plain in turns at the largest camera-ray count at
     # which one plain call takes at most PLAIN_BUDGET_S
     o, d, _ = sets["camera"]
     count = 4096
-    ki.blk_intersect_plain(*tables, ki.prep_rays(o[:count], d[:count]), 1e-5)
+    plain(ki.prep_rays(o[:count], d[:count]))
     for n in (4096, 16384, 65536, HERO_W * HERO_H):
         rays = ki.prep_rays(o[:n], d[:n])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ki.blk_intersect_plain(*tables, rays, 1e-5)
+        plain(rays)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        log(f"blk plain, {n} camera rays: {seconds:.2f} s")
+        log(f"{name} plain, {n} camera rays: {seconds:.2f} s")
         if seconds > PLAIN_BUDGET_S:
             break
         count = n
     rays = ki.prep_rays(o[:count], d[:count])
+    valid = int((box_t[6] > 0).sum())
     ms, plain_ms, kout = time_in_turns(
-        f"blk_intersect hero {count} camera rays x {cbvh.blk_const.shape[0]} blocks",
-        lambda: ki.blk_intersect(*tables, rays, 1e-5),
-        lambda: ki.blk_intersect_plain(*tables, rays, 1e-5),
-        plain_reps=2, plain_warmup=1,
+        f"{name}_intersect hero {count} camera rays x {valid} groups of {group_size} clusters",
+        lambda: walk(rays), lambda: plain(rays), plain_reps=2, plain_warmup=1,
     )
     # the bound of that call: the clusters the kernel intersected and the
-    # cluster boxes of the blocks it visited (its per-ray counts), one slab
-    # test per ray and valid block; the rays, results, block boxes and the
-    # tiles and block headers of the winning triangles
-    stats = ki.blk_intersect(*tables, rays, 1e-5, stats=True)[2].long()
-    branch = cbvh.blk_const.shape[1] - 1
-    valid = int((cbvh.blk_bbox_t[6] > 0).sum())
+    # cluster boxes of the groups it visited (its per-ray counts), one slab
+    # test per ray and valid group; the rays, results, group boxes and the
+    # table bytes of the winning clusters and their groups
+    stats = walk(rays, stats=True)[2].long()
     won = kout[1][kout[1] != _BIG_ID].long() // 128
-    blk_bound = bound(
-        int(stats[:, 1].sum()) * 128 * TRI_HIT_OPS + int(stats[:, 0].sum()) * branch * SLAB_OPS
-        + count * valid * SLAB_OPS,
-        count * 40 + cbvh.blk_bbox_t.numel() * 4
-        + (torch.unique(won).numel() + torch.unique(won // branch).numel()) * TILE_BYTES,
+    walk_bound = bound(
+        int(stats[:, 1].sum()) * 128 * TRI_HIT_OPS
+        + int(stats[:, 0].sum()) * group_size * SLAB_OPS + count * valid * SLAB_OPS,
+        count * 40 + box_t.numel() * 4 + torch.unique(won).numel() * cluster_bytes
+        + torch.unique(won // group_size).numel() * group_bytes,
     )
     wavefront = {}
     for kind, (o, d, t_max) in sets.items():
         rays = ki.prep_rays(o, d, None, t_max)
-        k_ms, (_, _, stats) = cuda_ms(lambda: ki.blk_intersect(*tables, rays, 1e-5, stats=True))
+        k_ms, (_, _, stats) = cuda_ms(lambda: walk(rays, stats=True), reps=wavefront_reps)
         wavefront[kind] = k_ms
-        log(f"time blk_intersect hero {kind} rays, kernel alone, {rays.shape[0]} rays: "
-            f"{k_ms:.3f} ms; per ray: mean block visits {float(stats[:, 0].float().mean()):.3f}, "
+        log(f"time {name}_intersect hero {kind} rays, kernel alone, {rays.shape[0]} rays: "
+            f"{k_ms:.3f} ms; per ray: mean group visits {float(stats[:, 0].float().mean()):.3f}, "
             f"mean clusters intersected {float(stats[:, 1].float().mean()):.3f}")
-    return worst, ms, plain_ms, count, wavefront, blk_bound, sets
+    return worst, ms, plain_ms, count, wavefront, walk_bound
 
 
 def slab_oracle_first(bbox_t, o, d):
@@ -825,7 +874,7 @@ def sample_seconds(render, scene, camera, config, counts, samples: int = 2):
     intersector kernels' launches per step."""
     gb = render(scene, camera, config, num_samples=1, seed=0)
     torch.cuda.synchronize()
-    before = counts.flat_kernel + counts.queue_kernel + counts.blk_kernel
+    before = intersector_launches(counts)
     t0 = time.perf_counter()
     gb = render(scene, camera, config, num_samples=samples, seed=0, gbuffer=gb,
                 sample_offset=1)
@@ -833,8 +882,38 @@ def sample_seconds(render, scene, camera, config, counts, samples: int = 2):
     seconds = (time.perf_counter() - t0) / samples
     if not torch.isfinite(gb.frame).all():
         raise RuntimeError("non-finite radiance in the timed render")
-    after = counts.flat_kernel + counts.queue_kernel + counts.blk_kernel
-    return seconds, (after - before) / samples
+    return seconds, (intersector_launches(counts) - before) / samples
+
+
+INTERSECTORS = ("flat", "flat_mxu", "queue", "hbm", "blk", "blk_mxu")
+
+
+def intersector_launches(counts) -> int:
+    return sum(getattr(counts, f"{k}_kernel") for k in INTERSECTORS)
+
+
+@contextlib.contextmanager
+def intersector_env(name):
+    """ISAKLM_INTERSECTOR=name inside the block (None: the auto rule)."""
+    if name is not None:
+        os.environ["ISAKLM_INTERSECTOR"] = name
+    try:
+        yield
+    finally:
+        os.environ.pop("ISAKLM_INTERSECTOR", None)
+
+
+def check_only(counts, kernel: str, label: str) -> int:
+    """The launches of ``kernel`` since the counts were zeroed; raises unless
+    it launched, no other intersector did and no plain version ran on
+    CUDA."""
+    launches = getattr(counts, f"{kernel}_kernel")
+    others = {k: getattr(counts, f"{k}_kernel") for k in INTERSECTORS if k != kernel}
+    log(f"main path {label}: {kernel}_kernel launches {launches}, other intersectors "
+        f"{others}, plain intersector calls on CUDA {counts.plain_cuda()}")
+    if launches == 0 or any(others.values()) or counts.plain_cuda():
+        raise RuntimeError(f"the {label} path did not go through its kernel alone")
+    return launches
 
 
 def profile_sample(render, scene, camera, config, kernel_name):
@@ -881,6 +960,106 @@ def perf(name, render, scene, camera, width, height, bounces, counts, kernel_nam
     return per_chunk
 
 
+def perf_overrides(label, scene, camera, width, height, bounces, names, counts, card):
+    """Seconds per full step in one pass under ISAKLM_INTERSECTOR = each of
+    ``names`` (the default first), in turns, then one profiled step each:
+    the intersector's share of device kernel time. Returns {name: [s, s]}."""
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.integrator.render import render
+
+    config = RenderConfig(width=width, height=height, max_bounces=bounces, ray_chunk=0)
+    per = {}
+    for name in names + names[::-1]:
+        with intersector_env(name):
+            s, launches = sample_seconds(render, scene, camera, config, counts)
+        per.setdefault(name, []).append(s)
+    rays = config.num_pixels * config.max_bounces * 2
+    log(f"perf overrides {label} {width}x{height}x{bounces} ray_chunk 0, s/sample in turns: "
+        + "; ".join(f"{n} {t[0]:.4f}/{t[1]:.4f} ({rays / min(t) / 1e6:.3f} M rays/s)"
+                    for n, t in per.items()) + f" on {card}")
+    for name in names:
+        with intersector_env(name):
+            n, busy_s, mine_n, mine_s = profile_sample(render, scene, camera, config,
+                                                       f"{name}_intersect_kernel")
+        s = min(per[name])
+        log(f"profile {label} under {name} ray_chunk 0: {n} CUDA kernels/sample, device kernel "
+            f"time {busy_s:.4f} s = {busy_s / s:.1%} of the unprofiled {s:.4f} s/sample; "
+            f"{name}_intersect {mine_n} launches, {mine_s * 1e3:.2f} ms = "
+            f"{mine_s / busy_s:.1%} of device kernel time, on {card}")
+    return per
+
+
+def both_clocks(fn, reps: int = 20):
+    """Mean milliseconds of fn() by CUDA events and by the host clock (both
+    around the same ``reps`` calls, ending in a synchronize), after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    return start.elapsed_time(stop) / reps, wall, out
+
+
+def fixed_cost(scene, counts, card):
+    """The counterpart of scripts/fixed_cost_probe.py on the hero: 65,536
+    rays from beyond the scene's box heading away from it (miss everything,
+    as the probe's), so every blocked call is its fixed cost. Per call and
+    per 128-ray block, by CUDA events and by the host clock: the whole
+    ``nearest_hit_blk`` in Morton and in caller order, ``prep_rays`` +
+    ``ray_order`` alone, the null kernel with the blocked kernel's shared
+    memory (7 floats a block box) and without. Returns the null kernel's
+    results (max_abs_err, ms, plain_ms, bound, shape) and launches."""
+    from isaklm_raytracer_tpu_torch.kernels import intersect as ki
+
+    cbvh = scene.cbvh
+    verts = scene.vertices.reshape(-1, 3)
+    lo, hi = verts.min(dim=0).values, verts.max(dim=0).values
+    n = 65536
+    rng = np.random.default_rng(1)
+    o = (hi + (hi - lo)).expand(n, 3).contiguous()
+    d_np = rng.standard_normal((n, 3)).astype(np.float32) * 0.05 + np.float32([0, 1, 0])
+    d = torch.tensor(d_np / np.linalg.norm(d_np, axis=1, keepdims=True), device=o.device)
+    if ki.nearest_hit_blk(cbvh, o, d)[2].any():
+        raise RuntimeError("fixed cost: a probe ray hit the scene")
+    rays = ki.prep_rays(o, d)
+    shared = 7 * cbvh.blk_const.shape[0]
+    err = exact("null kernel vs plain", ki.null_intersect(rays, shared),
+                ki.null_intersect_plain(rays))
+    counts.reset()  # the probe's own launches from here on
+    blocks = n // ki.BLK_PACKET
+    results = {}
+    for label, fn in (
+        ("nearest_hit_blk, Morton order", lambda: ki.nearest_hit_blk(cbvh, o, d)),
+        ("nearest_hit_blk, caller order", lambda: ki.nearest_hit_blk(cbvh, o, d, sort_rays=False)),
+        ("prep_rays + ray_order (Morton)",
+         lambda: ki.ray_order(ki.prep_rays(o, d), True, ki.BLK_PACKET)),
+        (f"null kernel, {shared * 4} B shared (the blocked kernel's)",
+         lambda: ki.null_intersect(rays, shared)),
+        ("null kernel, no shared memory", lambda: ki.null_intersect(rays, 0)),
+        ("null plain version (two torch.zeros)", lambda: ki.null_intersect_plain(rays)),
+    ):
+        ev, wall, _ = both_clocks(fn)
+        results[label] = ev
+        log(f"fixed cost hero {n} rays ({blocks} blocks of {ki.BLK_PACKET}), {label}: "
+            f"{ev:.4f} ms a call by CUDA events, {wall:.4f} ms by the host clock; "
+            f"{ev / blocks * 1e3:.3f} / {wall / blocks * 1e3:.3f} us a block, on {card}")
+    launches = counts.null_kernel
+    if launches == 0:
+        raise RuntimeError("fixed cost: the null kernel did not launch")
+    return {"max_abs_err": err,
+            "ms": results[f"null kernel, {shared * 4} B shared (the blocked kernel's)"],
+            "plain_ms": results["null plain version (two torch.zeros)"],
+            **bound(0, n * 8),  # its outputs
+            "shape": f"{n} rays, {shared} floats of shared memory (hero)"}, launches
+
+
 def read_png(path):
     """Decode the filter-0 RGB PNGs that io/png.save_png writes."""
     with open(path, "rb") as f:
@@ -900,28 +1079,34 @@ def read_png(path):
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def cli_path(name, counts, runs, kernel_attr, cli):
-    """One main path through the CLI: counts zeroed just before, read just
-    after; its kernel must launch and no plain version may run on CUDA."""
+def cli_path(name, counts, runs, kernel, cli, override=None):
+    """One main path through the CLI, under ISAKLM_INTERSECTOR=override
+    (None: the auto rule): counts zeroed just before, read just after (see
+    ``check_only``). Returns the launches and {label: PNG image}."""
     counts.reset()
+    images = {}
     for label, argv in runs:
         out = os.path.join(OUT_DIR, f"chip_smoke_{label}.png")
         shape = (int(argv[argv.index("--height") + 1]), int(argv[argv.index("--width") + 1]), 3)
         t0 = time.perf_counter()
-        if cli.main([*argv, "--out", out]) != 0:
-            raise RuntimeError(f"CLI {label} failed")
+        with intersector_env(override):
+            if cli.main([*argv, "--out", out]) != 0:
+                raise RuntimeError(f"CLI {label} failed")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        img = read_png(out)
+        img = images[label] = read_png(out)
         log(f"cli {label}: {wall:.2f} s wall, png {img.shape}, mean {img.mean():.2f}")
         if img.shape != shape or img.mean() < 1.0:
             raise RuntimeError(f"CLI {label}: bad image {img.shape} mean {img.mean()}")
-    launches = getattr(counts, kernel_attr)
-    log(f"main path {name}: {kernel_attr} launches {launches}, plain intersector calls "
-        f"on CUDA {counts.plain_cuda()}")
-    if launches == 0 or counts.plain_cuda():
-        raise RuntimeError(f"the {name} path did not go through its kernel alone")
-    return launches
+    return check_only(counts, kernel, name), images
+
+
+def same_image(label, got, want) -> None:
+    """An override's image equals the default intersector's bit for bit."""
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise RuntimeError(f"{label}: the image differs from the default intersector's "
+                           f"(shapes {got.shape}, {want.shape})")
+    log(f"{label}: image equal to the default intersector's bit for bit")
 
 
 def main() -> int:
@@ -932,7 +1117,7 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
 
-    from isaklm_raytracer_tpu_torch.accel import prepare_scene
+    from isaklm_raytracer_tpu_torch.accel import prepare_scene, with_mxu_blocks
     from isaklm_raytracer_tpu_torch.camera import Camera
     from isaklm_raytracer_tpu_torch.cli import render as cli
     from isaklm_raytracer_tpu_torch.config import RenderConfig
@@ -959,6 +1144,7 @@ def main() -> int:
                 + "; ".join(ptxas))
 
     results = {}
+    counts = ki.COUNTS
     rng = np.random.default_rng(42)
     defaults = RenderConfig()
     with Phase("kernel flat"):
@@ -982,13 +1168,19 @@ def main() -> int:
         def flat_tables(scene):
             return (scene.cbvh.tri_const[: scene.cbvh.real_clusters],)
 
-        max_err = max(
-            check_kernel("flat demo", ki.flat_intersect, ki.flat_intersect_plain,
-                         flat_tables(demo), demo, rng, device, sorted({2048, 777, *shapes})),
-            check_kernel(f"flat soup{soup.cbvh.real_clusters}", ki.flat_intersect,
-                         ki.flat_intersect_plain, flat_tables(soup), soup, rng, device,
-                         BENCH_RAYS),
-        )
+        def pair_tables(scene):
+            return (scene.cbvh.mxu_tiles[: scene.cbvh.real_clusters],)
+
+        # flat_mxu on the same rays: equal to its plain version and to flat
+        errs = {}
+        for label, scene, sizes in (("demo", demo, sorted({2048, 777, *shapes})),
+                                    (f"soup{soup.cbvh.real_clusters}", soup, BENCH_RAYS)):
+            errs.update(check_kernel(
+                f"flat {label}", ki.flat_intersect, ki.flat_intersect_plain, flat_tables(scene),
+                scene, rng, device, sizes,
+                variants=[(f"flat_mxu {label}", ki.flat_mxu_intersect,
+                           ki.flat_mxu_intersect_plain, pair_tables(scene))]))
+        max_err = max(v for k, v in errs.items() if k.startswith("flat "))
         tri = flat_tables(demo)[0]
         verts = demo.vertices.reshape(-1, 3).cpu().numpy()
         o, d = random_rays(rng, 512 * 512, verts.min(axis=0), verts.max(axis=0), device)
@@ -1002,6 +1194,7 @@ def main() -> int:
                 lambda: ki.flat_intersect_plain(tri, rays, 1e-5),
             )
             timing[label] = (k_ms, p_ms)
+        flat_rays = ki.prep_rays(o, d)
         # every ray tests every slot of the real clusters
         slots = demo.cbvh.real_clusters * 128
         results["flat"] = {"max_abs_err": max_err, "ms": timing["no t_max"][0],
@@ -1010,27 +1203,51 @@ def main() -> int:
                                    512 * 512 * 40 + tri.numel() * 4),
                            "shape": f"262144 rays x {demo.cbvh.real_clusters} clusters (demo)"}
 
+    with Phase("kernel flat_mxu"):
+        tiles = pair_tables(demo)[0]
+        m_ms, m_plain_ms, _ = time_in_turns(
+            f"flat_mxu_intersect 262144 rays x {demo.cbvh.real_clusters} clusters",
+            lambda: ki.flat_mxu_intersect(tiles, flat_rays, 1e-5),
+            lambda: ki.flat_mxu_intersect_plain(tiles, flat_rays, 1e-5),
+        )
+        kernels_in_turns("flat and flat_mxu kernels, 262144 rays (demo)", {
+            "flat": lambda: ki.flat_intersect(tri, flat_rays, 1e-5),
+            "flat_mxu": lambda: ki.flat_mxu_intersect(tiles, flat_rays, 1e-5),
+        })
+        # flat's operations; the pairs' bytes are twice the tiles'
+        mxu_err = max(v for k, v in errs.items() if k.startswith("flat_mxu"))
+        results["flat_mxu"] = {"max_abs_err": mxu_err, "ms": m_ms, "plain_ms": m_plain_ms,
+                               **bound(512 * 512 * slots * TRI_HIT_OPS,
+                                       512 * 512 * 40 + tiles.numel() * 4),
+                               "shape": f"262144 rays x {demo.cbvh.real_clusters} tile pairs "
+                                        "(demo)"}
+
     with Phase("kernel queue"):
         hero20k = prepare_scene(procedural.hero_scene(20_000), device)
         soup700 = prepare_scene(procedural.triangle_soup(89_000, seed=3), device)
         for scene in (hero20k, soup700):
             if intersector_name(scene.cbvh) != "queue":
                 raise RuntimeError(f"{scene.cbvh.num_clusters} clusters: not a queue scene")
-        worst = 0.0
         # The soup's 89k triangles fill a 20-unit cube densely, so some random
         # rays start within 1e-3 of a triangle: the strict gate holds on the
         # bench's scene, the soup gets the near-surface rule.
-        for label, scene, strict in (
-            ("hero20k", hero20k, BENCH_RAYS),
-            (f"soup{soup700.cbvh.real_clusters}", soup700, ()),
-        ):
+        queue_scenes = (("hero20k", hero20k, BENCH_RAYS),
+                        (f"soup{soup700.cbvh.real_clusters}", soup700, ()))
+        # hbm on the same rays: equal to its plain version and to queue
+        q_errs = {}
+        for label, scene, strict in queue_scenes:
+            cb = scene.cbvh
             log(f"kernel queue {label}: {scene.num_triangles} triangles, "
-                f"{scene.cbvh.real_clusters} real clusters, table "
-                f"{scene.cbvh.vmem_bytes / 2**20:.2f} MiB")
-            worst = max(worst, check_kernel(
+                f"{cb.real_clusters} real clusters, table {cb.vmem_bytes / 2**20:.2f} MiB, "
+                f"{cb.oct_bbox.shape[0]} octs of {cb.oct_branch}")
+            q_errs.update(check_kernel(
                 f"queue {label}", ki.queue_intersect, ki.queue_intersect_plain,
-                (scene.cbvh.clu_bbox_t, scene.cbvh.tri_const), scene, rng, device,
-                BENCH_RAYS, strict))
+                (cb.clu_bbox_t, cb.tri_const), scene, rng, device, BENCH_RAYS, strict,
+                variants=[(f"hbm {label}",
+                           functools.partial(ki.hbm_intersect, oct_branch=cb.oct_branch),
+                           functools.partial(ki.hbm_intersect_plain, oct_branch=cb.oct_branch),
+                           (cb.oct_bbox_t, cb.tri_const))]))
+        worst = max(v for k, v in q_errs.items() if k.startswith("queue"))
         verts = soup700.vertices.reshape(-1, 3).cpu().numpy()
         o, d = random_rays(rng, 512 * 512, verts.min(axis=0), verts.max(axis=0), device)
         rays = ki.prep_rays(o, d)
@@ -1054,7 +1271,7 @@ def main() -> int:
                                     + torch.unique(won // 128).numel() * TILE_BYTES),
                             "shape": f"262144 rays x {num_c} clusters (soup near 6 MB), "
                                      f"{pairs / rays.shape[0]:.2f} pierced clusters a ray"}
-        del soup700, tables, rays
+        del soup700, queue_scenes, tables, rays
 
     with Phase("kernel blk"):
         t0 = time.perf_counter()
@@ -1063,15 +1280,89 @@ def main() -> int:
         cbvh = hero.cbvh
         log(f"hero: {hero.num_triangles} triangles, {cbvh.real_clusters} real clusters, "
             f"blk_const {tuple(cbvh.blk_const.shape)} = {cbvh.blk_const.numel() * 4 / 2**20:.1f} "
-            f"MiB, blk_bbox_t {tuple(cbvh.blk_bbox_t.shape)}, intersector "
+            f"MiB, blk_bbox_t {tuple(cbvh.blk_bbox_t.shape)}, oct_bbox_t "
+            f"{tuple(cbvh.oct_bbox_t.shape)} ({cbvh.oct_bbox.shape[0]} octs), intersector "
             f"{intersector_name(cbvh)}, built and moved in {time.perf_counter() - t0:.1f} s")
         if intersector_name(cbvh) != "blk":
             raise RuntimeError("the hero scene does not pick the blk intersector")
-        worst, b_ms, b_plain_ms, b_count, wavefront, b_bound, sets = check_blk_hero(
-            hero, rng, device)
+        sets, lifted = hero_ray_sets(hero, rng, device)
+
+        def blk_walk(r, stats=False):
+            return ki.blk_intersect(cbvh.blk_bbox_t, cbvh.blk_const, r, 1e-5, stats)
+
+        worst, b_ms, b_plain_ms, b_count, _, b_bound = check_walk_hero(
+            "blk", blk_walk, lambda r: ki.blk_intersect_plain(cbvh.blk_bbox_t, cbvh.blk_const, r,
+                                                              1e-5),
+            functools.partial(ki.nearest_hit_blk, cbvh), hero, sets, lifted, cbvh.blk_bbox_t,
+            cbvh.blk_branch, TILE_BYTES, TILE_BYTES)
         results["blk"] = {"max_abs_err": worst, "ms": b_ms, "plain_ms": b_plain_ms, **b_bound,
                           "shape": f"{b_count} camera rays x {cbvh.blk_const.shape[0]} blocks "
                                    "(hero 2M)"}
+
+    with Phase("kernel hbm"):
+        # a padded table: the row-15 boxes of its pad clusters are inverted
+        # and pierced by every ray; the kernel skips them, so no ray counts
+        # more clusters intersected than the real ones it pierces
+        padded = prepare_scene(procedural.triangle_soup(1200, seed=5), device)
+        pc = padded.cbvh
+        verts = padded.vertices.reshape(-1, 3).cpu().numpy()
+        o, d = random_rays(np.random.default_rng(5), 2048, verts.min(axis=0), verts.max(axis=0),
+                           device)
+        rays = ki.prep_rays(o, d)
+        _, _, pstats = ki.hbm_intersect(pc.oct_bbox_t, pc.tri_const, rays, 1e-5, pc.oct_branch,
+                                        stats=True)
+        pierced = ki._pierce(pc.clu_bbox_t[:, :pc.num_clusters], rays, 1e-5).sum(dim=1)
+        log(f"kernel hbm soup{pc.real_clusters} of {pc.num_clusters} clusters, 2048 rays: clusters "
+            f"intersected per ray max {int(pstats[:, 1].max())}, mean "
+            f"{float(pstats[:, 1].float().mean()):.3f}; real clusters pierced per ray max "
+            f"{int(pierced.max())}")
+        if (pstats[:, 1] > pierced).any():
+            raise RuntimeError("hbm counted a pad cluster")
+
+        def hbm_walk(r, stats=False):
+            return ki.hbm_intersect(cbvh.oct_bbox_t, cbvh.tri_const, r, 1e-5, cbvh.oct_branch,
+                                    stats)
+
+        worst_h, h_ms, h_plain_ms, h_count, _, h_bound = check_walk_hero(
+            "hbm", hbm_walk,
+            lambda r: ki.hbm_intersect_plain(cbvh.oct_bbox_t, cbvh.tri_const, r, 1e-5,
+                                             cbvh.oct_branch),
+            functools.partial(ki.nearest_hit_hbm, cbvh), hero, sets, lifted, cbvh.oct_bbox_t,
+            cbvh.oct_branch, TILE_BYTES, 0, wavefront_reps=5)
+        results["hbm"] = {"max_abs_err": max(worst_h, *(v for k, v in q_errs.items()
+                                                        if k.startswith("hbm"))), "ms": h_ms, "plain_ms": h_plain_ms,
+                          **h_bound, "shape": f"{h_count} camera rays x "
+                                              f"{cbvh.oct_bbox.shape[0]} octs of "
+                                              f"{cbvh.oct_branch} (hero 2M)"}
+
+    with Phase("kernel blk_mxu"):
+        t0 = time.perf_counter()
+        hero_mxu = hero.replace(cbvh=with_mxu_blocks(cbvh, cbvh.blk_branch))
+        mcb = hero_mxu.cbvh
+        torch.cuda.synchronize()
+        log(f"hero MXU blocks: mxu_const {tuple(mcb.mxu_const.shape)} = "
+            f"{mcb.mxu_const.numel() * 4 / 2**20:.1f} MiB, built and moved in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def mxu_walk(r, stats=False):
+            return ki.blk_mxu_intersect(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5, stats)
+
+        worst, x_ms, x_plain_ms, x_count, _, x_bound = check_walk_hero(
+            "blk_mxu", mxu_walk,
+            lambda r: ki.blk_mxu_intersect_plain(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5),
+            functools.partial(ki.nearest_hit_blk_mxu, mcb), hero_mxu, sets, lifted,
+            mcb.blk_bbox_t, mcb.mxu_branch, 2 * TILE_BYTES, TILE_BYTES)
+        for kind, (o, d, t_max) in sets.items():
+            rays = ki.prep_rays(o, d, None, t_max)
+            exact(f"blk_mxu == blk, hero {kind}", mxu_walk(rays), blk_walk(rays))
+            log(f"kernel blk_mxu hero {kind}: {rays.shape[0]} rays equal to the blk kernel's "
+                "bit for bit")
+        rays = ki.prep_rays(*sets["camera"][:2])
+        kernels_in_turns(f"blk and blk_mxu kernels, hero {rays.shape[0]} camera rays", {
+            "blk": lambda: blk_walk(rays), "blk_mxu": lambda: mxu_walk(rays)})
+        results["blk_mxu"] = {"max_abs_err": worst, "ms": x_ms, "plain_ms": x_plain_ms,
+                              **x_bound, "shape": f"{x_count} camera rays x "
+                                                  f"{mcb.mxu_const.shape[0]} MXU blocks (hero 2M)"}
 
     with Phase("kernel first_blocks"):
         k_err, k_ms, k_plain_ms, argsort_ms, k_bound = check_first_blocks(hero, sets, rng, device)
@@ -1079,6 +1370,9 @@ def main() -> int:
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain_ms, **k_bound,
             "shape": f"{HERO_W * HERO_H} camera rays x {cbvh.blk_bbox_t.shape[1]} block columns "
                      f"(hero; the stable argsort of the keys {argsort_ms:.4f} ms)"}
+
+    with Phase("fixed cost"):
+        results["null"], null_launches = fixed_cost(hero, counts, card)
 
     with Phase("ordering"):
         check_ordering(hero, sets, card)
@@ -1099,7 +1393,6 @@ def main() -> int:
             width=HERO_W, height=HERO_H, max_bounces=HERO_BOUNCES, ray_chunk=0), card)
 
     with Phase("goldens"):
-        counts = ki.COUNTS
         for name, scene_fn, cam, spp, res, bounces in (
             ("cornell_64", lambda: procedural.cornell_box(glossy=True),
              Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2, device=device), 4, 64, 4),
@@ -1118,12 +1411,7 @@ def main() -> int:
                 images.append(resolve_image(gb, config).cpu().numpy())
                 if dev is device and name == "hero_small_32":
                     # the queue kernel's main-path run, through render()
-                    queue_launches = counts.queue_kernel
-                    log(f"main path queue (render of hero_small_32): queue_kernel launches "
-                        f"{queue_launches}, plain intersector calls on CUDA "
-                        f"{counts.plain_cuda()}")
-                    if queue_launches == 0 or counts.plain_cuda():
-                        raise RuntimeError("the queue path did not go through its kernel alone")
+                    queue_launches = check_only(counts, "queue", "queue (render of hero_small_32)")
             got = images[0]
             with np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz")) as f:
                 want = f["image"]
@@ -1139,18 +1427,43 @@ def main() -> int:
 
     with Phase("main path"):
         os.makedirs(OUT_DIR, exist_ok=True)
-        flat_launches = cli_path("flat", counts, (
-            ("demo", ["--scene", "demo", "--width", "512", "--height", "512",
-                      "--max-bounces", "8", "--min-samples", "4", "--max-samples", "8",
-                      "--camera", "0", "1.2", "-1.8", "0", "0.15"]),
+        demo_argv = ["--scene", "demo", "--width", "512", "--height", "512",
+                     "--max-bounces", "8", "--min-samples", "4", "--max-samples", "8",
+                     "--camera", "0", "1.2", "-1.8", "0", "0.15"]
+        hero_argv = ["--scene", "hero", "--width", str(HERO_W), "--height", str(HERO_H),
+                     "--max-bounces", str(HERO_BOUNCES), "--min-samples", "1",
+                     "--max-samples", "1", "--camera", "0", "1.2", "-1.8", "0", "0.15"]
+        flat_launches, flat_png = cli_path("flat", counts, (
+            ("demo", demo_argv),
             ("cornell", ["--scene", "cornell", "--width", "512", "--height", "512",
                          "--min-samples", "1", "--max-samples", "2"]),
-        ), "flat_kernel", cli)
-        blk_launches = cli_path("blk", counts, (
-            ("hero", ["--scene", "hero", "--width", str(HERO_W), "--height", str(HERO_H),
-                      "--max-bounces", str(HERO_BOUNCES), "--min-samples", "2",
-                      "--max-samples", "4", "--camera", "0", "1.2", "-1.8", "0", "0.15"]),
-        ), "blk_kernel", cli)
+        ), "flat", cli)
+        flat_mxu_launches, png = cli_path("flat_mxu", counts, (("demo_flat_mxu", demo_argv),),
+                                          "flat_mxu", cli, override="flat_mxu")
+        same_image("CLI demo under ISAKLM_INTERSECTOR=flat_mxu", png["demo_flat_mxu"],
+                   flat_png["demo"])
+        blk_launches, blk_png = cli_path("blk", counts, (("hero", hero_argv),), "blk", cli)
+        hbm_launches, png = cli_path("hbm", counts, (("hero_hbm", hero_argv),), "hbm", cli,
+                                     override="hbm")
+        same_image("CLI hero under ISAKLM_INTERSECTOR=hbm", png["hero_hbm"], blk_png["hero"])
+        # render() of the hero with MXU blocks, under blk_mxu and the auto rule (blk)
+        camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
+        config = RenderConfig(width=HERO_W, height=HERO_H, max_bounces=HERO_BOUNCES, ray_chunk=0)
+        images = {}
+        for name, kernel in (("blk_mxu", "blk_mxu"), (None, "blk")):
+            counts.reset()
+            t0 = time.perf_counter()
+            with intersector_env(name):
+                gb = render(hero_mxu, camera, config, num_samples=2, seed=0)
+            torch.cuda.synchronize()
+            log(f"render hero with MXU blocks under {name or 'the auto rule'}: 2 samples in "
+                f"{time.perf_counter() - t0:.2f} s")
+            launches = check_only(counts, kernel, f"render of the hero under {name or 'auto'}")
+            images[name] = resolve_image(gb, config).cpu().numpy()
+            if name is not None:
+                blk_mxu_launches = launches
+        same_image("render of the hero under ISAKLM_INTERSECTOR=blk_mxu", images["blk_mxu"],
+                   images[None])
 
     with Phase("perf"):
         camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
@@ -1159,6 +1472,10 @@ def main() -> int:
                       "blk_intersect", card)
         log(f"hero s/sample: ray_chunk 0 {hero_s[0]}, ray_chunk {defaults.ray_chunk} "
             f"{hero_s[defaults.ray_chunk]} on {card}")
+        perf_overrides("demo", demo, camera, 512, 512, 8, ["flat", "flat_mxu"], counts, card)
+        perf_overrides("hero", hero_mxu, camera, HERO_W, HERO_H, HERO_BOUNCES,
+                       ["blk", "blk_mxu", "hbm"], counts, card)
+        del hero_mxu, mcb
 
     with Phase("grad"):
         # bench.py's fwd+bwd (loss = mean(render_sample), leaf = albedo)
@@ -1186,18 +1503,31 @@ def main() -> int:
 
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall in all")
     launches = {"flat": flat_launches, "queue": queue_launches, "blk": blk_launches,
-                "first_blocks": first_blocks_launches}
-    names = {"flat": "flat_intersect", "queue": "queue_intersect", "blk": "blk_intersect",
-             "first_blocks": "first_block_keys"}
+                "first_blocks": first_blocks_launches, "hbm": hbm_launches,
+                "flat_mxu": flat_mxu_launches, "blk_mxu": blk_mxu_launches,
+                "null": null_launches}
+    # the CUDA kernel of each entry and the TPU kernel it replaces
+    pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
+    kernels = {
+        "flat": ("flat_intersect", pallas + "521"),  # _flat_kernel
+        "queue": ("queue_intersect", pallas + "349"),  # _vmem_kernel
+        "blk": ("blk_intersect", pallas + "592"),  # _blk_kernel
+        "first_blocks": ("first_block_keys", pallas + "949"),  # _first_blocks_kernel
+        "hbm": ("hbm_intersect", pallas + "390"),  # _hbm_kernel
+        "flat_mxu": ("flat_mxu_intersect", pallas + "557"),  # _flat_mxu_kernel
+        "blk_mxu": ("blk_mxu_intersect", pallas + "643"),  # _blk_kernel's mxu branches
+        # null_kernel; null_small's lambda (:143) is the same kernel without scratch
+        "null": ("null_intersect", "scripts/fixed_cost_probe.py:99"),
+    }
     for k, r in results.items():
-        log(f"kernels line, {names[k]}: ms and plain_ms at {r['shape']}; launches from "
+        log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches from "
             f"its main-path run; max_abs_err over every kernel-vs-plain comparison; bound "
             f"{r['ops']:.4g} operations, {r['bytes']:.4g} bytes")
     log(json.dumps({"kernels": [{
-        "name": names[k],
+        "name": name,
         "route": "cuda",
-        "source": f"isaklm_raytracer_tpu_torch/csrc/{names[k]}.cu",
-        "replaces": "isaklm_raytracer_tpu/kernels/intersect.py:" + line,
+        "source": f"isaklm_raytracer_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
         "launches": launches[k],
         "max_abs_err": results[k]["max_abs_err"],
         "ms": results[k]["ms"],
@@ -1205,8 +1535,7 @@ def main() -> int:
         "bound_ms": results[k]["bound_ms"],
         "bound_by": results[k]["bound_by"],
         "library_ms": None,  # no PyTorch call computes a nearest hit or a block key
-    } for k, line in (("flat", "521"), ("queue", "349"), ("blk", "592"),
-                      ("first_blocks", "949"))]}), name_card=False)
+    } for k, (name, replaces) in kernels.items()]}), name_card=False)
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

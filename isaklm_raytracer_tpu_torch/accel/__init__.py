@@ -10,6 +10,9 @@ from isaklm_raytracer_tpu_torch.accel.cluster import (
     cluster_order,
     padded_clusters,
     with_blocks,
+    with_mxu_blocks,
+    with_mxu_tiles,
+    with_oct_branch,
 )
 from isaklm_raytracer_tpu_torch.accel.traverse import (
     HitAttributes,
@@ -31,15 +34,14 @@ def prepare_scene(scene, device="cuda"):
        reconstructs triangle ids as c*128 + lane; every per-triangle array
        and the light list are permuted consistently;
     2. builds the cluster tables (``tri_const``, ``clu_bbox``,
-       ``clu_bbox_t``) and, for a scene whose cluster table exceeds
-       ``VMEM_TABLE_LIMIT`` (the blocked kernel's scenes), the blocked
-       layout with ``ISAKLM_BLK_BRANCH`` clusters per block (default 128,
-       as the JAX package);
+       ``clu_bbox_t``, the oct tables) and, for a scene whose cluster table
+       exceeds ``VMEM_TABLE_LIMIT`` (the blocked kernel's scenes), the
+       blocked layout with ``ISAKLM_BLK_BRANCH`` clusters per block
+       (default 128, as the JAX package), else the MXU tile pairs;
     3. packs the (T, 32) shading rows
        [p1 p2 p3 | n1 n2 n3 | uv1 uv2 uv3 | mat_id | pad].
 
-    No KD tree is built: the port has no KD traversal. No MXU tiles are
-    built: no ported kernel reads them.
+    No KD tree is built: the port has no KD traversal.
     """
     device = resolve_device(device)
     verts = np.asarray(scene.vertices)
@@ -60,6 +62,7 @@ def prepare_scene(scene, device="cuda"):
     table[:, 18:24] = uvs.reshape(num, 6)
     table[:, 24] = mat_id
 
+    blk_branch = _blk_branch(num)
     return move_scene(
         scene.replace(
             vertices=verts,
@@ -68,7 +71,8 @@ def prepare_scene(scene, device="cuda"):
             mat_id=mat_id,
             light_indices=lights,
             shade_table=table,
-            cbvh=build_cluster_bvh(verts, blk_branch=_blk_branch(num)),
+            cbvh=build_cluster_bvh(verts, blk_branch=blk_branch,
+                                   mxu_tiles=blk_branch is None),
         ),
         device,
     )
@@ -111,4 +115,7 @@ __all__ = [
     "nearest_hit_brute",
     "prepare_scene",
     "with_blocks",
+    "with_mxu_blocks",
+    "with_mxu_tiles",
+    "with_oct_branch",
 ]

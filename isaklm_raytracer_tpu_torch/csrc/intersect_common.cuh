@@ -7,7 +7,10 @@
 //     (16, 128) cluster tile (accel/cluster.py layout);
 //   - `slab`: the NaN-conservative slab test of `_make_box_any` and
 //     `_dense_near` (intersect.py:121-149, 155-197);
-//   - `accept`: the running-best update of the shared output contract.
+//   - `accept`: the running-best update of the shared output contract;
+//   - `intersect_tile` / `intersect_tile_mxu`: `tri_hit` over the 128 slots
+//     of a cluster in the VPU layout or the MXU tile-pair layout
+//     (`_make_intersect_mxu`, intersect.py:259-309).
 // Every library that includes this file is built with --fmad=false, so
 // each product and sum rounds as in the plain PyTorch versions.
 
@@ -84,24 +87,46 @@ __device__ __forceinline__ void accept(float t, int id, float& best_t, int& best
   }
 }
 
-// Intersects every slot of one (16, 128) tile in device memory, rows
-// k * 128 + lane; `base` is the id of lane 0. The threads of a warp that
-// walk the same tile read the same addresses (broadcast loads).
+// Intersects every slot of one cluster whose 15 constants lie in device
+// memory as four runs of consecutive 128-lane rows: n (3 rows), e1 (3), e2
+// (3) and np1 p1e1 p1e2 ca cb cc (6); `base` is the id of lane 0. The
+// threads of a warp that walk the same cluster read the same addresses
+// (broadcast loads).
+__device__ __forceinline__ void intersect_rows(
+    const float* __restrict__ n, const float* __restrict__ e1,
+    const float* __restrict__ e2, const float* __restrict__ aux, int base,
+    const Ray& r, float t_eps, float& best_t, int& best_id) {
+  for (int lane = 0; lane < kWidth; ++lane) {
+    const float t = tri_hit(
+        r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+        __ldg(n + lane), __ldg(n + kWidth + lane), __ldg(n + 2 * kWidth + lane),
+        __ldg(e1 + lane), __ldg(e1 + kWidth + lane), __ldg(e1 + 2 * kWidth + lane),
+        __ldg(e2 + lane), __ldg(e2 + kWidth + lane), __ldg(e2 + 2 * kWidth + lane),
+        __ldg(aux + lane), __ldg(aux + kWidth + lane), __ldg(aux + 2 * kWidth + lane),
+        __ldg(aux + 3 * kWidth + lane), __ldg(aux + 4 * kWidth + lane),
+        __ldg(aux + 5 * kWidth + lane), t_eps);
+    accept(t, base + lane, best_t, best_id);
+  }
+}
+
+// One (16, 128) cluster tile of the VPU layout (rows 0-14, see above).
 __device__ __forceinline__ void intersect_tile(
     const float* __restrict__ tile, int base, const Ray& r, float t_eps,
     float& best_t, int& best_id) {
-  for (int lane = 0; lane < kWidth; ++lane) {
-    const float* q = tile + lane;
-    const float t = tri_hit(
-        r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-        __ldg(q + 0 * kWidth), __ldg(q + 1 * kWidth), __ldg(q + 2 * kWidth),
-        __ldg(q + 3 * kWidth), __ldg(q + 4 * kWidth), __ldg(q + 5 * kWidth),
-        __ldg(q + 6 * kWidth), __ldg(q + 7 * kWidth), __ldg(q + 8 * kWidth),
-        __ldg(q + 9 * kWidth), __ldg(q + 10 * kWidth), __ldg(q + 11 * kWidth),
-        __ldg(q + 12 * kWidth), __ldg(q + 13 * kWidth), __ldg(q + 14 * kWidth),
-        t_eps);
-    accept(t, base + lane, best_t, best_id);
-  }
+  intersect_rows(tile, tile + 3 * kWidth, tile + 6 * kWidth, tile + 9 * kWidth,
+                 base, r, t_eps, best_t, best_id);
+}
+
+// One MXU tile pair (accel/cluster.py `with_mxu_tiles`): W1 holds n in rows
+// 0-2 and e1 in rows 8-10, W2 holds e2 in rows 0-2 and np1 p1e1 p1e2 ca cb
+// cc in rows 8-13. The TPU kernels form the six dot products as matmuls of
+// [d; o] against W1 and W2; here each is the same IEEE f32 sum `tri_hit`
+// forms from the VPU layout, so the two layouts give the same bits.
+__device__ __forceinline__ void intersect_tile_mxu(
+    const float* __restrict__ w1, const float* __restrict__ w2, int base,
+    const Ray& r, float t_eps, float& best_t, int& best_id) {
+  intersect_rows(w1, w1 + 8 * kWidth, w2, w2 + 8 * kWidth, base, r, t_eps,
+                 best_t, best_id);
 }
 
 // Slab test of one box (min xyz, max xyz) against a ray. Returns whether

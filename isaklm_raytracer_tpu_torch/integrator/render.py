@@ -29,62 +29,67 @@ from isaklm_raytracer_tpu_torch.kernels.intersect import (
     FLAT_CLUSTER_LIMIT,
     VMEM_TABLE_LIMIT,
     nearest_hit_blk,
+    nearest_hit_blk_mxu,
     nearest_hit_flat,
+    nearest_hit_flat_mxu,
+    nearest_hit_hbm,
     nearest_hit_queue,
 )
 from isaklm_raytracer_tpu_torch.math import rng
 from isaklm_raytracer_tpu_torch.math.color import correct_color, luminance
 from isaklm_raytracer_tpu_torch.scene.types import GBuffer, Scene
 
-# The JAX package's intersector names (ISAKLM_INTERSECTOR). The port has the
-# first three; each other one names the ROADMAP item that ports it.
+# The JAX package's intersector names (ISAKLM_INTERSECTOR), each with its
+# nearest-hit function and the ray order the JAX package's
+# ``_pick_cluster_kernel`` gives it (blk: ``blk_sort_mode``).
 _INTERSECTORS = {
-    "flat": nearest_hit_flat,
-    "queue": nearest_hit_queue,
-    "blk": nearest_hit_blk,
+    "flat": (nearest_hit_flat, True),
+    "flat_mxu": (nearest_hit_flat_mxu, False),
+    "queue": (nearest_hit_queue, True),
+    "hbm": (nearest_hit_hbm, True),
+    "blk": (nearest_hit_blk, None),
+    "blk_mxu": (nearest_hit_blk_mxu, True),
 }
-_UNPORTED = {
-    "flat_mxu": "ROADMAP B7 (_flat_mxu_kernel)",
-    "hbm": "ROADMAP B6 (_hbm_kernel)",
-    "blk_mxu": "ROADMAP B7 (_blk_kernel with mxu=True)",
-}
+# the table each override needs, as the JAX package checks it
+_NEEDS = {"blk": "blk_const", "blk_mxu": "mxu_const", "flat_mxu": "mxu_tiles"}
 
 
 def intersector_name(cbvh) -> str:
     """The intersector for a prepared scene, picked by the JAX package's
     auto rule: "flat" for at most FLAT_CLUSTER_LIMIT real clusters, "queue"
-    for a cluster table of at most VMEM_TABLE_LIMIT bytes, "blk" above it.
-    The same name serves every device: its kernel on CUDA, its plain
-    version on the CPU.
+    for a cluster table of at most VMEM_TABLE_LIMIT bytes, above it "blk"
+    if the scene has blocked tables, else "blk_mxu" if it has MXU blocks,
+    else "hbm". The same name serves every device: its kernel on CUDA, its
+    plain version on the CPU.
 
-    ISAKLM_INTERSECTOR overrides the rule with flat, queue or blk; the JAX
-    package's other names raise NotImplementedError with the ROADMAP item
-    that ports them, and an unknown name or a missing table raises
-    ValueError, as in the JAX package."""
+    ISAKLM_INTERSECTOR overrides the rule with any of the six names; an
+    unknown name, or a name whose table the scene lacks (blk: blk_const,
+    blk_mxu: mxu_const, flat_mxu: mxu_tiles), raises ValueError, as in the
+    JAX package."""
     override = os.environ.get("ISAKLM_INTERSECTOR", "auto")
     if override != "auto":
-        if override in _UNPORTED:
-            raise NotImplementedError(
-                f"ISAKLM_INTERSECTOR={override!r} is not ported yet: {_UNPORTED[override]}"
-            )
         if override not in _INTERSECTORS:
             raise ValueError(
                 f"ISAKLM_INTERSECTOR={override!r}: unknown intersector (expected one "
-                f"of {(*_INTERSECTORS, *_UNPORTED)} or 'auto')"
+                f"of {tuple(_INTERSECTORS)} or 'auto')"
             )
-        name = override
-    elif cbvh.real_clusters <= FLAT_CLUSTER_LIMIT:
-        name = "flat"
-    elif cbvh.vmem_bytes <= VMEM_TABLE_LIMIT:
-        name = "queue"
-    else:
-        name = "blk"
-    if name == "blk" and cbvh.blk_const is None:
-        raise ValueError(
-            "the blk intersector needs cbvh.blk_const: prepare_scene builds it for "
-            "scenes over VMEM_TABLE_LIMIT, accel.with_blocks for any scene"
-        )
-    return name
+        needs = _NEEDS.get(override)
+        if needs is not None and getattr(cbvh, needs) is None:
+            raise ValueError(
+                f"ISAKLM_INTERSECTOR={override!r} needs cbvh.{needs}; this scene was "
+                "prepared without that table (see accel.with_blocks / with_mxu_blocks "
+                "/ with_mxu_tiles)"
+            )
+        return override
+    if cbvh.real_clusters <= FLAT_CLUSTER_LIMIT:
+        return "flat"
+    if cbvh.vmem_bytes <= VMEM_TABLE_LIMIT:
+        return "queue"
+    if cbvh.blk_const is not None:
+        return "blk"
+    if cbvh.mxu_const is not None:
+        return "blk_mxu"
+    return "hbm"
 
 
 def blk_sort_mode() -> str:
@@ -102,17 +107,17 @@ def blk_sort_mode() -> str:
 def make_trace_fn(scene: Scene, config: RenderConfig):
     """The intersector: trace(o, d, active=None, t_max=None) -> (t, idx, hit).
     For a prepared scene, the one ``intersector_name`` picks, ordering its
-    rays as the JAX package's ``_pick_cluster_kernel`` does: Morton for
-    flat and queue, ``blk_sort_mode`` for blk. A scene without cluster
-    tables gets the brute-force oracle on the CPU; on CUDA it raises, since
-    every nearest-hit query there goes through a kernel."""
+    rays as the JAX package's ``_pick_cluster_kernel`` does: caller order
+    for flat_mxu, ``blk_sort_mode`` for blk, Morton for the others. A scene
+    without cluster tables gets the brute-force oracle on the CPU; on CUDA
+    it raises, since every nearest-hit query there goes through a kernel."""
     if scene.cbvh is not None:
         # read for every scene, as the JAX package does: a bad value raises
         blk_sort = {"block": "block", "morton": True}[blk_sort_mode()]
-        name = intersector_name(scene.cbvh)
+        fn, sort_rays = _INTERSECTORS[intersector_name(scene.cbvh)]
         return functools.partial(
-            _INTERSECTORS[name], scene.cbvh, t_eps=config.t_epsilon,
-            sort_rays=blk_sort if name == "blk" else True,
+            fn, scene.cbvh, t_eps=config.t_epsilon,
+            sort_rays=blk_sort if sort_rays is None else sort_rays,
         )
     if torch.device(scene.device).type == "cuda":
         raise ValueError(

@@ -15,7 +15,8 @@ Scene dict layout (keys as the Scene fields):
   textures: {buffer, offset, width, height},
   shade_table (may be None),
   cbvh (may be None): {tri_const, clu_bbox, num_triangles, clu_bbox_t,
-    blk_const, blk_bbox_t, blk_branch} (the blocked tables may be None).
+    blk_const, blk_bbox_t, blk_branch, oct_bbox, oct_bbox_t, mxu_const,
+    mxu_branch, mxu_tiles} (every table but the first two may be None).
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ _MATERIALS = ("albedo", "emittance", "roughness", "ior", "extinction", "transpar
 _TEXTURES = ("buffer", "offset", "width", "height")
 _CAMERA = ("position", "yaw", "pitch", "fov", "aperture_radius")
 _GBUFFER = ("frame", "sq_luminance", "count")
-_CBVH = ("tri_const", "clu_bbox", "clu_bbox_t", "blk_const", "blk_bbox_t")
+_CBVH = ("tri_const", "clu_bbox", "clu_bbox_t", "blk_const", "blk_bbox_t", "oct_bbox",
+         "oct_bbox_t", "mxu_const", "mxu_tiles")
+_CBVH_INTS = ("num_triangles", "blk_branch", "mxu_branch")
 
 
 def _np(x) -> np.ndarray:
@@ -68,8 +71,7 @@ def scene_to_numpy(scene) -> dict:
         "cbvh": None if cbvh is None else {
             **{k: None if getattr(cbvh, k) is None else _np(getattr(cbvh, k))
                for k in _CBVH},
-            "num_triangles": int(cbvh.num_triangles),
-            "blk_branch": int(cbvh.blk_branch),
+            **{k: int(getattr(cbvh, k)) for k in _CBVH_INTS},
         },
     }
 
@@ -88,8 +90,7 @@ def scene_from_numpy(leaves: dict, device="cpu") -> Scene:
         ),
         cbvh=None if cbvh is None else ClusterBVH(
             **{k: _tensor(cbvh.get(k), device) for k in _CBVH},
-            num_triangles=int(cbvh["num_triangles"]),
-            blk_branch=int(cbvh.get("blk_branch", 0)),
+            **{k: int(cbvh.get(k, 0)) for k in _CBVH_INTS},
         ),
         shade_table=None if shade is None else _tensor(shade, device),
         has_lights=bool(leaves["has_lights"]),

@@ -1,30 +1,45 @@
 """Nearest-hit intersectors: CUDA kernel wrappers and their plain versions.
 
 Ports of the Pallas kernels of ``isaklm_raytracer_tpu/kernels/intersect.py``
-that ``integrator.render.intersector_name`` picks by scene size:
+that ``integrator.render.intersector_name`` picks by scene size or by
+``ISAKLM_INTERSECTOR``:
 
 - ``flat_intersect`` (``csrc/flat_intersect.cu``) <- ``_flat_kernel`` of
   ``nearest_hit_cluster_flat``: every ray against every triangle of the
   real clusters, for at most ``FLAT_CLUSTER_LIMIT`` clusters;
+- ``flat_mxu_intersect`` (``csrc/flat_mxu_intersect.cu``) <-
+  ``_flat_mxu_kernel`` of ``nearest_hit_cluster_flat_mxu``: the same over
+  the MXU tile pairs (``mxu_tiles``);
 - ``queue_intersect`` (``csrc/queue_intersect.cu``) <- ``_vmem_kernel`` of
   ``nearest_hit_cluster``: a front-to-back walk over the pierced clusters,
   for a cluster table of at most ``VMEM_TABLE_LIMIT`` bytes;
 - ``blk_intersect`` (``csrc/blk_intersect.cu``) <- ``_blk_kernel`` of
   ``nearest_hit_cluster_blk``: the same walk over blocks of clusters, each
-  with a header of its cluster boxes, for anything larger.
+  with a header of its cluster boxes, for anything larger;
+- ``blk_mxu_intersect`` (``csrc/blk_mxu_intersect.cu``) <- ``_blk_kernel``
+  with ``mxu=True``: the blocked walk over the MXU blocks (``mxu_const``);
+- ``hbm_intersect`` (``csrc/hbm_intersect.cu``) <- ``_hbm_kernel`` of
+  ``nearest_hit_cluster_hbm``: the walk over octs of ``oct_branch``
+  clusters, each cluster's box read from row 15 of its own tile.
 
-Contract, shared by every kernel and its plain version: rays (R, 8)
+``null_intersect`` (``csrc/null_intersect.cu``) ports the two probe
+kernels of ``scripts/fixed_cost_probe.py``: zeros in the blocked kernel's
+launch shape, the fixed cost of a launch.
+
+Contract, shared by every intersector and its plain version: rays (R, 8)
 float32 with columns [ox oy oz dx dy dz active t_max] give, per ray, the
 best t (t_max when nothing beat it) and the winning id c*128 + lane
 (2**31 - 1 when nothing won). A candidate wins only strictly inside the
-window (t < t_max); ties go to the lowest id. ``nearest_hit_*`` wrap that
-into the intersector interface (t, idx, hit): a hit is an id that WON, not
-a finite t.
+window (t < t_max); ties go to the lowest id. Every intersector returns the
+same hits for the same scene. ``nearest_hit_*`` wrap that into the
+intersector interface (t, idx, hit): a hit is an id that WON, not a finite
+t.
 
 Ray ordering, as the JAX package's ``_prep_rays``/``_unpack``: before a
 call each ``nearest_hit_*`` wrapper may sort its rays (``sort_rays``) and
-scatters the results back to the caller's order. ``True`` (the default) is
-the Morton key of ``coherence_perm``; ``"block"`` (blk only) sorts by
+scatters the results back to the caller's order. ``True`` (the default
+but for flat_mxu, which keeps the caller's order as the JAX package does)
+is the Morton key of ``coherence_perm``; ``"block"`` (blk only) sorts by
 ``first_block_keys`` (``csrc/first_block_keys.cu`` <- ``_first_blocks_kernel``
 of ``first_block_keys``): the first and second block a ray enters and its
 direction octant. Every ray's result is computed on its own, so the order
@@ -52,17 +67,18 @@ FLAT_CLUSTER_LIMIT = 64  # as the JAX package: at most this many real clusters
 # and the blocked kernel above it (integrator.render.intersector_name).
 VMEM_TABLE_LIMIT = 6 * 1024 * 1024
 SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu",
-           "first_block_keys.cu")
+           "first_block_keys.cu", "hbm_intersect.cu", "flat_mxu_intersect.cu",
+           "blk_mxu_intersect.cu", "null_intersect.cu")
 # The JAX package's packet sizes: the ordering sorts a call's rays only when
-# there are more of them than one packet (DEFAULT_PACKET for flat and queue,
-# the render path's BLK_PACKET for blk).
+# there are more of them than one packet (DEFAULT_PACKET for every
+# intersector but blk, which the render path calls with BLK_PACKET).
 DEFAULT_PACKET = 256
 BLK_PACKET = 128
 _INF = 3.4e38  # unbounded t_max seed and the value of a rejected candidate
 _BIG_ID = 2**31 - 1
 _CUT = 1e38  # block entry keys at or above this mean "not pierced"
-# The queue and blocked kernels stage 7 floats per box in shared memory;
-# a block may use at most 232,448 bytes of it on the H100.
+# The walk kernels stage 7 floats per box (cluster, block or oct) in shared
+# memory; a block may use at most 232,448 bytes of it on the H100.
 _MAX_SHARED_BOXES = 232_448 // (7 * 4)
 # Plain versions: ray x box masks of at most this many elements at once,
 # and at most this many (ray, cluster) pairs tested at once.
@@ -73,7 +89,7 @@ _PAIR_CHUNK = 4096
 class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
-    KERNELS = ("flat", "queue", "blk", "first_blocks")
+    KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null")
 
     def __init__(self) -> None:
         self.reset()
@@ -103,6 +119,16 @@ _ENTRY_ARGS = {
     "blk_intersect": [_P, _I, _I, _P, _I, _P, _I, _F, _P, _P, _P],
     # bbox_t, stride (= the padded block count n), rays, num_rays, t_eps, out_key
     "first_block_keys": [_P, _I, _P, _I, _F, _P],
+    # oct_t, stride, num_octs, tri, oct_branch, rays, num_rays, t_eps, out_t,
+    # out_id, stats (or null)
+    "hbm_intersect": [_P, _I, _I, _P, _I, _P, _I, _F, _P, _P, _P],
+    # tiles, num_clusters, rays, num_rays, t_eps, out_t, out_id
+    "flat_mxu_intersect": [_P, _I, _P, _I, _F, _P, _P],
+    # bbox_t, stride, num_blocks, mxu, branch, rays, num_rays, t_eps, out_t,
+    # out_id, stats (or null)
+    "blk_mxu_intersect": [_P, _I, _I, _P, _I, _P, _I, _F, _P, _P, _P],
+    # num_rays, shared_floats, out_t, out_id
+    "null_intersect": [_I, _I, _P, _P],
 }
 # the COUNTS attribute prefix of each entry point
 _COUNTER = {
@@ -110,6 +136,10 @@ _COUNTER = {
     "queue_intersect": "queue",
     "blk_intersect": "blk",
     "first_block_keys": "first_blocks",
+    "hbm_intersect": "hbm",
+    "flat_mxu_intersect": "flat_mxu",
+    "blk_mxu_intersect": "blk_mxu",
+    "null_intersect": "null",
 }
 
 
@@ -289,6 +319,10 @@ def flat_intersect_plain(tri: torch.Tensor, rays: torch.Tensor, t_eps: float):
     _check_tiles(tri)
     if rays.is_cuda:
         COUNTS.flat_plain_cuda += 1
+    return _flat(tri, rays, t_eps)
+
+
+def _flat(tri: torch.Tensor, rays: torch.Tensor, t_eps: float):
     t_eps = float(np.float32(t_eps))
     num_rays = rays.shape[0]
     best_t = rays[:, 7:8].expand(num_rays, 128).clone()
@@ -319,6 +353,55 @@ def flat_intersect(tri: torch.Tensor, rays: torch.Tensor, t_eps: float):
     _launch(
         "flat_intersect", rays,
         tri.data_ptr(), tri.shape[0], rays.data_ptr(), rays.shape[0], float(t_eps),
+        out_t.data_ptr(), out_id.data_ptr(),
+    )
+    return out_t, out_id
+
+
+# --- flat over MXU tile pairs ---------------------------------------------
+
+
+def _check_pairs(tiles: torch.Tensor) -> None:
+    if tiles.dim() != 4 or tiles.shape[1:] != (2, 16, 128) or tiles.shape[0] < 1:
+        raise ValueError(f"tiles must be (C>=1, 2, 16, 128), got {tuple(tiles.shape)}")
+
+
+def _mxu_unpack(pairs: torch.Tensor) -> torch.Tensor:
+    """(..., 16, 128) cluster tiles of (..., 2, 16, 128) MXU pairs: rows 0-14
+    as in the VPU layout (``accel.cluster._mxu_pairs_np`` backwards), row
+    15 zero."""
+    w1, w2 = pairs[..., 0, :, :], pairs[..., 1, :, :]
+    return torch.cat([w1[..., 0:3, :], w1[..., 8:11, :], w2[..., 0:3, :],
+                      w2[..., 8:14, :], torch.zeros_like(w1[..., 0:1, :])], dim=-2)
+
+
+def flat_mxu_intersect_plain(tiles: torch.Tensor, rays: torch.Tensor, t_eps: float):
+    """Plain PyTorch version of the flat MXU kernel's contract (any device):
+    the pairs unpacked to the VPU layout, then the flat plain version's
+    walk, so the two agree bit for bit."""
+    _check_rays(rays, tiles)
+    _check_pairs(tiles)
+    if rays.is_cuda:
+        COUNTS.flat_mxu_plain_cuda += 1
+    return _flat(_mxu_unpack(tiles), rays, t_eps)
+
+
+def flat_mxu_intersect(tiles: torch.Tensor, rays: torch.Tensor, t_eps: float):
+    """The flat MXU kernel on CUDA tensors, its plain version on CPU tensors.
+
+    tiles: (C, 2, 16, 128) float32 MXU pairs of the real clusters
+    (``mxu_tiles``); rays: (R, 8) float32. Returns (best_t (R,) float32,
+    best_id (R,) int32) as in the contract.
+    """
+    _check_rays(rays, tiles)
+    _check_pairs(tiles)
+    if not rays.is_cuda:
+        return flat_mxu_intersect_plain(tiles, rays, t_eps)
+    _check_contiguous("flat_mxu_intersect", tiles, rays)
+    out_t, out_id = _outputs(rays)
+    _launch(
+        "flat_mxu_intersect", rays,
+        tiles.data_ptr(), tiles.shape[0], rays.data_ptr(), rays.shape[0], float(t_eps),
         out_t.data_ptr(), out_id.data_ptr(),
     )
     return out_t, out_id
@@ -372,47 +455,84 @@ def queue_intersect(box_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
     return out_t, out_id
 
 
-# --- blocked --------------------------------------------------------------
+# --- group walks: blocked, blocked over MXU pairs, octs --------------------
 
 
-def _check_blk(bbox_t, blk, rays):
+def _group_walk_plain(group_t, clu_t, branch, tile_fn, rays, t_eps):
+    """The plain counterpart of the walk kernels (``csrc/group_walk.cuh``):
+    the slab cull of every ray against every cluster box of the
+    component-major (8, G * branch) table ``clu_t``, ANDed with the cull of
+    the cluster's group in ``group_t``, then the 128-lane test of every
+    pierced (ray, cluster) pair, with no pruning by the running best.
+    tile_fn(cluster ids (P,)) -> (P, 16, 128) tiles."""
+    t_eps = float(np.float32(t_eps))
+    num = clu_t.shape[1]
+    groups = group_t[:, : num // branch]
+
+    def pierce(r):
+        in_group = _pierce(groups, r, t_eps).repeat_interleave(branch, dim=1)
+        return in_group & _pierce(clu_t, r, t_eps)
+
+    return _nearest_of_pairs(rays, num, pierce, tile_fn, t_eps)
+
+
+def _walk(name: str, rays: torch.Tensor, t_eps: float, stats: bool, *tables) -> tuple:
+    """Launch walk kernel ``name`` on its table arguments ``tables`` (those
+    before the rays): (best_t, best_id) and, with ``stats``, the (R, 2)
+    int32 groups visited and clusters intersected per ray."""
+    out_t, out_id = _outputs(rays)
+    out_stats = (
+        torch.empty((rays.shape[0], 2), dtype=torch.int32, device=rays.device)
+        if stats else None
+    )
+    _launch(
+        name, rays, *tables, rays.data_ptr(), rays.shape[0], float(t_eps),
+        out_t.data_ptr(), out_id.data_ptr(),
+        None if out_stats is None else out_stats.data_ptr(),
+    )
+    return (out_t, out_id, out_stats) if stats else (out_t, out_id)
+
+
+def _no_stats_on_cpu(name: str, stats: bool) -> None:
+    if stats:
+        raise ValueError(f"{name}: stats count the kernel's walk; the plain version "
+                         "on the CPU has none")
+
+
+def _check_blk(bbox_t, blk, rays, tiles_per_cluster: int = 1) -> int:
+    """Checks a blocked table of ``tiles_per_cluster`` tiles a cluster after
+    the header; returns its branch."""
     _check_rays(rays, bbox_t, blk)
-    if blk.dim() != 4 or blk.shape[2:] != (16, 128) or not 2 <= blk.shape[1] <= 129:
+    branch, rest = divmod(blk.shape[1] - 1, tiles_per_cluster) if blk.dim() == 4 else (0, 0)
+    if blk.shape[2:] != (16, 128) or rest or not 1 <= branch <= 128:
+        k = "" if tiles_per_cluster == 1 else f"{tiles_per_cluster} * "
         raise ValueError(
-            f"blk must be (NB, branch + 1, 16, 128) with branch <= 128, got "
+            f"table must be (NB, {k}branch + 1, 16, 128) with branch <= 128, got "
             f"{tuple(blk.shape)}"
         )
     _check_boxes(bbox_t, blk.shape[0], "block")
+    return branch
+
+
+def _header_boxes(blk: torch.Tensor, branch: int) -> torch.Tensor:
+    """Header rows 0-6, lanes [0, branch): cluster b*branch + k at column
+    b*branch + k of a component-major (8, NB*branch) table."""
+    num_blocks = blk.shape[0]
+    return torch.cat([
+        blk[:, 0, 0:7, :branch].permute(1, 0, 2).reshape(7, num_blocks * branch),
+        torch.zeros((1, num_blocks * branch), dtype=torch.float32, device=blk.device),
+    ])
 
 
 def blk_intersect_plain(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
                         t_eps: float):
     """Plain PyTorch version of the blocked kernel's contract (any device):
-    the slab cull of every ray against every cluster box of the headers,
-    ANDed with the cull of the cluster's block, then the 128-lane test of
-    every pierced (ray, cluster) pair, with no pruning by the running
-    best."""
-    _check_blk(bbox_t, blk, rays)
+    the group-walk plain version over the header tiles' cluster boxes."""
+    branch = _check_blk(bbox_t, blk, rays)
     if rays.is_cuda:
         COUNTS.blk_plain_cuda += 1
-    t_eps = float(np.float32(t_eps))
-    num_blocks, branch = blk.shape[0], blk.shape[1] - 1
-    blk_boxes = bbox_t[:, :num_blocks]
-    # header rows 0-6, lanes [0, branch): cluster b*branch + k at column
-    # b*branch + k of a component-major (8, NB*branch) table
-    clu_boxes = torch.cat([
-        blk[:, 0, 0:7, :branch].permute(1, 0, 2).reshape(7, num_blocks * branch),
-        torch.zeros((1, num_blocks * branch), dtype=torch.float32, device=blk.device),
-    ])
-
-    def pierce(r):
-        in_blk = _pierce(blk_boxes, r, t_eps).repeat_interleave(branch, dim=1)
-        return in_blk & _pierce(clu_boxes, r, t_eps)
-
-    return _nearest_of_pairs(
-        rays, num_blocks * branch, pierce,
-        lambda c: blk[c // branch, 1 + c % branch], t_eps,
-    )
+    return _group_walk_plain(bbox_t, _header_boxes(blk, branch), branch,
+                             lambda c: blk[c // branch, 1 + c % branch], rays, t_eps)
 
 
 def blk_intersect(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
@@ -426,26 +546,128 @@ def blk_intersect(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
     visited, clusters intersected. The counts describe the kernel's walk, so
     the plain version has none and ``stats`` needs a CUDA tensor.
     """
-    _check_blk(bbox_t, blk, rays)
+    branch = _check_blk(bbox_t, blk, rays)
     if not rays.is_cuda:
-        if stats:
-            raise ValueError("blk_intersect: stats count the kernel's walk; "
-                             "the plain version on the CPU has none")
+        _no_stats_on_cpu("blk_intersect", stats)
         return blk_intersect_plain(bbox_t, blk, rays, t_eps)
     _check_contiguous("blk_intersect", bbox_t, blk, rays)
     _check_shared(blk.shape[0], "block")
+    return _walk("blk_intersect", rays, t_eps, stats, bbox_t.data_ptr(), bbox_t.shape[1],
+                 blk.shape[0], blk.data_ptr(), branch)
+
+
+def blk_mxu_intersect_plain(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tensor,
+                            t_eps: float):
+    """Plain PyTorch version of the MXU blocked kernel's contract (any
+    device): the blocked plain version with each cluster's pair unpacked to
+    the VPU layout, so the two agree bit for bit on the same clusters."""
+    branch = _check_blk(bbox_t, mxu, rays, 2)
+    if rays.is_cuda:
+        COUNTS.blk_mxu_plain_cuda += 1
+
+    def tiles(c):
+        first = 1 + 2 * (c % branch)
+        block = c // branch
+        return _mxu_unpack(torch.stack([mxu[block, first], mxu[block, first + 1]], dim=1))
+
+    return _group_walk_plain(bbox_t, _header_boxes(mxu, branch), branch, tiles, rays, t_eps)
+
+
+def blk_mxu_intersect(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tensor,
+                      t_eps: float, stats: bool = False):
+    """The MXU blocked kernel on CUDA tensors, its plain version on CPU
+    tensors.
+
+    bbox_t: (8, >= NB) float32 block boxes (``blk_bbox_t``); mxu: (NB,
+    2 * branch + 1, 16, 128) float32 MXU blocked table (``mxu_const``);
+    rays: (R, 8) float32. Results and ``stats`` as ``blk_intersect``.
+    """
+    branch = _check_blk(bbox_t, mxu, rays, 2)
+    if not rays.is_cuda:
+        _no_stats_on_cpu("blk_mxu_intersect", stats)
+        return blk_mxu_intersect_plain(bbox_t, mxu, rays, t_eps)
+    _check_contiguous("blk_mxu_intersect", bbox_t, mxu, rays)
+    _check_shared(mxu.shape[0], "block")
+    return _walk("blk_mxu_intersect", rays, t_eps, stats, bbox_t.data_ptr(),
+                 bbox_t.shape[1], mxu.shape[0], mxu.data_ptr(), branch)
+
+
+def _check_hbm(oct_t, tri, rays, oct_branch: int) -> int:
+    """Checks the oct walk's tables; returns the oct count."""
+    _check_rays(rays, oct_t, tri)
+    _check_tiles(tri)
+    if not 1 <= oct_branch <= 128 or tri.shape[0] % oct_branch:
+        raise ValueError(
+            f"oct_branch {oct_branch} must be in [1, 128] and divide the "
+            f"{tri.shape[0]} clusters"
+        )
+    num_octs = tri.shape[0] // oct_branch
+    _check_boxes(oct_t, num_octs, "oct")
+    return num_octs
+
+
+def hbm_intersect_plain(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
+                        t_eps: float, oct_branch: int):
+    """Plain PyTorch version of the oct kernel's contract (any device): the
+    group-walk plain version over the octs and the row-15 cluster boxes of
+    the tiles (valid where min x <= max x, the kernel's skip of a pad
+    cluster's inverted box)."""
+    _check_hbm(oct_t, tri, rays, oct_branch)
+    if rays.is_cuda:
+        COUNTS.hbm_plain_cuda += 1
+    box = tri[:, 15, 0:6].T
+    clu_t = torch.cat([box, (box[0:1] <= box[3:4]).float(), torch.zeros_like(box[0:1])])
+    return _group_walk_plain(oct_t, clu_t, oct_branch, lambda c: tri[c], rays, t_eps)
+
+
+def hbm_intersect(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
+                  t_eps: float, oct_branch: int, stats: bool = False):
+    """The oct kernel on CUDA tensors, its plain version on CPU tensors.
+
+    oct_t: (8, >= C / oct_branch) float32 component-major oct boxes
+    (``oct_bbox_t``); tri: (C, 16, 128) float32 cluster tiles; rays: (R, 8)
+    float32; oct_branch: clusters per oct of ``oct_t``. Returns (best_t
+    (R,) float32, best_id (R,) int32) as in the contract, and with
+    ``stats`` also (R, 2) int32 per ray (CUDA only): octs visited, clusters
+    intersected.
+    """
+    num_octs = _check_hbm(oct_t, tri, rays, oct_branch)
+    if not rays.is_cuda:
+        _no_stats_on_cpu("hbm_intersect", stats)
+        return hbm_intersect_plain(oct_t, tri, rays, t_eps, oct_branch)
+    _check_contiguous("hbm_intersect", oct_t, tri, rays)
+    _check_shared(num_octs, "oct")
+    return _walk("hbm_intersect", rays, t_eps, stats, oct_t.data_ptr(), oct_t.shape[1],
+                 num_octs, tri.data_ptr(), oct_branch)
+
+
+# --- the probe of a launch's fixed cost -----------------------------------
+
+
+def null_intersect_plain(rays: torch.Tensor, shared_floats: int = 0):
+    """Plain PyTorch version of the null kernel (any device): zero (R,)
+    float32 and int32 outputs; ``shared_floats`` only sizes the kernel's
+    launch."""
+    _check_rays(rays)
+    if rays.is_cuda:
+        COUNTS.null_plain_cuda += 1
+    return (torch.zeros((rays.shape[0],), dtype=torch.float32, device=rays.device),
+            torch.zeros((rays.shape[0],), dtype=torch.int32, device=rays.device))
+
+
+def null_intersect(rays: torch.Tensor, shared_floats: int = 0):
+    """The null kernel on CUDA tensors, its plain version on CPU tensors:
+    the outputs of an intersector call over ``rays``, all zero, from a
+    launch in the blocked kernel's shape with ``shared_floats`` floats of
+    shared memory (7 * NB for the blocked kernel's, 0 for none). It reads
+    no ray: it measures the fixed cost of a launch."""
+    _check_rays(rays)
+    if not rays.is_cuda:
+        return null_intersect_plain(rays, shared_floats)
     out_t, out_id = _outputs(rays)
-    out_stats = (
-        torch.empty((rays.shape[0], 2), dtype=torch.int32, device=rays.device)
-        if stats else None
-    )
-    _launch(
-        "blk_intersect", rays,
-        bbox_t.data_ptr(), bbox_t.shape[1], blk.shape[0], blk.data_ptr(), blk.shape[1] - 1,
-        rays.data_ptr(), rays.shape[0], float(t_eps), out_t.data_ptr(), out_id.data_ptr(),
-        None if out_stats is None else out_stats.data_ptr(),
-    )
-    return (out_t, out_id, out_stats) if stats else (out_t, out_id)
+    _launch("null_intersect", rays, rays.shape[0], int(shared_floats), out_t.data_ptr(),
+            out_id.data_ptr())
+    return out_t, out_id
 
 
 # --- first-block keys -----------------------------------------------------
@@ -679,5 +901,58 @@ def nearest_hit_blk(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None,
     out = _ordered(
         lambda r: blk_intersect(cbvh.blk_bbox_t, cbvh.blk_const, r, t_eps, stats), rays,
         ray_order(rays, sort_rays, BLK_PACKET, cbvh.blk_bbox_t, t_eps),
+    )
+    return unpack(out[0], out[1]) + tuple(out[2:])
+
+
+@torch.no_grad()
+def nearest_hit_flat_mxu(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None,
+                         sort_rays=False):
+    """Batched nearest hit through the flat MXU intersector, the counterpart
+    of the JAX package's ``nearest_hit_cluster_flat_mxu``: needs
+    ``cbvh.mxu_tiles``; rays in the caller's order unless ``sort_rays``.
+    Arguments and results as ``nearest_hit_flat``."""
+    if cbvh.mxu_tiles is None:
+        raise ValueError("nearest_hit_flat_mxu needs cbvh.mxu_tiles (accel.with_mxu_tiles)")
+    tiles = cbvh.mxu_tiles[: cbvh.real_clusters]
+    rays = prep_rays(o, d, active, t_max)
+    out = _ordered(lambda r: flat_mxu_intersect(tiles, r, t_eps), rays,
+                   ray_order(rays, sort_rays, DEFAULT_PACKET))
+    return unpack(*out)
+
+
+@torch.no_grad()
+def nearest_hit_hbm(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None,
+                    stats: bool = False, sort_rays=True):
+    """Batched nearest hit through the oct intersector, the counterpart of
+    the JAX package's ``nearest_hit_cluster_hbm``, over the oct tables of
+    ``cbvh`` (``build_cluster_bvh`` builds them; ``accel.with_oct_branch``
+    rebuilds them for another branch). Arguments and results as
+    ``nearest_hit_blk`` (no block order); ``stats`` counts octs."""
+    if cbvh.oct_bbox_t is None:
+        raise ValueError("nearest_hit_hbm needs cbvh.oct_bbox_t (build_cluster_bvh)")
+    rays = prep_rays(o, d, active, t_max)
+    out = _ordered(
+        lambda r: hbm_intersect(cbvh.oct_bbox_t, cbvh.tri_const, r, t_eps, cbvh.oct_branch,
+                                stats),
+        rays, ray_order(rays, sort_rays, DEFAULT_PACKET),
+    )
+    return unpack(out[0], out[1]) + tuple(out[2:])
+
+
+@torch.no_grad()
+def nearest_hit_blk_mxu(cbvh, o, d, t_eps: float = 1e-5, active=None, t_max=None,
+                        stats: bool = False, sort_rays=True):
+    """Batched nearest hit through the MXU blocked intersector, the
+    counterpart of the JAX package's ``nearest_hit_cluster_blk(mxu=True)``:
+    needs ``cbvh.mxu_const`` (``accel.with_mxu_blocks``); sorted by Morton
+    above DEFAULT_PACKET rays, as the JAX package calls it. Arguments and
+    results as ``nearest_hit_blk`` (no block order)."""
+    if cbvh.mxu_const is None:
+        raise ValueError("nearest_hit_blk_mxu needs cbvh.mxu_const (accel.with_mxu_blocks)")
+    rays = prep_rays(o, d, active, t_max)
+    out = _ordered(
+        lambda r: blk_mxu_intersect(cbvh.blk_bbox_t, cbvh.mxu_const, r, t_eps, stats),
+        rays, ray_order(rays, sort_rays, DEFAULT_PACKET),
     )
     return unpack(out[0], out[1]) + tuple(out[2:])

@@ -25,7 +25,12 @@ from isaklm_raytracer_tpu.accel.cluster import build_cluster_bvh as jbuild
 from isaklm_raytracer_tpu.accel.cluster import cluster_order as jorder
 from isaklm_raytracer_tpu.accel.traverse import nearest_hit_brute as jbrute
 from isaklm_raytracer_tpu.kernels.intersect import nearest_hit_cluster_flat
-from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh, with_blocks
+from isaklm_raytracer_tpu_torch.accel.cluster import (
+    build_cluster_bvh,
+    with_blocks,
+    with_mxu_blocks,
+    with_mxu_tiles,
+)
 from isaklm_raytracer_tpu_torch.accel.traverse import nearest_hit_brute
 from isaklm_raytracer_tpu_torch.integrator.render import intersector_name
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
@@ -115,33 +120,38 @@ def test_cpu_wrapper_runs_plain_version_without_launch():
 
 
 def test_intersector_selection_by_size_and_override(monkeypatch):
-    """The JAX package's auto rule, on every device: flat up to 64 real
-    clusters, queue up to a 6 MB cluster table (768 clusters), blk above;
-    ISAKLM_INTERSECTOR picks flat, queue or blk, and the JAX package's other
-    names raise with the ROADMAP item that ports them."""
+    """The JAX package's rule, on every device, and the same name as its
+    ``intersector_name`` in every case: flat up to 64 real clusters, queue
+    up to a 6 MB cluster table (768 clusters), above it blk if the scene
+    has blocked tables, else blk_mxu if it has MXU blocks, else hbm;
+    ISAKLM_INTERSECTOR picks any of the six names, and one whose table the
+    scene lacks raises, with JAX's message."""
+    from isaklm_raytracer_tpu.integrator.render import intersector_name as jname
+
     r = np.random.default_rng(2)
     monkeypatch.delenv("ISAKLM_INTERSECTOR", raising=False)
     flat = build_cluster_bvh(_soup(r, 64 * 128))
     queue = build_cluster_bvh(_soup(r, 65 * 128))
     assert (flat.real_clusters, queue.real_clusters) == (64, 65)
-    assert intersector_name(flat) == "flat"
-    assert intersector_name(queue) == "queue"
-    big = SimpleNamespace(real_clusters=769, vmem_bytes=832 * 16 * 128 * 4, blk_const=None)
-    with pytest.raises(ValueError, match="blk_const"):
-        intersector_name(big)
-    big.blk_const = np.zeros((7, 129, 16, 128), np.float32)
-    assert intersector_name(big) == "blk"
-    for name in ("flat", "queue"):
+    big = SimpleNamespace(num_triangles=769 * 128, real_clusters=769,
+                          vmem_bytes=832 * 16 * 128 * 4, blk_const=None, mxu_const=None,
+                          mxu_tiles=None)
+    mxu_only = SimpleNamespace(**{**vars(big), "mxu_const": np.zeros((7, 257, 16, 128))})
+    blocked = SimpleNamespace(**{**vars(mxu_only), "blk_const": np.zeros((7, 129, 16, 128))})
+    for cbvh, want in ((flat, "flat"), (queue, "queue"), (big, "hbm"),
+                       (mxu_only, "blk_mxu"), (blocked, "blk")):
+        assert intersector_name(cbvh) == want == jname(cbvh)
+    for name in ("flat", "queue", "hbm"):
         monkeypatch.setenv("ISAKLM_INTERSECTOR", name)
-        assert intersector_name(queue) == name
-    monkeypatch.setenv("ISAKLM_INTERSECTOR", "blk")
-    with pytest.raises(ValueError, match="with_blocks"):
-        intersector_name(queue)
-    assert intersector_name(with_blocks(queue.to("cpu"), 16)) == "blk"
-    for name, item in (("hbm", "B6"), ("flat_mxu", "B7"), ("blk_mxu", "B7")):
+        assert intersector_name(queue) == name == jname(queue)
+    for name, table, cbvh in (("blk", "blk_const", with_blocks(queue.to("cpu"), 16)),
+                              ("blk_mxu", "mxu_const", with_mxu_blocks(queue.to("cpu"), 16)),
+                              ("flat_mxu", "mxu_tiles", with_mxu_tiles(queue.to("cpu")))):
         monkeypatch.setenv("ISAKLM_INTERSECTOR", name)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            intersector_name(queue)
+        for fn in (intersector_name, jname):
+            with pytest.raises(ValueError, match=f"needs cbvh.{table}"):
+                fn(queue)
+        assert intersector_name(cbvh) == name
     monkeypatch.setenv("ISAKLM_INTERSECTOR", "nope")
     with pytest.raises(ValueError, match="unknown intersector"):
         intersector_name(queue)
