@@ -32,15 +32,19 @@ raising on failure:
 6. kernel blk: the blocked intersector on the full 2M-triangle hero scene
    with camera rays of the bench camera, bounce rays that start on the
    surfaces those hit, and NEE rays toward the lights with t_max windows.
-   Against its plain version: exact at 2048 and 777 rays; at 65,536 rays of
+   Against its plain version: exact at 2048 and 777 rays; against the
+   plain walk (``blk_walk_plain``, the kernel's own pruning) exact in
+   (t, id) and in the per-ray visits and clusters at the same rays; at
+   65,536 rays of
    each kind, rays that differ (near-ties: a cluster's entry rounded past a
    hit inside it) may be at most 0.001% of the rays, each within
    1e-5 * max(t, 1) of the plain t and inside the oracle gate. Against the
    oracle at 256 rays of each kind (bench.py's count at this scale), with
    the surface origins lifted 1e-3 (see LIFT). Kernel
-   and plain timed in turns at the largest ray count at which the plain
-   version takes at most PLAIN_BUDGET_S; the kernel alone, with its per-ray
-   visit counts, at the 230,400 rays of one 640x360 wavefront;
+   and plain timed in turns at the 230,400 camera rays of one 640x360
+   wavefront; the kernel alone, with its per-ray visit counts, at each
+   wavefront, with the integer sums of its group visits and clusters
+   intersected;
 7. kernel hbm: the oct intersector, checked in phase 5 on the same rays as
    the queue kernel (equal to its plain version and to the queue kernel
    bit for bit); its per-ray cluster counts on a soup whose cluster count
@@ -58,7 +62,8 @@ raising on failure:
    with 65,536 rays that miss everything, per call and per 128-ray block,
    by CUDA events and by the host clock: the whole blocked call in Morton
    and in caller order, prep_rays + ray_order alone, and the null kernel
-   with the blocked kernel's shared memory and without it;
+   in the walk's launch shape with the blocked kernel's shared memory and
+   without it;
 11. ordering: the blocked path on each hero wavefront in caller order,
    Morton order and block order, each bit-equal to caller order; the
    kernel alone on the sorted rays, the key + argsort, and the whole call,
@@ -146,7 +151,6 @@ LIFT = 1e-3
 # of the rays checked, each within NEAR_TIE_TOL * max(t, 1).
 NEAR_TIE_SHARE, NEAR_TIE_TOL = 1e-5, 1e-5
 HERO_W, HERO_H, HERO_BOUNCES = 640, 360, 6
-PLAIN_BUDGET_S = 3.0  # "a few seconds" for one plain call of the blk timing
 _BIG_ID = 2**31 - 1
 # Card vs CPU gradients of one render: the CUDA backward of the material
 # gathers adds with atomics in an order of its own, and sin/cos/exp round
@@ -315,6 +319,12 @@ def exact(label, kernel_out, plain_out) -> float:
     return float((k.double() - p.double()).abs().max()) if k.numel() else 0.0
 
 
+def exact_walk(label, kernel_out, walk_out) -> None:
+    """A walk kernel's (t, id, stats) == its plain walk's, bit for bit."""
+    if not all(torch.equal(k, w) for k, w in zip(kernel_out, walk_out)):
+        raise RuntimeError(f"{label}: kernel != plain walk (t, id or per-ray stats)")
+
+
 ACTIVITY_CASES = ("all active", "partial active", "partial + t_max", "none active")
 
 
@@ -445,11 +455,12 @@ def hero_ray_sets(scene, rng, device):
     }
 
 
-def check_walk_hero(name, walk, plain, nearest, scene, sets, lifted, box_t, group_size,
-                    cluster_bytes, group_bytes, wavefront_reps=20):
+def check_walk_hero(name, walk, plain, walk_plain, nearest, scene, sets, lifted, box_t,
+                    group_size, cluster_bytes, group_bytes, wavefront_reps=20):
     """Phases kernel blk, hbm and blk_mxu on the full hero, through
-    walk(rays, stats=False), its plain(rays) and nearest(o, d, t_max=...)
-    (the ``nearest_hit_*`` wrapper), over the group boxes ``box_t`` of
+    walk(rays, stats=False), its plain(rays), its plain walk walk_plain(rays)
+    -> (t, id, stats) and nearest(o, d, t_max=...) (the ``nearest_hit_*``
+    wrapper), over the group boxes ``box_t`` of
     ``group_size`` clusters. ``cluster_bytes`` and ``group_bytes`` are the
     table bytes the walk reads for a winning cluster and for its group.
     Returns (worst |dt|, ms, plain_ms, ray count timed, {kind: kernel ms at
@@ -460,7 +471,11 @@ def check_walk_hero(name, walk, plain, nearest, scene, sets, lifted, box_t, grou
     for kind, (o, d, t_max) in sets.items():
         for n in BENCH_RAYS:
             rays = ki.prep_rays(o[:n], d[:n], None, None if t_max is None else t_max[:n])
-            worst = max(worst, exact(f"{name} hero {kind} {n}", walk(rays), plain(rays)))
+            kout = walk(rays, stats=True)
+            worst = max(worst, exact(f"{name} hero {kind} {n}", kout, plain(rays)))
+            exact_walk(f"{name} hero {kind} {n}", kout, walk_plain(rays))
+        log(f"kernel {name} hero {kind}: (t, id) and per-ray visits and clusters equal to the "
+            f"plain walk at {BENCH_RAYS} rays")
         n = min(65536, o.shape[0])
         rays = ki.prep_rays(o[:n], d[:n], None, None if t_max is None else t_max[:n])
         kt, kid = walk(rays)
@@ -503,23 +518,10 @@ def check_walk_hero(name, walk, plain, nearest, scene, sets, lifted, box_t, grou
     if total > allowed:
         raise RuntimeError(f"{name} hero: more near-ties than allowed")
 
-    # timing: kernel and plain in turns at the largest camera-ray count at
-    # which one plain call takes at most PLAIN_BUDGET_S
+    # timing: kernel and plain in turns at the camera wavefront
     o, d, _ = sets["camera"]
-    count = 4096
-    plain(ki.prep_rays(o[:count], d[:count]))
-    for n in (4096, 16384, 65536, HERO_W * HERO_H):
-        rays = ki.prep_rays(o[:n], d[:n])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain(rays)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        log(f"{name} plain, {n} camera rays: {seconds:.2f} s")
-        if seconds > PLAIN_BUDGET_S:
-            break
-        count = n
-    rays = ki.prep_rays(o[:count], d[:count])
+    count = o.shape[0]
+    rays = ki.prep_rays(o, d)
     valid = int((box_t[6] > 0).sum())
     ms, plain_ms, kout = time_in_turns(
         f"{name}_intersect hero {count} camera rays x {valid} groups of {group_size} clusters",
@@ -542,9 +544,11 @@ def check_walk_hero(name, walk, plain, nearest, scene, sets, lifted, box_t, grou
         rays = ki.prep_rays(o, d, None, t_max)
         k_ms, (_, _, stats) = cuda_ms(lambda: walk(rays, stats=True), reps=wavefront_reps)
         wavefront[kind] = k_ms
+        sums = stats.long().sum(dim=0).tolist()
         log(f"time {name}_intersect hero {kind} rays, kernel alone, {rays.shape[0]} rays: "
             f"{k_ms:.3f} ms; per ray: mean group visits {float(stats[:, 0].float().mean()):.3f}, "
-            f"mean clusters intersected {float(stats[:, 1].float().mean()):.3f}")
+            f"mean clusters intersected {float(stats[:, 1].float().mean()):.3f}; sums: group "
+            f"visits {sums[0]}, clusters intersected {sums[1]}")
     return worst, ms, plain_ms, count, wavefront, walk_bound
 
 
@@ -1013,8 +1017,9 @@ def fixed_cost(scene, counts, card):
     as the probe's), so every blocked call is its fixed cost. Per call and
     per 128-ray block, by CUDA events and by the host clock: the whole
     ``nearest_hit_blk`` in Morton and in caller order, ``prep_rays`` +
-    ``ray_order`` alone, the null kernel with the blocked kernel's shared
-    memory (7 floats a block box) and without. Returns the null kernel's
+    ``ray_order`` alone, the null kernel in the walk's launch shape with
+    the blocked kernel's shared memory (its warps' key lists) and without.
+    Returns the null kernel's
     results (max_abs_err, ms, plain_ms, bound, shape) and launches."""
     from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 
@@ -1029,7 +1034,8 @@ def fixed_cost(scene, counts, card):
     if ki.nearest_hit_blk(cbvh, o, d)[2].any():
         raise RuntimeError("fixed cost: a probe ray hit the scene")
     rays = ki.prep_rays(o, d)
-    shared = 7 * cbvh.blk_const.shape[0]
+    shared = cbvh.blk_const.shape[0]  # the walk's lists for its blocks
+    shared_bytes = ki.walk_shared_bytes(shared)
     err = exact("null kernel vs plain", ki.null_intersect(rays, shared),
                 ki.null_intersect_plain(rays))
     counts.reset()  # the probe's own launches from here on
@@ -1040,7 +1046,7 @@ def fixed_cost(scene, counts, card):
         ("nearest_hit_blk, caller order", lambda: ki.nearest_hit_blk(cbvh, o, d, sort_rays=False)),
         ("prep_rays + ray_order (Morton)",
          lambda: ki.ray_order(ki.prep_rays(o, d), True, ki.BLK_PACKET)),
-        (f"null kernel, {shared * 4} B shared (the blocked kernel's)",
+        (f"null kernel, {shared_bytes} B shared (the blocked kernel's)",
          lambda: ki.null_intersect(rays, shared)),
         ("null kernel, no shared memory", lambda: ki.null_intersect(rays, 0)),
         ("null plain version (two torch.zeros)", lambda: ki.null_intersect_plain(rays)),
@@ -1054,10 +1060,10 @@ def fixed_cost(scene, counts, card):
     if launches == 0:
         raise RuntimeError("fixed cost: the null kernel did not launch")
     return {"max_abs_err": err,
-            "ms": results[f"null kernel, {shared * 4} B shared (the blocked kernel's)"],
+            "ms": results[f"null kernel, {shared_bytes} B shared (the blocked kernel's)"],
             "plain_ms": results["null plain version (two torch.zeros)"],
             **bound(0, n * 8),  # its outputs
-            "shape": f"{n} rays, {shared} floats of shared memory (hero)"}, launches
+            "shape": f"{n} rays, {shared_bytes} B of shared memory (hero)"}, launches
 
 
 def read_png(path):
@@ -1293,6 +1299,7 @@ def main() -> int:
         worst, b_ms, b_plain_ms, b_count, _, b_bound = check_walk_hero(
             "blk", blk_walk, lambda r: ki.blk_intersect_plain(cbvh.blk_bbox_t, cbvh.blk_const, r,
                                                               1e-5),
+            lambda r: ki.blk_walk_plain(cbvh.blk_bbox_t, cbvh.blk_const, r, 1e-5),
             functools.partial(ki.nearest_hit_blk, cbvh), hero, sets, lifted, cbvh.blk_bbox_t,
             cbvh.blk_branch, TILE_BYTES, TILE_BYTES)
         results["blk"] = {"max_abs_err": worst, "ms": b_ms, "plain_ms": b_plain_ms, **b_bound,
@@ -1327,6 +1334,8 @@ def main() -> int:
             "hbm", hbm_walk,
             lambda r: ki.hbm_intersect_plain(cbvh.oct_bbox_t, cbvh.tri_const, r, 1e-5,
                                              cbvh.oct_branch),
+            lambda r: ki.hbm_walk_plain(cbvh.oct_bbox_t, cbvh.tri_const, r, 1e-5,
+                                        cbvh.oct_branch),
             functools.partial(ki.nearest_hit_hbm, cbvh), hero, sets, lifted, cbvh.oct_bbox_t,
             cbvh.oct_branch, TILE_BYTES, 0, wavefront_reps=5)
         results["hbm"] = {"max_abs_err": max(worst_h, *(v for k, v in q_errs.items()
@@ -1350,6 +1359,7 @@ def main() -> int:
         worst, x_ms, x_plain_ms, x_count, _, x_bound = check_walk_hero(
             "blk_mxu", mxu_walk,
             lambda r: ki.blk_mxu_intersect_plain(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5),
+            lambda r: ki.blk_mxu_walk_plain(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5),
             functools.partial(ki.nearest_hit_blk_mxu, mcb), hero_mxu, sets, lifted,
             mcb.blk_bbox_t, mcb.mxu_branch, 2 * TILE_BYTES, TILE_BYTES)
         for kind, (o, d, t_max) in sets.items():

@@ -29,18 +29,22 @@
 // (intersect_common.cuh): nearest t, ties to the lowest id.
 //
 // What bounds it on the H100: at the hero scale the table is 129 MB, more
-// than the 50 MB L2, so the kernel is bound by warp divergence (each ray
-// walks its own blocks) and by L2 misses on the cluster tiles it reads;
-// the flops per ray are small. The design (`walk_groups` of
-// group_walk.cuh): one thread per ray. The block boxes (NB x 7 floats,
-// 3.4 KB for the hero's 122 blocks) sit in shared memory; a ray walks them
-// front to back with an (entry, index) cursor whose entry is at most its
-// own best t, as the queue kernel does. In a block it reads rows 0-6 of
-// the header tile, culls the block's clusters against its own best t into
-// a 128-bit mask held in registers, and walks the pierced clusters front
-// to back, dropping those whose entry falls behind its best. The TPU
-// kernel's DMA ring has no counterpart: the tiles come through L2 and L1
-// on demand.
+// than the 50 MB L2, so the kernel waits on the latency of the cluster
+// tiles it reads from L2 and device memory; the flops per ray are small.
+// A thread-per-ray walk loses most of its time to what one thread does
+// alone: a rescan of every block box at each step, scalar header loads at
+// addresses that differ across the warp, a quadratic pick over the pierced
+// clusters, and warps that wait for their longest walk. The design
+// (`walk` of group_walk.cuh): one warp per ray. The warp computes the
+// ray's block entries once (lanes over blocks, coalesced loads of the
+// (8, NB) box table) and keeps the pierced blocks' (entry, index) keys in
+// its slice of shared memory; each step is a warp argmin over them after
+// an (entry, index) cursor bounded by the ray's own best t. In a block the
+// lanes cull 4 clusters each from coalesced header rows and keep the
+// entries in registers; each pierced cluster, front to back, is tested 4
+// slots a lane with float4 loads (one 512-byte request a row) and one
+// `accept` of the warp's least (t, id). The TPU kernel's DMA ring has no
+// counterpart: the tiles come through L2 and L1 on demand.
 
 #include "group_walk.cuh"
 
@@ -48,19 +52,14 @@ namespace {
 
 using namespace isaklm;
 
-__global__ void __launch_bounds__(kWalkThreads)
+__global__ void __launch_bounds__(kWalkThreads, kBlockWalkMinBlocks)
 blk_intersect_kernel(const float* __restrict__ bbox_t, int stride,
                      int num_blocks, const float* __restrict__ blk, int branch,
                      const float* __restrict__ rays, int num_rays, float t_eps,
                      float* __restrict__ out_t, int* __restrict__ out_id,
                      int* __restrict__ stats) {
-  extern __shared__ float boxes[];  // 7 * num_blocks
-  stage_boxes(bbox_t, stride, num_blocks, boxes);
-  __syncthreads();
-  const int r = blockIdx.x * kWalkThreads + threadIdx.x;
-  if (r >= num_rays) return;
-  walk_groups(BlockLayout<1>{blk, branch}, boxes, num_blocks, rays, r, t_eps, out_t,
-              out_id, stats);
+  walk(BlockLayout<1>{blk, branch}, bbox_t, stride, num_blocks, rays, num_rays, t_eps, out_t,
+       out_id, stats);
 }
 
 }  // namespace

@@ -16,14 +16,15 @@
 // and ids (blk*branch + k)*128 + lane. It returns the blocked kernel's
 // bits on the same clusters.
 //
-// What bounds it on the H100: as the blocked kernel (divergent per-ray
-// walks, L2 misses on the tiles), with twice the table, 245 MB at the
-// hero's 122 blocks of 128 clusters, of which the walk reads 15 of the 32
-// rows of a pair. The design: the blocked kernel's walk (`walk_groups` of
-// group_walk.cuh), one thread per ray, over `BlockLayout<2>`; each
-// cluster's dot products are the IEEE f32 sums of `tri_hit` read from the
-// pair's rows (`intersect_tile_mxu`), with no tensor-core product, so the
-// result equals the blocked kernel's bit for bit.
+// What bounds it on the H100: as the blocked kernel (the latency of the
+// tiles it reads from L2 and device memory), with twice the table, 245 MB
+// at the hero's 122 blocks of 128 clusters, of which the walk reads 15 of
+// the 32 rows of a pair. The design: the blocked kernel's warp-per-ray walk
+// (`walk` of group_walk.cuh) over `BlockLayout<2>`, with no design of its
+// own; each cluster's dot products are the IEEE f32 sums of `tri_hit` read
+// from the pair's rows 4 slots a lane (`warp_intersect_tile_mxu`), with no
+// tensor-core product, so the result equals the blocked kernel's bit for
+// bit.
 
 #include "group_walk.cuh"
 
@@ -31,19 +32,14 @@ namespace {
 
 using namespace isaklm;
 
-__global__ void __launch_bounds__(kWalkThreads)
+__global__ void __launch_bounds__(kWalkThreads, kBlockWalkMinBlocks)
 blk_mxu_intersect_kernel(const float* __restrict__ bbox_t, int stride,
                          int num_blocks, const float* __restrict__ mxu, int branch,
                          const float* __restrict__ rays, int num_rays, float t_eps,
                          float* __restrict__ out_t, int* __restrict__ out_id,
                          int* __restrict__ stats) {
-  extern __shared__ float boxes[];  // 7 * num_blocks
-  stage_boxes(bbox_t, stride, num_blocks, boxes);
-  __syncthreads();
-  const int r = blockIdx.x * kWalkThreads + threadIdx.x;
-  if (r >= num_rays) return;
-  walk_groups(BlockLayout<2>{mxu, branch}, boxes, num_blocks, rays, r, t_eps, out_t,
-              out_id, stats);
+  walk(BlockLayout<2>{mxu, branch}, bbox_t, stride, num_blocks, rays, num_rays, t_eps, out_t,
+       out_id, stats);
 }
 
 }  // namespace

@@ -25,17 +25,21 @@
 // (intersect_common.cuh): nearest t, ties to the lowest id; the result is
 // the queue kernel's on the same clusters.
 //
-// What bounds it on the H100: warp divergence and latency, as the other
-// walks. Each step of a ray's walk rescans every oct box in shared memory
-// (1,952 octs, 54.7 KB for the hero at oct_branch 8), so the scan, not the
-// triangle tests, sets the time at that scale. The design (`walk_groups`
-// of group_walk.cuh): one thread per ray; the oct boxes in dynamic shared
-// memory; octs front to back by the (entry, index) cursor bounded by the
-// ray's own best t; in an oct, the clusters' row-15 boxes culled against
-// that best into a register mask and the pierced clusters intersected
-// front to back. A cluster whose row-15 box is inverted (min x > max x)
-// holds no triangle: it is skipped, neither intersected nor counted in
-// `stats`, where the TPU kernel intersects its zero tile.
+// What bounds it on the H100: the latency of the tiles it reads, as the
+// blocked kernel. A thread-per-ray walk that rescans all 1,952 oct boxes
+// of the hero (oct_branch 8) in one thread at each of a ray's ~15 steps
+// runs some 29,000 slab tests a ray, which then set the time. The design (`walk` of
+// group_walk.cuh): one warp per ray. The warp computes the ray's oct
+// entries once, 61 boxes a lane from coalesced loads of the (8, num_octs)
+// table, and compacts the pierced octs' (entry, index) keys into its
+// slice of shared memory (8 bytes an oct, 15.6 KB a warp on the hero,
+// which bounds an SM at 7 blocks of 2 warps); a
+// step is a warp argmin over the pierced octs only. Lanes 0..oct_branch-1
+// cull an oct's clusters from their row-15 boxes; the pierced clusters
+// are tested front to back, 4 slots a lane, with one `accept` of the
+// warp's least (t, id). A cluster whose row-15 box is inverted (min x >
+// max x) holds no triangle: it is skipped, neither intersected nor counted
+// in `stats`, where the TPU kernel intersects its zero tile.
 
 #include "group_walk.cuh"
 
@@ -63,8 +67,8 @@ struct OctLayout {
 
     __device__ __forceinline__ void intersect(int k, const Ray& r, float t_eps,
                                               float& best_t, int& best_id) const {
-      intersect_tile(tiles + (int64_t)k * kTile, base + k * kWidth, r, t_eps, best_t,
-                     best_id);
+      warp_intersect_tile(tiles + (int64_t)k * kTile, base + k * kWidth, r, t_eps, best_t,
+                          best_id);
     }
   };
 
@@ -81,13 +85,8 @@ hbm_intersect_kernel(const float* __restrict__ oct_t, int stride, int num_octs,
                      const float* __restrict__ rays, int num_rays, float t_eps,
                      float* __restrict__ out_t, int* __restrict__ out_id,
                      int* __restrict__ stats) {
-  extern __shared__ float boxes[];  // 7 * num_octs
-  stage_boxes(oct_t, stride, num_octs, boxes);
-  __syncthreads();
-  const int r = blockIdx.x * kWalkThreads + threadIdx.x;
-  if (r >= num_rays) return;
-  walk_groups(OctLayout{tri, oct_branch}, boxes, num_octs, rays, r, t_eps, out_t, out_id,
-              stats);
+  walk(OctLayout{tri, oct_branch}, oct_t, stride, num_octs, rays, num_rays, t_eps, out_t,
+       out_id, stats);
 }
 
 }  // namespace

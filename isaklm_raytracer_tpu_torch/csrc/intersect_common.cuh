@@ -10,7 +10,9 @@
 //   - `accept`: the running-best update of the shared output contract;
 //   - `intersect_tile` / `intersect_tile_mxu`: `tri_hit` over the 128 slots
 //     of a cluster in the VPU layout or the MXU tile-pair layout
-//     (`_make_intersect_mxu`, intersect.py:259-309).
+//     (`_make_intersect_mxu`, intersect.py:259-309), by one thread;
+//     `warp_intersect_tile` / `warp_intersect_tile_mxu`: the same by the 32
+//     lanes of a warp, with the same result.
 // Every library that includes this file is built with --fmad=false, so
 // each product and sum rounds as in the plain PyTorch versions.
 
@@ -129,6 +131,92 @@ __device__ __forceinline__ void intersect_tile_mxu(
                  best_t, best_id);
 }
 
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// The least (t, id) over the warp's lanes, by t and then by id, in every
+// lane. The ids are distinct, so the least pair is unique.
+__device__ __forceinline__ void warp_min_hit(float& t, int& id) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float other_t = __shfl_xor_sync(kFullMask, t, offset);
+    const int other_id = __shfl_xor_sync(kFullMask, id, offset);
+    if (other_t < t || (other_t == t && other_id < id)) {
+      t = other_t;
+      id = other_id;
+    }
+  }
+}
+
+__device__ __forceinline__ float component(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// `intersect_rows` by the 32 lanes of a warp that all hold the same ray and
+// running best: lane l tests slots 4l..4l+3, so each 128-lane row is one
+// coalesced 512-byte request of float4 loads (the rows must be 16-byte
+// aligned). The warp takes the least (t, id) of the 128 candidates, by t
+// and then by id, and applies `accept` to it once; every lane ends with the
+// same best.
+//
+// That equals `intersect_rows`' `accept` of every slot in ascending id
+// order. Let m be the least candidate t and i the lowest id with t = m.
+// Sequentially, best t only falls, and a candidate replaces the best only
+// if strictly nearer, or as near with a lower id than a triangle that won.
+// If m < best t, the first candidate at m (id i) wins and a later one at m
+// has a higher id, so the result is (m, i). If m = best t, no candidate is
+// nearer; a candidate at m replaces only a won id above its own, and ids
+// ascend, so the result is (m, min(best id, i)) when the best id won, and
+// unchanged when it is the seed. If m > best t nothing changes. One
+// `accept` of (m, i) gives each of the three. Rejected slots carry kMiss,
+// a t like any other, in both.
+__device__ __forceinline__ void warp_intersect_rows(
+    const float* __restrict__ n, const float* __restrict__ e1,
+    const float* __restrict__ e2, const float* __restrict__ aux, int base,
+    const Ray& r, float t_eps, float& best_t, int& best_id) {
+  const int slot = 4 * (threadIdx.x & 31);
+  auto row = [slot](const float* p, int k) {
+    return __ldg(reinterpret_cast<const float4*>(p + k * kWidth + slot));
+  };
+  const float4 nx = row(n, 0), ny = row(n, 1), nz = row(n, 2);
+  const float4 e1x = row(e1, 0), e1y = row(e1, 1), e1z = row(e1, 2);
+  const float4 e2x = row(e2, 0), e2y = row(e2, 1), e2z = row(e2, 2);
+  const float4 np1 = row(aux, 0), p1e1 = row(aux, 1), p1e2 = row(aux, 2);
+  const float4 ca = row(aux, 3), cb = row(aux, 4), cc = row(aux, 5);
+  float t = kMiss;
+  int id = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float tj = tri_hit(
+        r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, component(nx, j), component(ny, j),
+        component(nz, j), component(e1x, j), component(e1y, j), component(e1z, j),
+        component(e2x, j), component(e2y, j), component(e2z, j), component(np1, j),
+        component(p1e1, j), component(p1e2, j), component(ca, j), component(cb, j),
+        component(cc, j), t_eps);
+    if (j == 0 || tj < t) {  // ascending ids: a tie keeps the lower
+      t = tj;
+      id = base + slot + j;
+    }
+  }
+  warp_min_hit(t, id);
+  accept(t, id, best_t, best_id);
+}
+
+// One (16, 128) cluster tile of the VPU layout, by a warp.
+__device__ __forceinline__ void warp_intersect_tile(
+    const float* __restrict__ tile, int base, const Ray& r, float t_eps,
+    float& best_t, int& best_id) {
+  warp_intersect_rows(tile, tile + 3 * kWidth, tile + 6 * kWidth, tile + 9 * kWidth,
+                      base, r, t_eps, best_t, best_id);
+}
+
+// One MXU tile pair (see `intersect_tile_mxu`), by a warp.
+__device__ __forceinline__ void warp_intersect_tile_mxu(
+    const float* __restrict__ w1, const float* __restrict__ w2, int base,
+    const Ray& r, float t_eps, float& best_t, int& best_id) {
+  warp_intersect_rows(w1, w1 + 8 * kWidth, w2, w2 + 8 * kWidth, base, r, t_eps,
+                      best_t, best_id);
+}
+
 // Slab test of one box (min xyz, max xyz) against a ray. Returns whether
 // the ray pierces it and, if so, the entry distance clamped at 0.
 // Conservative under NaN, as the Pallas kernels: an origin on a slab with
@@ -160,7 +248,9 @@ __device__ __forceinline__ bool slab(
 // after the cursor (cur_e, cur_i) whose entry is at most best_t. Returns
 // its index, or -1; its entry goes to `entry`. A box behind the cursor
 // was visited or had its entry beyond an earlier best_t, which only
-// shrinks, so the cursor needs no visited set.
+// shrinks, so the cursor needs no visited set. Its one user is the queue
+// kernel's thread-per-ray walk; the group walks of group_walk.cuh pick the
+// same box by a warp argmin over entries computed once a ray.
 __device__ __forceinline__ int next_box(
     const float* __restrict__ boxes, int n, const Ray& r, float t_eps,
     float best_t, float cur_e, int cur_i, float& entry) {

@@ -22,9 +22,14 @@ that ``integrator.render.intersector_name`` picks by scene size or by
   ``nearest_hit_cluster_hbm``: the walk over octs of ``oct_branch``
   clusters, each cluster's box read from row 15 of its own tile.
 
+blk, blk_mxu and hbm share one walk (``csrc/group_walk.cuh``): one warp
+per ray. ``blk_walk_plain``, ``blk_mxu_walk_plain`` and ``hbm_walk_plain``
+run that walk in plain PyTorch, with its per-ray counts; they serve the
+tests and ``chip_smoke.py``, not the render.
+
 ``null_intersect`` (``csrc/null_intersect.cu``) ports the two probe
-kernels of ``scripts/fixed_cost_probe.py``: zeros in the blocked kernel's
-launch shape, the fixed cost of a launch.
+kernels of ``scripts/fixed_cost_probe.py``: zeros in the walks' launch
+shape, the fixed cost of a launch.
 
 Contract, shared by every intersector and its plain version: rays (R, 8)
 float32 with columns [ox oy oz dx dy dz active t_max] give, per ray, the
@@ -77,9 +82,14 @@ BLK_PACKET = 128
 _INF = 3.4e38  # unbounded t_max seed and the value of a rejected candidate
 _BIG_ID = 2**31 - 1
 _CUT = 1e38  # block entry keys at or above this mean "not pierced"
-# The walk kernels stage 7 floats per box (cluster, block or oct) in shared
+# The queue and first-block kernels stage 7 floats per box in shared
 # memory; a block may use at most 232,448 bytes of it on the H100.
-_MAX_SHARED_BOXES = 232_448 // (7 * 4)
+_MAX_SHARED_BYTES = 232_448
+_MAX_SHARED_BOXES = _MAX_SHARED_BYTES // (7 * 4)
+# The group walks (csrc/group_walk.cuh: kWalkWarps, walk_shared_bytes) run
+# blocks of _WALK_WARPS warps, one ray each, and give each warp a list of
+# one 8-byte key per group in shared memory.
+_WALK_WARPS = 2
 # Plain versions: ray x box masks of at most this many elements at once,
 # and at most this many (ray, cluster) pairs tested at once.
 _MASK_ELEMS = 1 << 22
@@ -127,7 +137,7 @@ _ENTRY_ARGS = {
     # bbox_t, stride, num_blocks, mxu, branch, rays, num_rays, t_eps, out_t,
     # out_id, stats (or null)
     "blk_mxu_intersect": [_P, _I, _I, _P, _I, _P, _I, _F, _P, _P, _P],
-    # num_rays, shared_floats, out_t, out_id
+    # num_rays, shared_groups, out_t, out_id
     "null_intersect": [_I, _I, _P, _P],
 }
 # the COUNTS attribute prefix of each entry point
@@ -210,6 +220,25 @@ def _check_shared(num: int, what: str) -> None:
         )
 
 
+def walk_shared_bytes(num_groups: int) -> int:
+    """Dynamic shared memory of a group-walk launch over ``num_groups``
+    groups: each of the block's warps keeps one 8-byte key per group."""
+    return _WALK_WARPS * 8 * num_groups
+
+
+def _check_walk(name: str, num_groups: int, what: str, *tables: torch.Tensor) -> None:
+    """Raise before a walk launch that the card would refuse: lists over
+    the shared memory of a block, or tables that its float4 loads cannot
+    read (not 16-byte aligned)."""
+    if walk_shared_bytes(num_groups) > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{num_groups} {what}s need {walk_shared_bytes(num_groups)} bytes of shared "
+            f"memory a block, over the {_MAX_SHARED_BYTES} of the card"
+        )
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError(f"{name}: the tables must start on a 16-byte boundary")
+
+
 def _tri_hits(tile: torch.Tensor, rays: torch.Tensor, t_eps: float) -> torch.Tensor:
     """Candidate t of each ray against each triangle slot, _INF where the
     test rejects it (``_make_intersect``, in the kernels' order of
@@ -244,16 +273,18 @@ def _tri_hits(tile: torch.Tensor, rays: torch.Tensor, t_eps: float) -> torch.Ten
     return torch.where(valid, s, _INF)
 
 
-def _pierce(box_t: torch.Tensor, rays: torch.Tensor, t_eps: float) -> torch.Tensor:
-    """(n, N) mask of the active rays that pierce each valid box of a
-    component-major (8, N) table: the kernels' slab test (``_dense_near``),
-    conservative under NaN -- torch.minimum/maximum propagate NaN as
+def _slab(box_t: torch.Tensor, rays: torch.Tensor, t_eps: float):
+    """The kernels' slab test (``slab``, ``_dense_near``) of the active rays
+    against the valid boxes of a component-major table: box_t (8, N), one
+    row of boxes for every ray, or (8, n, N), a row per ray. Returns the
+    (n, N) pierced mask and the entries (clamped at 0; 0 where a slab is
+    NaN). Conservative under NaN -- torch.minimum/maximum propagate NaN as
     jnp.minimum/maximum do, and every comparison with NaN is false."""
     ix, iy, iz = 1.0 / rays[:, 3:4], 1.0 / rays[:, 4:5], 1.0 / rays[:, 5:6]
     ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]
-    t1x, t2x = (box_t[0:1] - ox) * ix, (box_t[3:4] - ox) * ix
-    t1y, t2y = (box_t[1:2] - oy) * iy, (box_t[4:5] - oy) * iy
-    t1z, t2z = (box_t[2:3] - oz) * iz, (box_t[5:6] - oz) * iz
+    t1x, t2x = (box_t[0] - ox) * ix, (box_t[3] - ox) * ix
+    t1y, t2y = (box_t[1] - oy) * iy, (box_t[4] - oy) * iy
+    t1z, t2z = (box_t[2] - oz) * iz, (box_t[5] - oz) * iz
     near = torch.maximum(
         torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
         torch.minimum(t1z, t2z),
@@ -263,7 +294,14 @@ def _pierce(box_t: torch.Tensor, rays: torch.Tensor, t_eps: float) -> torch.Tens
         torch.maximum(t1z, t2z),
     )
     miss = (near > far) | (far < t_eps)
-    return ~miss & (box_t[6:7] > 0.0) & (rays[:, 6:7] > 0.0)
+    pierced = ~miss & (box_t[6] > 0.0) & (rays[:, 6:7] > 0.0)
+    return pierced, torch.where(near != near, 0.0, torch.clamp_min(near, 0.0))
+
+
+def _pierce(box_t: torch.Tensor, rays: torch.Tensor, t_eps: float) -> torch.Tensor:
+    """(n, N) mask of the active rays that pierce each valid box of a
+    component-major (8, N) table (``_slab``)."""
+    return _slab(box_t, rays, t_eps)[0]
 
 
 def _nearest_of_pairs(rays, num_boxes, pierce_fn, tile_fn, t_eps):
@@ -476,6 +514,72 @@ def _group_walk_plain(group_t, clu_t, branch, tile_fn, rays, t_eps):
     return _nearest_of_pairs(rays, num, pierce, tile_fn, t_eps)
 
 
+def _first_least(entry: torch.Tensor, cand: torch.Tensor):
+    """Per row, the least entry among the candidates and the lowest column
+    that holds it (rows with at least one candidate)."""
+    least = torch.where(cand, entry, float("inf")).min(dim=1).values
+    col = (cand & (entry == least[:, None])).to(torch.uint8).argmax(dim=1)
+    return least, col
+
+
+def _group_walk_pruned(group_t, clu_t, size, tile_fn, rays, t_eps):
+    """The walk of the walk kernels (``csrc/group_walk.cuh``) in plain
+    PyTorch, vectorised over rays, with its per-ray counts.
+
+    Each step takes, for every ray still walking, the pierced valid group
+    with the least (entry, index) after the ray's cursor whose entry is at
+    most the ray's best t; culls the group's ``size`` clusters (the boxes of
+    the component-major (8, G * size) table ``clu_t``) against that best;
+    then, front to back, intersects the pierced cluster with the least
+    (entry, index) whose entry is still at most the best, dropping those
+    now behind it. A cluster test applies ``accept`` to the least (t, id)
+    of its 128 slots. tile_fn(cluster ids (P,)) -> (P, 16, 128) tiles.
+    Returns (best_t, best_id, (R, 2) int32 groups visited and clusters
+    intersected)."""
+    t_eps = float(np.float32(t_eps))
+    num_rays, device = rays.shape[0], rays.device
+    num_groups = clu_t.shape[1] // size
+    best_t = rays[:, 7].clone()
+    best_id = torch.full((num_rays,), _BIG_ID, dtype=torch.int32, device=device)
+    stats = torch.zeros((num_rays, 2), dtype=torch.int32, device=device)
+    g_pierced, g_entry = _slab(group_t[:, :num_groups], rays, t_eps)
+    cur_e = torch.full((num_rays,), -1.0, dtype=torch.float32, device=device)
+    cur_g = torch.full((num_rays,), -1, dtype=torch.int64, device=device)
+    g_index = torch.arange(num_groups, device=device)
+    k_index = torch.arange(size, device=device)
+    lane = torch.arange(128, dtype=torch.int32, device=device)
+    while True:
+        after = (g_entry > cur_e[:, None]) | (
+            (g_entry == cur_e[:, None]) & (g_index > cur_g[:, None]))
+        cand = g_pierced & ~(g_entry > best_t[:, None]) & after
+        rows = torch.nonzero(cand.any(dim=1)).flatten()
+        if rows.numel() == 0:
+            break
+        cur_e[rows], cur_g[rows] = _first_least(g_entry[rows], cand[rows])
+        stats[rows, 0] += 1
+        clusters = cur_g[rows, None] * size + k_index  # (m, size)
+        c_pierced, c_entry = _slab(clu_t[:, clusters], rays[rows], t_eps)
+        left = c_pierced & (c_entry <= best_t[rows, None])
+        while True:
+            left &= ~(c_entry > best_t[rows, None])
+            sub = torch.nonzero(left.any(dim=1)).flatten()
+            if sub.numel() == 0:
+                break
+            _, k = _first_least(c_entry[sub], left[sub])
+            left[sub, k] = False
+            r = rows[sub]
+            stats[r, 1] += 1
+            c = clusters[sub, k]
+            tval = _tri_hits(tile_fn(c), rays[r], t_eps)  # (P, 128)
+            t, slot = _first_least(tval, torch.ones_like(tval, dtype=torch.bool))
+            cid = c.to(torch.int32) * 128 + lane[slot]
+            bt, bid = best_t[r], best_id[r]
+            win = (t < bt) | ((t == bt) & (bid != _BIG_ID) & (cid < bid))
+            best_t[r] = torch.where(win, t, bt)
+            best_id[r] = torch.where(win, cid, bid)
+    return best_t, best_id, stats
+
+
 def _walk(name: str, rays: torch.Tensor, t_eps: float, stats: bool, *tables) -> tuple:
     """Launch walk kernel ``name`` on its table arguments ``tables`` (those
     before the rays): (best_t, best_id) and, with ``stats``, the (R, 2)
@@ -524,15 +628,33 @@ def _header_boxes(blk: torch.Tensor, branch: int) -> torch.Tensor:
     ])
 
 
+def _blk_groups(bbox_t, blk, rays):
+    """The blocked table as the plain walks take it: (group boxes, cluster
+    boxes, clusters a group, tile_fn)."""
+    branch = _check_blk(bbox_t, blk, rays)
+    return bbox_t, _header_boxes(blk, branch), branch, lambda c: blk[c // branch, 1 + c % branch]
+
+
 def blk_intersect_plain(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
                         t_eps: float):
     """Plain PyTorch version of the blocked kernel's contract (any device):
     the group-walk plain version over the header tiles' cluster boxes."""
-    branch = _check_blk(bbox_t, blk, rays)
+    groups = _blk_groups(bbox_t, blk, rays)
     if rays.is_cuda:
         COUNTS.blk_plain_cuda += 1
-    return _group_walk_plain(bbox_t, _header_boxes(blk, branch), branch,
-                             lambda c: blk[c // branch, 1 + c % branch], rays, t_eps)
+    return _group_walk_plain(*groups, rays, t_eps)
+
+
+def blk_walk_plain(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
+                   t_eps: float):
+    """The blocked kernel's own walk in plain PyTorch (any device): (best_t,
+    best_id, (R, 2) int32 blocks visited and clusters intersected), which
+    the kernel's ``stats=True`` call must equal. For tests and
+    ``chip_smoke.py``."""
+    groups = _blk_groups(bbox_t, blk, rays)
+    if rays.is_cuda:
+        COUNTS.blk_plain_cuda += 1
+    return _group_walk_pruned(*groups, rays, t_eps)
 
 
 def blk_intersect(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
@@ -551,9 +673,22 @@ def blk_intersect(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
         _no_stats_on_cpu("blk_intersect", stats)
         return blk_intersect_plain(bbox_t, blk, rays, t_eps)
     _check_contiguous("blk_intersect", bbox_t, blk, rays)
-    _check_shared(blk.shape[0], "block")
+    _check_walk("blk_intersect", blk.shape[0], "block", blk)
     return _walk("blk_intersect", rays, t_eps, stats, bbox_t.data_ptr(), bbox_t.shape[1],
                  blk.shape[0], blk.data_ptr(), branch)
+
+
+def _blk_mxu_groups(bbox_t, mxu, rays):
+    """The MXU blocked table as the plain walks take it, each cluster's pair
+    unpacked to the VPU layout."""
+    branch = _check_blk(bbox_t, mxu, rays, 2)
+
+    def tiles(c):
+        first = 1 + 2 * (c % branch)
+        block = c // branch
+        return _mxu_unpack(torch.stack([mxu[block, first], mxu[block, first + 1]], dim=1))
+
+    return bbox_t, _header_boxes(mxu, branch), branch, tiles
 
 
 def blk_mxu_intersect_plain(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tensor,
@@ -561,16 +696,20 @@ def blk_mxu_intersect_plain(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch
     """Plain PyTorch version of the MXU blocked kernel's contract (any
     device): the blocked plain version with each cluster's pair unpacked to
     the VPU layout, so the two agree bit for bit on the same clusters."""
-    branch = _check_blk(bbox_t, mxu, rays, 2)
+    groups = _blk_mxu_groups(bbox_t, mxu, rays)
     if rays.is_cuda:
         COUNTS.blk_mxu_plain_cuda += 1
+    return _group_walk_plain(*groups, rays, t_eps)
 
-    def tiles(c):
-        first = 1 + 2 * (c % branch)
-        block = c // branch
-        return _mxu_unpack(torch.stack([mxu[block, first], mxu[block, first + 1]], dim=1))
 
-    return _group_walk_plain(bbox_t, _header_boxes(mxu, branch), branch, tiles, rays, t_eps)
+def blk_mxu_walk_plain(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tensor,
+                       t_eps: float):
+    """The MXU blocked kernel's own walk in plain PyTorch, as
+    ``blk_walk_plain``."""
+    groups = _blk_mxu_groups(bbox_t, mxu, rays)
+    if rays.is_cuda:
+        COUNTS.blk_mxu_plain_cuda += 1
+    return _group_walk_pruned(*groups, rays, t_eps)
 
 
 def blk_mxu_intersect(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tensor,
@@ -587,7 +726,7 @@ def blk_mxu_intersect(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tenso
         _no_stats_on_cpu("blk_mxu_intersect", stats)
         return blk_mxu_intersect_plain(bbox_t, mxu, rays, t_eps)
     _check_contiguous("blk_mxu_intersect", bbox_t, mxu, rays)
-    _check_shared(mxu.shape[0], "block")
+    _check_walk("blk_mxu_intersect", mxu.shape[0], "block", mxu)
     return _walk("blk_mxu_intersect", rays, t_eps, stats, bbox_t.data_ptr(),
                  bbox_t.shape[1], mxu.shape[0], mxu.data_ptr(), branch)
 
@@ -606,18 +745,34 @@ def _check_hbm(oct_t, tri, rays, oct_branch: int) -> int:
     return num_octs
 
 
+def _oct_groups(oct_t, tri, rays, oct_branch):
+    """The oct tables as the plain walks take them: the row-15 cluster
+    boxes of the tiles, valid where min x <= max x (the kernel's skip of a
+    pad cluster's inverted box)."""
+    _check_hbm(oct_t, tri, rays, oct_branch)
+    box = tri[:, 15, 0:6].T
+    clu_t = torch.cat([box, (box[0:1] <= box[3:4]).float(), torch.zeros_like(box[0:1])])
+    return oct_t, clu_t, oct_branch, lambda c: tri[c]
+
+
 def hbm_intersect_plain(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
                         t_eps: float, oct_branch: int):
     """Plain PyTorch version of the oct kernel's contract (any device): the
-    group-walk plain version over the octs and the row-15 cluster boxes of
-    the tiles (valid where min x <= max x, the kernel's skip of a pad
-    cluster's inverted box)."""
-    _check_hbm(oct_t, tri, rays, oct_branch)
+    group-walk plain version over the octs and the row-15 cluster boxes."""
+    groups = _oct_groups(oct_t, tri, rays, oct_branch)
     if rays.is_cuda:
         COUNTS.hbm_plain_cuda += 1
-    box = tri[:, 15, 0:6].T
-    clu_t = torch.cat([box, (box[0:1] <= box[3:4]).float(), torch.zeros_like(box[0:1])])
-    return _group_walk_plain(oct_t, clu_t, oct_branch, lambda c: tri[c], rays, t_eps)
+    return _group_walk_plain(*groups, rays, t_eps)
+
+
+def hbm_walk_plain(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
+                   t_eps: float, oct_branch: int):
+    """The oct kernel's own walk in plain PyTorch, as ``blk_walk_plain``
+    (octs visited, clusters intersected)."""
+    groups = _oct_groups(oct_t, tri, rays, oct_branch)
+    if rays.is_cuda:
+        COUNTS.hbm_plain_cuda += 1
+    return _group_walk_pruned(*groups, rays, t_eps)
 
 
 def hbm_intersect(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
@@ -636,7 +791,7 @@ def hbm_intersect(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
         _no_stats_on_cpu("hbm_intersect", stats)
         return hbm_intersect_plain(oct_t, tri, rays, t_eps, oct_branch)
     _check_contiguous("hbm_intersect", oct_t, tri, rays)
-    _check_shared(num_octs, "oct")
+    _check_walk("hbm_intersect", num_octs, "oct", tri)
     return _walk("hbm_intersect", rays, t_eps, stats, oct_t.data_ptr(), oct_t.shape[1],
                  num_octs, tri.data_ptr(), oct_branch)
 
@@ -644,9 +799,9 @@ def hbm_intersect(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
 # --- the probe of a launch's fixed cost -----------------------------------
 
 
-def null_intersect_plain(rays: torch.Tensor, shared_floats: int = 0):
+def null_intersect_plain(rays: torch.Tensor, shared_groups: int = 0):
     """Plain PyTorch version of the null kernel (any device): zero (R,)
-    float32 and int32 outputs; ``shared_floats`` only sizes the kernel's
+    float32 and int32 outputs; ``shared_groups`` only sizes the kernel's
     launch."""
     _check_rays(rays)
     if rays.is_cuda:
@@ -655,17 +810,19 @@ def null_intersect_plain(rays: torch.Tensor, shared_floats: int = 0):
             torch.zeros((rays.shape[0],), dtype=torch.int32, device=rays.device))
 
 
-def null_intersect(rays: torch.Tensor, shared_floats: int = 0):
+def null_intersect(rays: torch.Tensor, shared_groups: int = 0):
     """The null kernel on CUDA tensors, its plain version on CPU tensors:
     the outputs of an intersector call over ``rays``, all zero, from a
-    launch in the blocked kernel's shape with ``shared_floats`` floats of
-    shared memory (7 * NB for the blocked kernel's, 0 for none). It reads
-    no ray: it measures the fixed cost of a launch."""
+    launch in the group walks' shape with their shared memory for
+    ``shared_groups`` groups (``walk_shared_bytes``; the blocked kernel's
+    block count, or 0 for none). It reads no ray: it measures the fixed
+    cost of a launch."""
     _check_rays(rays)
     if not rays.is_cuda:
-        return null_intersect_plain(rays, shared_floats)
+        return null_intersect_plain(rays, shared_groups)
+    _check_walk("null_intersect", shared_groups, "group")
     out_t, out_id = _outputs(rays)
-    _launch("null_intersect", rays, rays.shape[0], int(shared_floats), out_t.data_ptr(),
+    _launch("null_intersect", rays, rays.shape[0], int(shared_groups), out_t.data_ptr(),
             out_id.data_ptr())
     return out_t, out_id
 
