@@ -8,7 +8,8 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
 Phases, each printing its own lines, its wall seconds as it ends, and
 raising on failure:
 
-1. card: name and power limit as nvidia-smi reports them;
+1. card: name, power limit and maximum SM clock as nvidia-smi reports
+   them, and the SM count;
 2. build: compiles the eight kernels of ``csrc/`` (six intersectors, the
    first-block keys and the null kernel) with nvcc, one process per
    source, all started together, and prints each one's ptxas register and
@@ -19,7 +20,13 @@ raising on failure:
    rays in the demo scene and in a random triangle soup, with partial
    active masks, NEE-style t_max windows and an all-inactive batch, at 2048
    and 777 rays and (demo) at every ray count the 512x512 main path gives
-   the kernel; then both timed at 262,144 rays, in turns;
+   the kernel; then both timed at 262,144 random rays, in turns; then the
+   kernel on the demo's own camera, bounce and NEE wavefronts at 512x512,
+   Morton-ordered as the render calls it: equal to its plain version and
+   to its staged walk (``flat_staged_plain``), timed in turns with the
+   plain version, with the pairs that reach each stage of the kernel's
+   test; and the rays of tests/test_torch_flat.py's card test (the
+   exactness argument's edge cases);
 4. kernel flat_mxu: the flat intersector over MXU tile pairs, checked in
    phase 3 on the same rays as the flat kernel (equal to its plain version
    and to the flat kernel bit for bit, so the oracle gate holds for both);
@@ -27,8 +34,18 @@ raising on failure:
    kernel in turns;
 5. kernel queue: the queue intersector on the 20k hero scene and on a
    triangle soup of about 700 clusters (near the 6 MB table bound), against
-   its plain version (exact) and the oracle at 2048 and 777 rays in the
-   same four activity cases; then both timed at 262,144 rays, in turns;
+   its plain version (exact), its plain walk (``queue_walk_plain``: exact
+   in (t, id) and the per-ray visits and clusters) and the oracle at 2048
+   and 777 rays in the same four activity cases; kernel and plain timed at
+   262,144 soup rays in turns, the kernel held to its plain walk there,
+   with the integer sums of its visits and clusters and the pairs of its
+   cluster tests that reach each flat stage (its bound), then queue and hbm
+   timed in turns on those rays; the kernel alone on the 20k hero's
+   camera, bounce and NEE wavefronts at 512x512 (Morton order), each held
+   to the plain walk, with its sums; the main path's row: ``render`` of
+   the 20k hero at 512x512x8 in one pass, two timed samples after a
+   warm-up (the queue kernel alone launched) and one profiled sample with
+   the queue kernel's device time and share;
 6. kernel blk: the blocked intersector on the full 2M-triangle hero scene
    with camera rays of the bench camera, bounce rays that start on the
    surfaces those hit, and NEE rays toward the lights with t_max windows.
@@ -42,7 +59,9 @@ raising on failure:
    oracle at 256 rays of each kind (bench.py's count at this scale), with
    the surface origins lifted 1e-3 (see LIFT). Kernel
    and plain timed in turns at the 230,400 camera rays of one 640x360
-   wavefront; the kernel alone, with its per-ray visit counts, at each
+   wavefront, the kernel held to its plain walk there, with the pairs of
+   its cluster tests that reach each flat stage (its bound); the kernel
+   alone, with its per-ray visit counts, at each
    wavefront, with the integer sums of its group visits and clusters
    intersected;
 7. kernel hbm: the oct intersector, checked in phase 5 on the same rays as
@@ -76,7 +95,7 @@ raising on failure:
    the image, which stay within 3e-4 -- the goldens carry XLA's fused FMA
    and approximate-rsqrt rounding, and the JAX package's own ops run one
    by one miss them by as much) and against the port on the CPU. The
-   hero_small_32 render is the queue kernel's main-path run;
+   hero_small_32 render goes through the queue kernel alone;
 13. main path: the CLI renders the demo at 512x512 with 8 bounces and the
    default Cornell box at 512x512 (the flat kernel's path), the demo again
    under ISAKLM_INTERSECTOR=flat_mxu, then the hero scene at 640x360 with 6
@@ -88,15 +107,17 @@ raising on failure:
    plain version may have run on CUDA; each override's image must equal
    the default intersector's bit for bit;
 14. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
-   steps, demo 512x512x8 and hero 640x360x6, at the CLI's ray_chunk (16384)
-   and in one pass (0), in turns, and one torch.profiler sample at each:
+   steps, demo 512x512x8 and hero 640x360x6, at the CLI's ray_chunk (16384,
+   one timed sample after a warm-up) and in one pass (0, two), in turns,
+   and one torch.profiler sample at each:
    CUDA kernels per sample, summed device kernel time and the
    intersector's share; then in one pass each override beside its default
    (demo: flat, flat_mxu; hero: blk, blk_mxu, hbm), in turns, with one
    profiled sample each;
 15. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
    the material albedo) through the entry points: demo 512x512x8 and hero
-   640x360x6 at ray_chunk 0 and 16384, the hero again in one pass under
+   640x360x6 at ray_chunk 0 (two timed samples each) and 16384 (one), the
+   hero again in one pass under
    ISAKLM_BLK_SORT=block (the first-block key kernel's main-path run);
    s/sample, rays/s, peak memory, launches per kernel (no plain version
    on CUDA; first_blocks and blk both launch under block ordering), grads
@@ -104,6 +125,11 @@ raising on failure:
    and backward; grad-vs-FD on the card through the flat kernel (Cornell
    albedo, the silhouette-free camera view) with tests/test_estimator.py's
    tolerances, and the card's gradient against the port's on the CPU.
+
+Every kernel's ``bound_ms`` is the larger of its bytes over the HBM rate
+and its issue slots over the card's FP32 lanes (see the note on issue slots below),
+counted from the run's own inputs and, where the work depends on the data,
+from the kernel's own per-ray counts.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -114,6 +140,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib.util
 import json
 import os
 import struct
@@ -157,16 +184,34 @@ _BIG_ID = 2**31 - 1
 # their last bit differently from the CPU's, so the two agree to float32
 # accumulation error, not bit for bit.
 CARD_VS_CPU_RTOL, CARD_VS_CPU_ATOL = 1e-4, 1e-6
-# The least time the card could take (bound_ms): published H100 SXM peaks,
-# float32 outside the tensor cores and HBM3. Operation counts per unit of
-# work, read off the kernels' code: tri_hit of intersect_common.cuh (30
-# products and sums of six dot products, a subtraction and a division, 14
-# more for the barycentrics, 8 comparisons, the select and accept's
-# compare), the slab test (6 subtractions, 6 products, 10 min/max, 2
-# comparisons, the clamp at 0) and the first-block key's slab test plus its
-# 2 comparisons against the running pair.
-F32_OPS_PER_S, HBM_BYTES_PER_S = 67e12, 3.35e12
-TRI_HIT_OPS, SLAB_OPS, KEY_OPS = 56, 25, 27
+# The least time the card could take (bound_ms): the larger of the bytes a
+# call must move over the HBM rate (3.35 TB/s, the H100 SXM data sheet) and
+# its issue slots over the card's FP32 lanes (the SM count x 128 lanes x
+# the SM clock nvidia-smi reports as clocks.max.sm; set in main). Issue
+# slots per unit of work, counted off the kernels' code: a multiply-add
+# pair is one slot; every other product, sum, subtraction, comparison,
+# select and min/max is one, and an IEEE division ten (the reciprocal, its
+# range check and eight refinement steps). Per (ray, triangle slot):
+#   TRI_HIT_SLOTS, `tri_hit` with the update of the best: six dot products
+#     18, the plane subtraction 1, the division 10, two d20/d21 sums 4, the
+#     barycentrics 6, six inside and two validity comparisons 8, the
+#     select 1, the update's comparison and two selects 3;
+#   the flat kernel's stages: PLANE_SLOTS (two dot products, the
+#     subtraction, three comparisons), WINDOW_SLOTS (the division, two
+#     comparisons), EDGE_SLOTS (four dot products, the two sums, the
+#     barycentrics, six comparisons, two selects).
+# A bound charges the stages, not the full test: the plane stage on each
+# real slot tested, the window and edge stages on the pairs that reach
+# them (``flat_slots``; for the walks, each cluster test against the best
+# at its start). TRI_HIT_SLOTS gives the full test's bound beside it.
+# Per (ray, box): SLAB_SLOTS, the slab test (six subtractions, six
+# products, six NaN tests, ten min/max, two comparisons, the clamp at 0 and
+# the validity test); KEY_SLOTS, that and the first-block key's two
+# comparisons against its running pair.
+HBM_BYTES_PER_S, FP32_LANES_PER_SM = 3.35e12, 128
+TRI_HIT_SLOTS, PLANE_SLOTS, WINDOW_SLOTS, EDGE_SLOTS = 51, 10, 12, 30
+SLAB_SLOTS, KEY_SLOTS = 32, 34
+LANE_SLOTS_PER_S = 0.0  # SMs x FP32_LANES_PER_SM x clocks.max.sm, once read
 TILE_BYTES = 16 * 128 * 4
 
 
@@ -197,12 +242,17 @@ class Phase:
         return False
 
 
-def card_line() -> str:
+def nvidia_smi(query: str, *fmt: str) -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=query``."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format=csv,noheader{''.join(fmt)}"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2):
@@ -221,12 +271,42 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2):
     return start.elapsed_time(stop) / reps, out
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """bound_ms = max(ops / peak fp32 rate, bytes / HBM rate), and which."""
-    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(slots: float, nbytes: float) -> dict:
+    """bound_ms = max(issue slots / the card's FP32 lane rate, bytes / HBM
+    rate), and which."""
+    t_ops, t_bytes = slots / LANE_SLOTS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes}
+            "ops": slots, "bytes": nbytes}
+
+
+def flat_slots(counts) -> int:
+    """Issue slots of the triangle tests on a ray set, from the per-ray
+    (slots visited, pairs reaching the division, pairs reaching the edge
+    test) of ``flat_staged_plain`` or of a plain walk's ``stages``: the
+    plane stage on every slot a ray visits (its real slots), the window and
+    edge stages where they run."""
+    c0, c1, c2 = counts.sum(dim=0).tolist()
+    return c0 * PLANE_SLOTS + c1 * WINDOW_SLOTS + c2 * EDGE_SLOTS
+
+
+def walk_stage_counts(walk_plain, rays, chunk: int = 65536):
+    """A walk kernel's plain walk ``walk_plain(rays, stages=True)`` on
+    ``rays`` in chunks (each ray walks alone): its (t, id, stats) and its
+    flat stages' count of the cluster tests (``flat_slots`` takes it)."""
+    outs = [walk_plain(rays[i:i + chunk], stages=True) for i in range(0, rays.shape[0], chunk)]
+    out = [torch.cat(x) for x in zip(*outs)]
+    return tuple(out[:3]), out[3]
+
+
+def stage_log(label: str, pairs, b: dict, full: dict) -> None:
+    """Log the pairs of a ray set that reach each flat stage, its bound and
+    the bound with the full test on every slot tested."""
+    c = pairs.sum(dim=0).tolist()
+    log(f"stages {label}: slots tested {c[0]}, pairs reaching the division {c[1]} "
+        f"({c[1] / max(c[0], 1):.1%}), the edge test {c[2]} ({c[2] / max(c[0], 1):.1%}); "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), the full test on every slot tested "
+        f"{full['bound_ms']:.4f} ms")
 
 
 def main_path_shapes(num_pixels: int, floor: int, ray_chunks) -> list:
@@ -319,6 +399,20 @@ def exact(label, kernel_out, plain_out) -> float:
     return float((k.double() - p.double()).abs().max()) if k.numel() else 0.0
 
 
+def card_test(module: str, name: str, *args) -> None:
+    """Run the ``cuda``-marked test ``name`` of tests/<module>.py on the card,
+    outside pytest (tests/conftest.py imports JAX, which a machine with the
+    card need not have)."""
+    spec = importlib.util.spec_from_file_location(module, os.path.join(REPO, "tests",
+                                                                       f"{module}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    threads = torch.get_num_threads()
+    spec.loader.exec_module(mod)
+    torch.set_num_threads(threads)  # the test modules cap torch's threads
+    getattr(mod, name)(*args)
+    log(f"card test tests/{module}.py::{name}{list(args) if args else ''}: passed")
+
+
 def exact_walk(label, kernel_out, walk_out) -> None:
     """A walk kernel's (t, id, stats) == its plain walk's, bit for bit."""
     if not all(torch.equal(k, w) for k, w in zip(kernel_out, walk_out)):
@@ -338,14 +432,16 @@ def activity(rng, n, device):
 
 
 def check_kernel(name, kernel, plain, tables, scene, rng, device, sizes,
-                 strict=BENCH_RAYS, variants=()) -> dict:
+                 strict=BENCH_RAYS, variants=(), walk=None) -> dict:
     """Kernel vs plain (exact) and vs brute (bench.py gate) on one scene, at
     each ray count of ``sizes``, in the four activity cases; the gate is
     strict at the counts of ``strict``. Each of ``variants`` (label,
     kernel, plain, tables), another intersector of the same scene, runs on
     the same rays and must equal both its plain version and ``kernel`` bit
-    for bit, so the gate holds for it as for ``kernel``. Returns {name and
-    each label: the largest |t_kernel - t_plain|}."""
+    for bit, so the gate holds for it as for ``kernel``. With ``walk`` (the
+    kernel's plain walk), ``kernel(..., stats=True)`` must equal it in (t,
+    id, per-ray stats). Returns {name and each label: the largest |t_kernel
+    - t_plain|}."""
     from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 
     verts = scene.vertices.reshape(-1, 3).cpu().numpy()
@@ -360,6 +456,9 @@ def check_kernel(name, kernel, plain, tables, scene, rng, device, sizes,
             pout = plain(*tables, rays, 1e-5)
             torch.cuda.synchronize()
             worst[name] = max(worst[name], exact(f"{name} {n} {case}", kout, pout))
+            if walk is not None:
+                exact_walk(f"{name} {n} {case}", kernel(*tables, rays, 1e-5, stats=True),
+                           walk(*tables, rays, 1e-5))
             for label, v_kernel, v_plain, v_tables in variants:
                 vout = v_kernel(*v_tables, rays, 1e-5)
                 worst[label] = max(worst[label], exact(f"{label} {n} {case}", vout,
@@ -373,6 +472,8 @@ def check_kernel(name, kernel, plain, tables, scene, rng, device, sizes,
     for label in worst:
         log(f"kernel {label}: equal to its plain version"
             + (f" and to {name}" if label != name else "")
+            + (" and, with its per-ray stats, to its plain walk"
+               if walk is not None and label == name else "")
             + f" at {list(sizes)} rays in the cases {ACTIVITY_CASES}")
     return worst
 
@@ -404,25 +505,31 @@ def kernels_in_turns(label, fns: dict, reps: int = 20) -> dict:
     return times
 
 
-def hero_ray_sets(scene, rng, device):
-    """Rays of the hero's main path: camera rays of the bench camera at
-    640x360, bounce rays from the surfaces they hit (origin on the surface,
-    as path_trace makes them) into the normal's hemisphere, and NEE rays
-    from there toward a random point of a random light triangle with the
-    window nee.sample_direct_light gives them. Returns those, and the same
-    rays with the surface origins lifted LIFT along the normal."""
+BENCH_EYE, BENCH_PITCH = (0.0, 1.2, -1.8), 0.15  # bench.py's camera
+GOLDEN_EYE = (0.0, 2.0, -6.0)  # hero_small_32's camera (tests/golden_cases.py)
+
+
+def main_path_rays(scene, rng, device, nearest=None, width=HERO_W, height=HERO_H,
+                  eye=BENCH_EYE, pitch=BENCH_PITCH):
+    """Rays of a scene's main path: camera rays (by default the bench
+    camera at 640x360), bounce rays from the surfaces they hit (origin on
+    the surface, as path_trace makes them) into the normal's hemisphere,
+    and NEE rays from there toward a random point of a random light
+    triangle with the window nee.sample_direct_light gives them; the hits
+    come from ``nearest`` (default ``nearest_hit_blk``). Returns those, and
+    the same rays with the surface origins lifted LIFT along the normal."""
     from isaklm_raytracer_tpu_torch.accel import hit_attributes
     from isaklm_raytracer_tpu_torch.camera import Camera
     from isaklm_raytracer_tpu_torch.camera.camera import generate_rays
     from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 
-    n = HERO_W * HERO_H
-    camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
+    n = width * height
+    camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
     ids = torch.arange(n, device=device)
     cam_u = torch.tensor(rng.random((n, 4)), dtype=torch.float32, device=device)
-    o_cam, d_cam = generate_rays(camera, HERO_W, HERO_H, ids % HERO_W, ids // HERO_W, cam_u)
+    o_cam, d_cam = generate_rays(camera, width, height, ids % width, ids // width, cam_u)
 
-    t, idx, hit = ki.nearest_hit_blk(scene.cbvh, o_cam, d_cam)
+    t, idx, hit = (nearest or ki.nearest_hit_blk)(scene.cbvh, o_cam, d_cam)
     attrs = hit_attributes(scene, o_cam, d_cam, idx, hit)
     pos, nrm = attrs.position[hit], attrs.normal[hit]
     m = pos.shape[0]
@@ -455,11 +562,20 @@ def hero_ray_sets(scene, rng, device):
     }
 
 
+def morton(rays):
+    """The rays in the order a ``nearest_hit_*`` call sorts them (Morton)."""
+    from isaklm_raytracer_tpu_torch.kernels import intersect as ki
+
+    perm = ki.ray_order(rays, True, ki.DEFAULT_PACKET)
+    return rays if perm is None else rays[perm].contiguous()
+
+
 def check_walk_hero(name, walk, plain, walk_plain, nearest, scene, sets, lifted, box_t,
                     group_size, cluster_bytes, group_bytes, wavefront_reps=20):
     """Phases kernel blk, hbm and blk_mxu on the full hero, through
-    walk(rays, stats=False), its plain(rays), its plain walk walk_plain(rays)
-    -> (t, id, stats) and nearest(o, d, t_max=...) (the ``nearest_hit_*``
+    walk(rays, stats=False), its plain(rays), its plain walk walk_plain(rays,
+    stages=False) -> (t, id, stats) and, with ``stages``, the stages' count
+    too, and nearest(o, d, t_max=...) (the ``nearest_hit_*``
     wrapper), over the group boxes ``box_t`` of
     ``group_size`` clusters. ``cluster_bytes`` and ``group_bytes`` are the
     table bytes the walk reads for a winning cluster and for its group.
@@ -527,18 +643,22 @@ def check_walk_hero(name, walk, plain, walk_plain, nearest, scene, sets, lifted,
         f"{name}_intersect hero {count} camera rays x {valid} groups of {group_size} clusters",
         lambda: walk(rays), lambda: plain(rays), plain_reps=2, plain_warmup=1,
     )
-    # the bound of that call: the clusters the kernel intersected and the
-    # cluster boxes of the groups it visited (its per-ray counts), one slab
-    # test per ray and valid group; the rays, results, group boxes and the
-    # table bytes of the winning clusters and their groups
-    stats = walk(rays, stats=True)[2].long()
+    # the bound of that call: the flat stages' count of the cluster tests
+    # the walk makes (its plain walk, equal to the kernel in (t, id, stats)
+    # on these rays) and the cluster boxes of the groups it visited, one
+    # slab test per ray and valid group; the rays, results, group boxes and
+    # the table bytes of the winning clusters and their groups
+    kstats = walk(rays, stats=True)
+    plain_walk, pairs = walk_stage_counts(walk_plain, rays)
+    exact_walk(f"{name} hero {count} camera rays", kstats, plain_walk)
+    stats = kstats[2].long()
     won = kout[1][kout[1] != _BIG_ID].long() // 128
-    walk_bound = bound(
-        int(stats[:, 1].sum()) * 128 * TRI_HIT_OPS
-        + int(stats[:, 0].sum()) * group_size * SLAB_OPS + count * valid * SLAB_OPS,
-        count * 40 + box_t.numel() * 4 + torch.unique(won).numel() * cluster_bytes
-        + torch.unique(won // group_size).numel() * group_bytes,
-    )
+    boxes = int(stats[:, 0].sum()) * group_size * SLAB_SLOTS + count * valid * SLAB_SLOTS
+    nbytes = (count * 40 + box_t.numel() * 4 + torch.unique(won).numel() * cluster_bytes
+              + torch.unique(won // group_size).numel() * group_bytes)
+    walk_bound = bound(flat_slots(pairs) + boxes, nbytes)
+    stage_log(f"{name} hero {count} camera rays", pairs, walk_bound,
+              bound(int(stats[:, 1].sum()) * 128 * TRI_HIT_SLOTS + boxes, nbytes))
     wavefront = {}
     for kind, (o, d, t_max) in sets.items():
         rays = ki.prep_rays(o, d, None, t_max)
@@ -605,7 +725,7 @@ def check_first_blocks(scene, sets, rng, device):
     argsort_ms, _ = cuda_ms(lambda: torch.argsort(k, stable=True))
     log(f"time argsort(stable) of {k.numel()} first-block keys: {argsort_ms:.4f} ms")
     valid = int((bbox_t[6] > 0).sum())
-    b = bound(rays.shape[0] * valid * KEY_OPS, rays.shape[0] * (32 + 4) + bbox_t.numel() * 4)
+    b = bound(rays.shape[0] * valid * KEY_SLOTS, rays.shape[0] * (32 + 4) + bbox_t.numel() * 4)
     return 0.0, ms, plain_ms, argsort_ms, b
 
 
@@ -706,11 +826,12 @@ def ordered_step_seconds(scene, camera, config, trace, samples: int = 2) -> floa
     return (time.perf_counter() - t0) / samples
 
 
-def fwd_and_fwd_bwd(label, scene, camera, config, counts, card):
+def fwd_and_fwd_bwd(label, scene, camera, config, counts, card, samples: int = 2):
     """bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf = the
-    material albedo): s/sample of each, two timed samples after a warm-up,
-    rays/s by the bench's count, the peak device memory of fwd+bwd, and the
-    launches of each kernel in the fwd+bwd samples. Returns those."""
+    material albedo): s/sample of each, ``samples`` timed samples after a
+    warm-up, rays/s by the bench's count, the peak device memory of
+    fwd+bwd, and the launches of each kernel in the fwd+bwd samples.
+    Returns those."""
     from isaklm_raytracer_tpu_torch.integrator.render import render_sample
     from isaklm_raytracer_tpu_torch.math import rng as prng
 
@@ -729,16 +850,16 @@ def fwd_and_fwd_bwd(label, scene, camera, config, counts, card):
     fwd_bwd(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in (1, 2):
+    for i in range(1, samples + 1):
         fwd(i)
     torch.cuda.synchronize()
-    fwd_s = (time.perf_counter() - t0) / 2
+    fwd_s = (time.perf_counter() - t0) / samples
     counts.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    grads = [fwd_bwd(i) for i in (1, 2)]
+    grads = [fwd_bwd(i) for i in range(1, samples + 1)]
     torch.cuda.synchronize()
-    bwd_s = (time.perf_counter() - t0) / 2
+    bwd_s = (time.perf_counter() - t0) / samples
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}
     plain = counts.plain_cuda()
@@ -746,7 +867,7 @@ def fwd_and_fwd_bwd(label, scene, camera, config, counts, card):
     log(f"grad {label} {config.width}x{config.height}x{config.max_bounces} ray_chunk "
         f"{config.ray_chunk}: fwd {fwd_s:.4f} s/sample ({rays / fwd_s / 1e6:.3f} M rays/s), "
         f"fwd+bwd {bwd_s:.4f} s/sample ({rays / bwd_s / 1e6:.3f} M rays/s), ratio "
-        f"{bwd_s / fwd_s:.2f}; peak memory {peak:.2f} GiB; launches in 2 fwd+bwd samples "
+        f"{bwd_s / fwd_s:.2f}; peak memory {peak:.2f} GiB; launches in {samples} fwd+bwd samples "
         f"{launches}, plain calls on CUDA {plain}; on {card}")
     for g in grads:
         if not torch.isfinite(g).all() or not g.abs().max() > 0:
@@ -939,7 +1060,8 @@ def profile_sample(render, scene, camera, config, kernel_name):
 
 
 def perf(name, render, scene, camera, width, height, bounces, counts, kernel_name, card):
-    """Seconds per full step at ray_chunk 16384 and 0, in turns, then one
+    """Seconds per full step at ray_chunk 16384 and 0, in turns (one timed
+    step at 16384, two in one pass, each after a warm-up), then one
     profiled step at each."""
     from isaklm_raytracer_tpu_torch.config import RenderConfig
 
@@ -947,7 +1069,8 @@ def perf(name, render, scene, camera, width, height, bounces, counts, kernel_nam
     per_chunk = {}
     for chunk in (chunk_default, 0, 0, chunk_default):
         config = RenderConfig(width=width, height=height, max_bounces=bounces, ray_chunk=chunk)
-        s, launches = sample_seconds(render, scene, camera, config, counts)
+        s, launches = sample_seconds(render, scene, camera, config, counts,
+                                     samples=1 if chunk else 2)
         per_chunk.setdefault(chunk, []).append(s)
         rays = config.num_pixels * config.max_bounces * 2
         log(f"{name} {width}x{height}x{bounces} ray_chunk {chunk}: {s:.4f} s/sample, "
@@ -1116,7 +1239,7 @@ def same_image(label, got, want) -> None:
 
 
 def main() -> int:
-    global CARD
+    global CARD, LANE_SLOTS_PER_S
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -1140,7 +1263,11 @@ def main() -> int:
     start = time.perf_counter()
     with Phase("card"):
         card = CARD = card_line()
-        log(f"card: {card}")
+        clock_mhz = float(nvidia_smi("clocks.max.sm", ",nounits"))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        LANE_SLOTS_PER_S = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
+        log(f"card: {card}; {sms} SMs, max SM clock {clock_mhz:g} MHz: "
+            f"{LANE_SLOTS_PER_S / 1e12:.2f}e12 FP32 issue slots a second")
 
     with Phase("build"):
         for source, (path, seconds, build_log) in build.build_all(ki.SOURCES, rebuild=True).items():
@@ -1201,13 +1328,35 @@ def main() -> int:
             )
             timing[label] = (k_ms, p_ms)
         flat_rays = ki.prep_rays(o, d)
-        # every ray tests every slot of the real clusters
         slots = demo.cbvh.real_clusters * 128
+
+        def stage_line(label, rays, nbytes):
+            """flat's staged walk on ``rays``, which must give the kernel's
+            result; logs the pairs that reach each stage and returns the
+            bound of the flat function on them."""
+            staged = ki.flat_staged_plain(tri, rays, 1e-5)
+            exact(f"flat {label}: kernel == its staged walk", ki.flat_intersect(tri, rays, 1e-5),
+                  staged)
+            b = bound(flat_slots(staged[2]), nbytes)
+            stage_log(f"flat {label}, {rays.shape[0]} rays, kernel == its staged walk", staged[2],
+                      b, bound(rays.shape[0] * slots * TRI_HIT_SLOTS, nbytes))
+            return b
+
+        flat_bound = stage_line("262144 random rays", flat_rays, 512 * 512 * 40 + tri.numel() * 4)
         results["flat"] = {"max_abs_err": max_err, "ms": timing["no t_max"][0],
-                           "plain_ms": timing["no t_max"][1],
-                           **bound(512 * 512 * slots * TRI_HIT_OPS,
-                                   512 * 512 * 40 + tri.numel() * 4),
+                           "plain_ms": timing["no t_max"][1], **flat_bound,
                            "shape": f"262144 rays x {demo.cbvh.real_clusters} clusters (demo)"}
+        # the demo's own wavefronts, in the order the render calls flat
+        demo_sets, _ = main_path_rays(demo, np.random.default_rng(6), device, ki.nearest_hit_flat,
+                                     512, 512)
+        for kind, (o_w, d_w, t_w) in demo_sets.items():
+            rays_w = morton(ki.prep_rays(o_w, d_w, None, t_w))
+            time_in_turns(
+                f"flat_intersect demo {kind} wavefront (Morton order), {rays_w.shape[0]} rays",
+                lambda: ki.flat_intersect(tri, rays_w, 1e-5),
+                lambda: ki.flat_intersect_plain(tri, rays_w, 1e-5), plain_reps=2, plain_warmup=1)
+            stage_line(f"demo {kind} wavefront", rays_w, rays_w.shape[0] * 40 + tri.numel() * 4)
+        card_test("test_torch_flat", "test_cuda_flat_kernel_on_coherent_and_edge_rays")
 
     with Phase("kernel flat_mxu"):
         tiles = pair_tables(demo)[0]
@@ -1220,11 +1369,11 @@ def main() -> int:
             "flat": lambda: ki.flat_intersect(tri, flat_rays, 1e-5),
             "flat_mxu": lambda: ki.flat_mxu_intersect(tiles, flat_rays, 1e-5),
         })
-        # flat's operations; the pairs' bytes are twice the tiles'
+        # the flat function's issue slots on the same rays; the pairs' bytes
+        # are twice the tiles'
         mxu_err = max(v for k, v in errs.items() if k.startswith("flat_mxu"))
         results["flat_mxu"] = {"max_abs_err": mxu_err, "ms": m_ms, "plain_ms": m_plain_ms,
-                               **bound(512 * 512 * slots * TRI_HIT_OPS,
-                                       512 * 512 * 40 + tiles.numel() * 4),
+                               **bound(flat_bound["ops"], 512 * 512 * 40 + tiles.numel() * 4),
                                "shape": f"262144 rays x {demo.cbvh.real_clusters} tile pairs "
                                         "(demo)"}
 
@@ -1252,7 +1401,9 @@ def main() -> int:
                 variants=[(f"hbm {label}",
                            functools.partial(ki.hbm_intersect, oct_branch=cb.oct_branch),
                            functools.partial(ki.hbm_intersect_plain, oct_branch=cb.oct_branch),
-                           (cb.oct_bbox_t, cb.tri_const))]))
+                           (cb.oct_bbox_t, cb.tri_const))],
+                walk=ki.queue_walk_plain))
+        card_test("test_torch_walk", "test_cuda_walk_kernels_equal_walk_plain", "queue")
         worst = max(v for k, v in q_errs.items() if k.startswith("queue"))
         verts = soup700.vertices.reshape(-1, 3).cpu().numpy()
         o, d = random_rays(rng, 512 * 512, verts.min(axis=0), verts.max(axis=0), device)
@@ -1264,20 +1415,64 @@ def main() -> int:
             lambda: ki.queue_intersect_plain(*tables, rays, 1e-5),
             plain_reps=2, plain_warmup=1,
         )
-        # the bound, an upper count: every pierced (ray, cluster) pair the
-        # plain version tests (the kernel prunes some) and one slab test per
-        # ray and cluster; the rays, results, boxes and the winners' tiles
         num_c = soup700.cbvh.num_clusters
+
+        def queue_walk(r, stages=False):
+            return ki.queue_walk_plain(*tables, r, 1e-5, stages)
+
+        qstats = ki.queue_intersect(*tables, rays, 1e-5, stats=True)
+        plain_walk, pairs = walk_stage_counts(queue_walk, rays)
+        exact_walk("queue soup 262144 rays", qstats, plain_walk)
+        sums = qstats[2].long().sum(dim=0).tolist()
+        log(f"kernel queue soup: 262144 rays equal to the plain walk in (t, id, stats); sums: "
+            f"clusters visited {sums[0]}, clusters intersected {sums[1]}")
+        oct_tables = (soup700.cbvh.oct_bbox_t, soup700.cbvh.tri_const)
+        kernels_in_turns("queue and hbm kernels, 262144 soup rays", {
+            "queue": lambda: ki.queue_intersect(*tables, rays, 1e-5),
+            "hbm": lambda: ki.hbm_intersect(*oct_tables, rays, 1e-5, soup700.cbvh.oct_branch)})
+        # the bound: one slab test per ray and valid cluster (the entry
+        # pass) and the flat stages' count of the clusters the walk
+        # intersected; the rays, results, boxes and the winners' tiles
+        valid = int((tables[0][6, :num_c] > 0).sum())
         won = qout[1][qout[1] != _BIG_ID]
-        pairs = sum(int(ki._pierce(tables[0][:, :num_c], rays[i:i + 4096], 1e-5).sum())
-                    for i in range(0, rays.shape[0], 4096))
-        results["queue"] = {"max_abs_err": worst, "ms": q_ms, "plain_ms": q_plain_ms,
-                            **bound(pairs * 128 * TRI_HIT_OPS + rays.shape[0] * num_c * SLAB_OPS,
-                                    rays.shape[0] * 40 + 7 * num_c * 4
-                                    + torch.unique(won // 128).numel() * TILE_BYTES),
+        nbytes = rays.shape[0] * 40 + 7 * num_c * 4 + torch.unique(won // 128).numel() * TILE_BYTES
+        boxes = rays.shape[0] * valid * SLAB_SLOTS
+        q_bound = bound(flat_slots(pairs) + boxes, nbytes)
+        stage_log("queue soup 262144 rays", pairs, q_bound,
+                  bound(sums[1] * 128 * TRI_HIT_SLOTS + boxes, nbytes))
+        results["queue"] = {"max_abs_err": worst, "ms": q_ms, "plain_ms": q_plain_ms, **q_bound,
                             "shape": f"262144 rays x {num_c} clusters (soup near 6 MB), "
-                                     f"{pairs / rays.shape[0]:.2f} pierced clusters a ray"}
-        del soup700, queue_scenes, tables, rays
+                                     f"{sums[1] / rays.shape[0]:.2f} clusters intersected a ray"}
+        del soup700, queue_scenes, tables, oct_tables, rays, qstats, plain_walk
+
+        # the 20k hero's own wavefronts, in the order the render calls queue
+        h_tables = (hero20k.cbvh.clu_bbox_t, hero20k.cbvh.tri_const)
+        h_sets, _ = main_path_rays(hero20k, np.random.default_rng(7), device, ki.nearest_hit_queue,
+                                  512, 512, eye=GOLDEN_EYE, pitch=0.0)
+        for kind, (o_w, d_w, t_w) in h_sets.items():
+            rays_w = morton(ki.prep_rays(o_w, d_w, None, t_w))
+            k_ms, kout = cuda_ms(lambda: ki.queue_intersect(*h_tables, rays_w, 1e-5, stats=True))
+            exact_walk(f"queue hero20k {kind} wavefront", kout,
+                       ki.queue_walk_plain(*h_tables, rays_w, 1e-5))
+            sums = kout[2].long().sum(dim=0).tolist()
+            log(f"time queue_intersect hero20k {kind} wavefront (Morton order), kernel alone, "
+                f"{rays_w.shape[0]} rays: {k_ms:.3f} ms; equal to the plain walk in (t, id, "
+                f"stats); sums: clusters visited {sums[0]}, clusters intersected {sums[1]}")
+
+        # the main path: render of the 20k hero at 512x512x8 in one pass
+        camera20k = Camera.create(GOLDEN_EYE, fov=np.pi / 2, device=device)
+        config = RenderConfig(width=512, height=512, max_bounces=8, ray_chunk=0)
+        counts.reset()
+        sec, per_sample = sample_seconds(render, hero20k, camera20k, config, counts)
+        queue_launches = check_only(counts, "queue", "render of hero20k 512x512x8 ray_chunk 0")
+        n, busy_s, mine_n, mine_s = profile_sample(render, hero20k, camera20k, config,
+                                                   "queue_intersect_kernel")
+        rays_n = config.num_pixels * config.max_bounces * 2
+        log(f"main path queue, render of hero20k 512x512x8 ray_chunk 0: {sec:.4f} s/sample "
+            f"(two after a warm-up; {rays_n / sec / 1e6:.3f} M rays/s), {per_sample:g} queue "
+            f"launches a sample; profile: {n} CUDA kernels/sample, device kernel time "
+            f"{busy_s:.4f} s = {busy_s / sec:.1%} of the s/sample; queue_intersect {mine_n} "
+            f"launches, {mine_s * 1e3:.2f} ms = {mine_s / busy_s:.1%} of device kernel time")
 
     with Phase("kernel blk"):
         t0 = time.perf_counter()
@@ -1291,7 +1486,7 @@ def main() -> int:
             f"{intersector_name(cbvh)}, built and moved in {time.perf_counter() - t0:.1f} s")
         if intersector_name(cbvh) != "blk":
             raise RuntimeError("the hero scene does not pick the blk intersector")
-        sets, lifted = hero_ray_sets(hero, rng, device)
+        sets, lifted = main_path_rays(hero, rng, device)
 
         def blk_walk(r, stats=False):
             return ki.blk_intersect(cbvh.blk_bbox_t, cbvh.blk_const, r, 1e-5, stats)
@@ -1299,7 +1494,8 @@ def main() -> int:
         worst, b_ms, b_plain_ms, b_count, _, b_bound = check_walk_hero(
             "blk", blk_walk, lambda r: ki.blk_intersect_plain(cbvh.blk_bbox_t, cbvh.blk_const, r,
                                                               1e-5),
-            lambda r: ki.blk_walk_plain(cbvh.blk_bbox_t, cbvh.blk_const, r, 1e-5),
+            lambda r, stages=False: ki.blk_walk_plain(cbvh.blk_bbox_t, cbvh.blk_const, r, 1e-5,
+                                                      stages),
             functools.partial(ki.nearest_hit_blk, cbvh), hero, sets, lifted, cbvh.blk_bbox_t,
             cbvh.blk_branch, TILE_BYTES, TILE_BYTES)
         results["blk"] = {"max_abs_err": worst, "ms": b_ms, "plain_ms": b_plain_ms, **b_bound,
@@ -1334,8 +1530,8 @@ def main() -> int:
             "hbm", hbm_walk,
             lambda r: ki.hbm_intersect_plain(cbvh.oct_bbox_t, cbvh.tri_const, r, 1e-5,
                                              cbvh.oct_branch),
-            lambda r: ki.hbm_walk_plain(cbvh.oct_bbox_t, cbvh.tri_const, r, 1e-5,
-                                        cbvh.oct_branch),
+            lambda r, stages=False: ki.hbm_walk_plain(cbvh.oct_bbox_t, cbvh.tri_const, r, 1e-5,
+                                                      cbvh.oct_branch, stages),
             functools.partial(ki.nearest_hit_hbm, cbvh), hero, sets, lifted, cbvh.oct_bbox_t,
             cbvh.oct_branch, TILE_BYTES, 0, wavefront_reps=5)
         results["hbm"] = {"max_abs_err": max(worst_h, *(v for k, v in q_errs.items()
@@ -1359,7 +1555,8 @@ def main() -> int:
         worst, x_ms, x_plain_ms, x_count, _, x_bound = check_walk_hero(
             "blk_mxu", mxu_walk,
             lambda r: ki.blk_mxu_intersect_plain(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5),
-            lambda r: ki.blk_mxu_walk_plain(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5),
+            lambda r, stages=False: ki.blk_mxu_walk_plain(mcb.blk_bbox_t, mcb.mxu_const, r,
+                                                          1e-5, stages),
             functools.partial(ki.nearest_hit_blk_mxu, mcb), hero_mxu, sets, lifted,
             mcb.blk_bbox_t, mcb.mxu_branch, 2 * TILE_BYTES, TILE_BYTES)
         for kind, (o, d, t_max) in sets.items():
@@ -1420,8 +1617,7 @@ def main() -> int:
                 gb = render(scene, cam.to(dev), config, num_samples=spp, seed=11)
                 images.append(resolve_image(gb, config).cpu().numpy())
                 if dev is device and name == "hero_small_32":
-                    # the queue kernel's main-path run, through render()
-                    queue_launches = check_only(counts, "queue", "queue (render of hero_small_32)")
+                    check_only(counts, "queue", "queue (render of hero_small_32)")
             got = images[0]
             with np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz")) as f:
                 want = f["image"]
@@ -1498,7 +1694,8 @@ def main() -> int:
             os.environ["ISAKLM_BLK_SORT"] = sort
             for chunk in chunks:
                 config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=chunk)
-                out = fwd_and_fwd_bwd(label, scene, camera, config, counts, card)
+                out = fwd_and_fwd_bwd(label, scene, camera, config, counts, card,
+                                      samples=1 if chunk else 2)
                 kernel = "flat" if label == "demo" else "blk"
                 if out["launches"][kernel] == 0:
                     raise RuntimeError(f"grad {label}: the {kernel} kernel did not launch")

@@ -1,12 +1,17 @@
-// The walk over groups of clusters that the blocked, MXU-blocked and oct
-// intersectors share (blk_intersect.cu, blk_mxu_intersect.cu,
-// hbm_intersect.cu): one warp walks one ray, its 32 lanes sharing every
-// part of the walk.
+// The walk over groups of clusters that the queue, blocked, MXU-blocked and
+// oct intersectors share (queue_intersect.cu, blk_intersect.cu,
+// blk_mxu_intersect.cu, hbm_intersect.cu): one warp walks one ray, its 32
+// lanes sharing every part of the walk.
 //
-// A scene's clusters are cut into groups of consecutive clusters (a block
-// of `branch` clusters, or an oct of `oct_branch`), each with a box in a
-// component-major (8, stride) table. The walk is the thread-per-ray walk of
-// the queue kernel (`next_box`), with the same visits in the same order:
+// A scene's clusters are cut into groups of consecutive clusters (a single
+// cluster, a block of `branch` clusters, or an oct of `oct_branch`), each
+// with a box in a component-major (8, stride) table. The walk is front to
+// back by an (entry, index) cursor: each step visits the pierced valid
+// group with the least (entry, index) after the cursor whose entry is at
+// most the ray's best t -- the inclusive bound `m <= tmax` of the TPU
+// kernels' loops, per ray instead of per packet. A group behind the cursor
+// was visited or had its entry beyond an earlier best t, which only
+// shrinks, so the cursor needs no visited set. The steps:
 //   1. Group entries, once a ray. A ray's slab entry into a group box never
 //      changes during its walk; only its best t and its cursor move. Lane l
 //      tests boxes l, l + 32, ... once, reading the table with coalesced
@@ -14,25 +19,29 @@
 //      order, into its own slice of shared memory as (entry, index) keys.
 //   2. Groups front to back. Each step is a warp-wide argmin over the keys
 //      after the cursor whose entry is at most the ray's best t: the least
-//      (entry, index), ties to the lower index, strictly after the cursor,
-//      which is the group `next_box` picks. A step reads count / 32 keys a
-//      lane, where the thread walk ran one slab test per group.
+//      (entry, index), ties to the lower index, strictly after the cursor.
+//      A step reads count / 32 keys a lane.
 //   3. Cull a group. Lane l tests clusters l, l + 32, l + 64 and l + 96 of
 //      the group against the best t at that moment (the header rows of a
 //      block are read coalesced) and keeps their entries and pierced bits
 //      in registers.
 //   4. Clusters front to back: a warp argmin of (entry, k) over the pierced
 //      clusters whose entry is at most the best t; a cluster whose entry is
-//      now behind the best drops out for good, as in the thread walk. No
-//      slab test is repeated.
+//      now behind the best drops out for good. No slab test is repeated.
 //   5. Test a cluster: 4 consecutive slots a lane (`warp_intersect_rows`),
 //      the warp's least (t, id) applied once to the running best.
+// A group of one cluster (a layout with `kOneCluster`) skips steps 3 and 4:
+// the cluster's box is the group's, so its entry is the key's, which step 2
+// took under the same `entry <= best t` that step 3 would test, with the
+// best unchanged in between. Its walk visits and intersects the same
+// clusters in the same order, and counts each visit once in each stat.
 // All 32 lanes run every loop and every shuffle together: the ray, the
 // keys' minima and the running best are the same in every lane.
 //
 // Each step's minimum is unique (the indices in a key are distinct), so the
-// walk visits the groups and clusters the thread walk visited, in its
-// order, and counts the same `stats`.
+// walk's visits and their order are fixed by the ray and the tables, and
+// `_group_walk_pruned` (kernels/intersect.py) repeats them with the same
+// `stats`.
 //
 // A group layout says where a cluster's box and constants lie. It provides
 //   int size() const: clusters per group (at most 128);
@@ -41,8 +50,13 @@
 //       the ray pierces cluster k of the group, and its entry distance;
 //     void intersect(int k, const Ray&, float t_eps, float& best_t,
 //       int& best_id) const: the warp's test of cluster k's 128 slots.
+// A layout of single clusters instead declares
+//   static constexpr bool kOneCluster = true;
+// and its Group needs only `intersect` (k is always 0).
 
 #pragma once
+
+#include <type_traits>
 
 #include "intersect_common.cuh"
 
@@ -52,7 +66,8 @@ namespace isaklm {
 // beat 4 and 8 (more blocks fit an SM's shared memory and registers, and a
 // block's slowest ray holds fewer warps); the blocked walks take at most 96
 // registers a thread (kBlockWalkMinBlocks blocks an SM) without a spill,
-// faster than their free 116; the oct walk is bound by its lists' shared
+// faster than their free 116, and the queue walk, whose lists are as
+// short, takes the same cap; the oct walk is bound by its lists' shared
 // memory (7 blocks an SM at the hero's 1,952 octs), so it takes no cap.
 constexpr int kWalkWarps = 2;                  // rays per block, a warp each
 constexpr int kWalkThreads = 32 * kWalkWarps;  // threads per block
@@ -65,6 +80,13 @@ constexpr unsigned long long kNoKey = ~0ull;
 inline size_t walk_shared_bytes(int num_groups) {
   return sizeof(unsigned long long) * kWalkWarps * static_cast<size_t>(num_groups);
 }
+
+// Whether `Layout` declares groups of one cluster (`kOneCluster`).
+template <class Layout, class = void>
+struct OneCluster : std::false_type {};
+template <class Layout>
+struct OneCluster<Layout, std::void_t<decltype(Layout::kOneCluster)>>
+    : std::bool_constant<Layout::kOneCluster> {};
 
 // The (entry, index) key of a group or cluster. Entries are >= 0 (`slab`
 // clamps them at 0) and never NaN, and -0 becomes +0, so the keys order as
@@ -93,6 +115,49 @@ __device__ __forceinline__ unsigned long long warp_min_key(unsigned long long ke
   return key;
 }
 
+// Steps 3-5 of the walk for one group of `size` clusters: the cull, then
+// the pierced clusters front to back, each tested by the warp. Adds the
+// clusters intersected to `clusters`.
+template <class Group>
+__device__ __forceinline__ void walk_clusters(const Group& group, int size, const Ray& ray,
+                                              float t_eps, float& best_t, int& best_id,
+                                              int& clusters) {
+  const int lane = threadIdx.x & 31;
+  // 3. cull the group's clusters against this ray's own best
+  float ce[kSlotsPerLane];
+  unsigned pierced = 0;
+#pragma unroll
+  for (int j = 0; j < kSlotsPerLane; ++j) {
+    const int k = lane + 32 * j;
+    ce[j] = 0.0f;
+    if (k < size && group.entry(k, ray, t_eps, ce[j]) && ce[j] <= best_t) {
+      pierced |= 1u << j;
+    }
+  }
+
+  // 4. the pierced clusters front to back
+  while (true) {
+    unsigned long long cpick = kNoKey;
+#pragma unroll
+    for (int j = 0; j < kSlotsPerLane; ++j) {
+      if (pierced & (1u << j)) {
+        if (ce[j] > best_t) {
+          pierced &= ~(1u << j);  // behind the best: never needed again
+        } else {
+          const unsigned long long key = walk_key(ce[j], lane + 32 * j);
+          cpick = key < cpick ? key : cpick;
+        }
+      }
+    }
+    cpick = warp_min_key(cpick);
+    if (cpick == kNoKey) break;
+    const int k = key_index(cpick);
+    if ((k & 31) == lane) pierced &= ~(1u << (k >> 5));
+    ++clusters;
+    group.intersect(k, ray, t_eps, best_t, best_id);  // 5.
+  }
+}
+
 // The walk of ray r (rays of the (R, 8) layout) by the calling warp over
 // the `num_groups` group boxes of the component-major (8, stride) table
 // `group_t`, with `list` (num_groups keys) in the warp's shared memory.
@@ -105,7 +170,6 @@ __device__ __forceinline__ void walk_ray(
     int* __restrict__ out_id, int* __restrict__ stats, unsigned long long* list) {
   const int lane = threadIdx.x & 31;
   const Ray ray = load_ray(rays, r);
-  const int size = layout.size();
   float best_t = ray.t_max;
   int best_id = kBigId;
   int visits = 0, clusters = 0;
@@ -141,39 +205,11 @@ __device__ __forceinline__ void walk_ray(
       cursor = static_cast<long long>(pick);
       ++visits;
       const auto group = layout.group(key_index(pick));
-
-      // 3. cull the group's clusters against this ray's own best
-      float ce[kSlotsPerLane];
-      unsigned pierced = 0;
-#pragma unroll
-      for (int j = 0; j < kSlotsPerLane; ++j) {
-        const int k = lane + 32 * j;
-        ce[j] = 0.0f;
-        if (k < size && group.entry(k, ray, t_eps, ce[j]) && ce[j] <= best_t) {
-          pierced |= 1u << j;
-        }
-      }
-
-      // 4. the pierced clusters front to back
-      while (true) {
-        unsigned long long cpick = kNoKey;
-#pragma unroll
-        for (int j = 0; j < kSlotsPerLane; ++j) {
-          if (pierced & (1u << j)) {
-            if (ce[j] > best_t) {
-              pierced &= ~(1u << j);  // behind the best: never needed again
-            } else {
-              const unsigned long long key = walk_key(ce[j], lane + 32 * j);
-              cpick = key < cpick ? key : cpick;
-            }
-          }
-        }
-        cpick = warp_min_key(cpick);
-        if (cpick == kNoKey) break;
-        const int k = key_index(cpick);
-        if ((k & 31) == lane) pierced &= ~(1u << (k >> 5));
-        ++clusters;
-        group.intersect(k, ray, t_eps, best_t, best_id);  // 5.
+      if constexpr (OneCluster<Layout>::value) {
+        ++clusters;  // 5. (steps 3 and 4 have one cluster to pick)
+        group.intersect(0, ray, t_eps, best_t, best_id);
+      } else {
+        walk_clusters(group, layout.size(), ray, t_eps, best_t, best_id, clusters);
       }
     }
   }

@@ -242,38 +242,8 @@ __device__ __forceinline__ bool slab(
   return true;
 }
 
-// The next box of a front-to-back walk over `n` component-major boxes in
-// shared memory (rows 0-5 min/max xyz, row 6 validity; row k of box i at
-// boxes[k * n + i]): the pierced valid box with the least (entry, index)
-// after the cursor (cur_e, cur_i) whose entry is at most best_t. Returns
-// its index, or -1; its entry goes to `entry`. A box behind the cursor
-// was visited or had its entry beyond an earlier best_t, which only
-// shrinks, so the cursor needs no visited set. Its one user is the queue
-// kernel's thread-per-ray walk; the group walks of group_walk.cuh pick the
-// same box by a warp argmin over entries computed once a ray.
-__device__ __forceinline__ int next_box(
-    const float* __restrict__ boxes, int n, const Ray& r, float t_eps,
-    float best_t, float cur_e, int cur_i, float& entry) {
-  int best = -1;
-  float best_e = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    if (!(boxes[6 * n + i] > 0.0f)) continue;
-    float e;
-    if (!slab(boxes[i], boxes[n + i], boxes[2 * n + i], boxes[3 * n + i],
-              boxes[4 * n + i], boxes[5 * n + i], r, t_eps, e)) continue;
-    if (e > best_t) continue;
-    if (e < cur_e || (e == cur_e && i <= cur_i)) continue;
-    if (best < 0 || e < best_e) {  // i ascends: ties keep the lower index
-      best = i;
-      best_e = e;
-    }
-  }
-  entry = best_e;
-  return best;
-}
-
 // Copies rows 0-6 of a component-major (8, stride) box table, boxes
-// [0, n), to shared memory as boxes[k * n + i].
+// [0, n), to shared memory as boxes[k * n + i] (first_block_keys.cu).
 __device__ __forceinline__ void stage_boxes(
     const float* __restrict__ table, int stride, int n, float* boxes) {
   for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) {

@@ -6,7 +6,9 @@ that ``integrator.render.intersector_name`` picks by scene size or by
 
 - ``flat_intersect`` (``csrc/flat_intersect.cu``) <- ``_flat_kernel`` of
   ``nearest_hit_cluster_flat``: every ray against every triangle of the
-  real clusters, for at most ``FLAT_CLUSTER_LIMIT`` clusters;
+  real clusters, for at most ``FLAT_CLUSTER_LIMIT`` clusters, each pair
+  stopped at the first of three stages (plane, window, edges) that rules
+  it out;
 - ``flat_mxu_intersect`` (``csrc/flat_mxu_intersect.cu``) <-
   ``_flat_mxu_kernel`` of ``nearest_hit_cluster_flat_mxu``: the same over
   the MXU tile pairs (``mxu_tiles``);
@@ -22,10 +24,14 @@ that ``integrator.render.intersector_name`` picks by scene size or by
   ``nearest_hit_cluster_hbm``: the walk over octs of ``oct_branch``
   clusters, each cluster's box read from row 15 of its own tile.
 
-blk, blk_mxu and hbm share one walk (``csrc/group_walk.cuh``): one warp
-per ray. ``blk_walk_plain``, ``blk_mxu_walk_plain`` and ``hbm_walk_plain``
-run that walk in plain PyTorch, with its per-ray counts; they serve the
-tests and ``chip_smoke.py``, not the render.
+queue, blk, blk_mxu and hbm share one walk (``csrc/group_walk.cuh``): one
+warp per ray, the queue's groups being single clusters.
+``queue_walk_plain``, ``blk_walk_plain``, ``blk_mxu_walk_plain`` and
+``hbm_walk_plain`` run that walk in plain PyTorch, with its per-ray
+counts, and ``flat_staged_plain`` runs the flat kernel's staged walk with
+its counts of pairs per stage; the walks count their cluster tests' pairs
+by the same stages on request. They serve the tests and ``chip_smoke.py``,
+not the render.
 
 ``null_intersect`` (``csrc/null_intersect.cu``) ports the two probe
 kernels of ``scripts/fixed_cost_probe.py``: zeros in the walks' launch
@@ -82,11 +88,11 @@ BLK_PACKET = 128
 _INF = 3.4e38  # unbounded t_max seed and the value of a rejected candidate
 _BIG_ID = 2**31 - 1
 _CUT = 1e38  # block entry keys at or above this mean "not pierced"
-# The queue and first-block kernels stage 7 floats per box in shared
-# memory; a block may use at most 232,448 bytes of it on the H100.
+# The first-block kernel stages 7 floats per box in shared memory; a block
+# may use at most 232,448 bytes of it on the H100.
 _MAX_SHARED_BYTES = 232_448
 _MAX_SHARED_BOXES = _MAX_SHARED_BYTES // (7 * 4)
-# The group walks (csrc/group_walk.cuh: kWalkWarps, walk_shared_bytes) run
+# The walks (csrc/group_walk.cuh: kWalkWarps, walk_shared_bytes) run
 # blocks of _WALK_WARPS warps, one ray each, and give each warp a list of
 # one 8-byte key per group in shared memory.
 _WALK_WARPS = 2
@@ -122,8 +128,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY_ARGS = {
     # tri, num_clusters, rays, num_rays, t_eps, out_t, out_id
     "flat_intersect": [_P, _I, _P, _I, _F, _P, _P],
-    # box_t, stride, num_clusters, tri, rays, num_rays, t_eps, out_t, out_id
-    "queue_intersect": [_P, _I, _I, _P, _P, _I, _F, _P, _P],
+    # box_t, stride, num_clusters, tri, rays, num_rays, t_eps, out_t, out_id,
+    # stats (or null)
+    "queue_intersect": [_P, _I, _I, _P, _P, _I, _F, _P, _P, _P],
     # bbox_t, stride, num_blocks, blk, branch, rays, num_rays, t_eps, out_t,
     # out_id, stats (or null)
     "blk_intersect": [_P, _I, _I, _P, _I, _P, _I, _F, _P, _P, _P],
@@ -376,6 +383,90 @@ def _flat(tri: torch.Tensor, rays: torch.Tensor, t_eps: float):
     return tmin[:, 0], idmin
 
 
+def _stages_apply(best_t: torch.Tensor, t_eps: float) -> torch.Tensor:
+    """Where the flat kernel's stages apply: t_eps > 0 and a best of at
+    most _INF (not above it, not NaN)."""
+    return (best_t <= _INF) & (t_eps > 0.0)
+
+
+def _flat_stages(tile: torch.Tensor, rays: torch.Tensor, t_eps: float,
+                 best_t: torch.Tensor, fast: torch.Tensor, keep_ties: bool = False):
+    """The plane and window stages of the flat kernel (``csrc/flat_intersect.cu``)
+    for each active ray against each slot of ``tile`` (..., 16, k), as
+    ``_tri_hits`` broadcasts, with the ray's best ``best_t`` (n, 1) or
+    (n, k). Returns (plane, window): the pairs the plane stage passes on to
+    the division, and those the window stage passes on to the edge test.
+    Where ``fast`` (broadcast as best_t) is false, the stages do not apply
+    and every pair of an active ray passes both. The window stage rejects
+    s >= best_t, or with ``keep_ties`` only s > best_t (a walk's accept can
+    take a tie at the best with a lower id)."""
+    ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]
+    dx, dy, dz = rays[:, 3:4], rays[:, 4:5], rays[:, 5:6]
+    nx, ny, nz, np1 = tile[..., 0, :], tile[..., 1, :], tile[..., 2, :], tile[..., 9, :]
+    ddn = dx * nx + dy * ny + dz * nz
+    odn = ox * nx + oy * ny + oz * nz
+    num = np1 - odn
+    ordered = (num == num) & (ddn == ddn)
+    behind = ordered & ((ddn == 0.0) | (num == 0.0) | ((num > 0.0) != (ddn > 0.0)))
+    act = rays[:, 6:7] > 0.0
+    plane = act & ~(fast & behind)
+    s = num / ddn
+    beyond = (s > best_t) if keep_ties else ~(s < best_t)
+    window = plane & ~(fast & (~(s >= t_eps) | beyond))
+    return plane, window
+
+
+def _tile_stage_counts(tiles: torch.Tensor, rays: torch.Tensor, t_eps: float,
+                       best_t: torch.Tensor) -> torch.Tensor:
+    """The flat stages' count for one tile test of a walk: ray i against
+    its tile ``tiles[i]`` (n, 16, 128) with its best at the test's start
+    ``best_t`` (n,). Returns (n, 3) int64: the slots up to the tile's last
+    real one (all 128 where the stages do not apply), the pairs reaching the
+    division, and those reaching the edge test, a tie at the best included."""
+    lanes = torch.arange(1, 129, device=rays.device)
+    used = ((tiles[:, :15] != 0.0).any(dim=1) * lanes).amax(dim=1, keepdim=True)
+    fast = _stages_apply(best_t, t_eps)[:, None]
+    visit = (rays[:, 6:7] > 0.0) & ~(fast & (lanes > used))
+    plane, window = _flat_stages(tiles, rays, t_eps, best_t[:, None], fast, keep_ties=True)
+    return torch.stack([visit.sum(dim=1), (visit & plane).sum(dim=1),
+                        (visit & window).sum(dim=1)], dim=1)
+
+
+def flat_staged_plain(tri: torch.Tensor, rays: torch.Tensor, t_eps: float):
+    """The flat kernel's staged walk in plain PyTorch (any device): slot by
+    slot in id order with each ray's running best, skipping the pairs that
+    ``_flat_stages`` rules out and a tile's trailing all-zero (pad) slots,
+    where the stages apply at the tile's start (a ray outside them then
+    takes the full test through the whole tile, as the kernel decides it
+    once a tile). Returns (best_t, best_id, (R, 3) int64 per ray: slots
+    that entered the plane stage, pairs that reached the division, pairs
+    that reached the edge test); (best_t, best_id) equal the flat plain
+    version's. For tests and ``chip_smoke.py``."""
+    _check_rays(rays, tri)
+    _check_tiles(tri)
+    if rays.is_cuda:
+        COUNTS.flat_plain_cuda += 1
+    t_eps = float(np.float32(t_eps))
+    best_t = rays[:, 7].clone()
+    best_id = torch.full((rays.shape[0],), _BIG_ID, dtype=torch.int32, device=rays.device)
+    counts = torch.zeros((rays.shape[0], 3), dtype=torch.int64, device=rays.device)
+    act = rays[:, 6] > 0.0
+    for c in range(tri.shape[0]):
+        nonzero = (tri[c, :15] != 0.0).any(dim=0).nonzero()
+        used = int(nonzero[-1]) + 1 if nonzero.numel() else 0
+        fast = _stages_apply(best_t, t_eps)[:, None]
+        for lane in range(128):
+            slot = tri[c, :, lane:lane + 1]
+            visit = act & ~(fast[:, 0] & (lane >= used))
+            plane, window = _flat_stages(slot, rays, t_eps, best_t[:, None], fast)
+            tval = _tri_hits(slot, rays, t_eps)[:, 0]
+            better = visit & window[:, 0] & (tval < best_t)
+            best_t = torch.where(better, tval, best_t)
+            best_id = torch.where(better, c * 128 + lane, best_id)
+            counts += torch.stack([visit, visit & plane[:, 0], visit & window[:, 0]], dim=1)
+    return best_t, best_id, counts
+
+
 def flat_intersect(tri: torch.Tensor, rays: torch.Tensor, t_eps: float):
     """The flat kernel on CUDA tensors, its plain version on CPU tensors.
 
@@ -471,26 +562,39 @@ def queue_intersect_plain(box_t: torch.Tensor, tri: torch.Tensor, rays: torch.Te
     )
 
 
+def queue_walk_plain(box_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
+                     t_eps: float, stages: bool = False):
+    """The queue kernel's own walk in plain PyTorch (any device): the group
+    walk over groups of one cluster, whose boxes are the cluster boxes.
+    Returns (best_t, best_id, (R, 2) int32 clusters visited and clusters
+    intersected, which are equal), which the kernel's ``stats=True`` call
+    must equal, and with ``stages`` the stages' count of
+    ``_group_walk_pruned``. For tests and ``chip_smoke.py``."""
+    _check_queue(box_t, tri, rays)
+    if rays.is_cuda:
+        COUNTS.queue_plain_cuda += 1
+    boxes = box_t[:, : tri.shape[0]]
+    return _group_walk_pruned(boxes, boxes, 1, lambda c: tri[c], rays, t_eps, stages)
+
+
 def queue_intersect(box_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
-                    t_eps: float):
+                    t_eps: float, stats: bool = False):
     """The queue kernel on CUDA tensors, its plain version on CPU tensors.
 
     box_t: (8, >= C) float32 component-major cluster boxes (``clu_bbox_t``);
     tri: (C, 16, 128) float32 cluster tiles; rays: (R, 8) float32.
-    Returns (best_t (R,) float32, best_id (R,) int32) as in the contract.
+    Returns (best_t (R,) float32, best_id (R,) int32) as in the contract,
+    and with ``stats`` also (R, 2) int32 per ray (CUDA only): clusters
+    visited, clusters intersected.
     """
     _check_queue(box_t, tri, rays)
     if not rays.is_cuda:
+        _no_stats_on_cpu("queue_intersect", stats)
         return queue_intersect_plain(box_t, tri, rays, t_eps)
     _check_contiguous("queue_intersect", box_t, tri, rays)
-    _check_shared(tri.shape[0], "cluster")
-    out_t, out_id = _outputs(rays)
-    _launch(
-        "queue_intersect", rays,
-        box_t.data_ptr(), box_t.shape[1], tri.shape[0], tri.data_ptr(),
-        rays.data_ptr(), rays.shape[0], float(t_eps), out_t.data_ptr(), out_id.data_ptr(),
-    )
-    return out_t, out_id
+    _check_walk("queue_intersect", tri.shape[0], "cluster", tri)
+    return _walk("queue_intersect", rays, t_eps, stats, box_t.data_ptr(), box_t.shape[1],
+                 tri.shape[0], tri.data_ptr())
 
 
 # --- group walks: blocked, blocked over MXU pairs, octs --------------------
@@ -522,7 +626,7 @@ def _first_least(entry: torch.Tensor, cand: torch.Tensor):
     return least, col
 
 
-def _group_walk_pruned(group_t, clu_t, size, tile_fn, rays, t_eps):
+def _group_walk_pruned(group_t, clu_t, size, tile_fn, rays, t_eps, stages=False):
     """The walk of the walk kernels (``csrc/group_walk.cuh``) in plain
     PyTorch, vectorised over rays, with its per-ray counts.
 
@@ -535,13 +639,17 @@ def _group_walk_pruned(group_t, clu_t, size, tile_fn, rays, t_eps):
     now behind it. A cluster test applies ``accept`` to the least (t, id)
     of its 128 slots. tile_fn(cluster ids (P,)) -> (P, 16, 128) tiles.
     Returns (best_t, best_id, (R, 2) int32 groups visited and clusters
-    intersected)."""
+    intersected) and, with ``stages``, (R, 3) int64 the flat stages' count
+    of the cluster tests (``_tile_stage_counts``, each against the best at
+    its start): the least work of those tests, for ``chip_smoke.py``'s
+    bounds."""
     t_eps = float(np.float32(t_eps))
     num_rays, device = rays.shape[0], rays.device
     num_groups = clu_t.shape[1] // size
     best_t = rays[:, 7].clone()
     best_id = torch.full((num_rays,), _BIG_ID, dtype=torch.int32, device=device)
     stats = torch.zeros((num_rays, 2), dtype=torch.int32, device=device)
+    counts = torch.zeros((num_rays, 3), dtype=torch.int64, device=device)
     g_pierced, g_entry = _slab(group_t[:, :num_groups], rays, t_eps)
     cur_e = torch.full((num_rays,), -1.0, dtype=torch.float32, device=device)
     cur_g = torch.full((num_rays,), -1, dtype=torch.int64, device=device)
@@ -570,14 +678,16 @@ def _group_walk_pruned(group_t, clu_t, size, tile_fn, rays, t_eps):
             r = rows[sub]
             stats[r, 1] += 1
             c = clusters[sub, k]
-            tval = _tri_hits(tile_fn(c), rays[r], t_eps)  # (P, 128)
+            tiles, bt, bid = tile_fn(c), best_t[r], best_id[r]
+            tval = _tri_hits(tiles, rays[r], t_eps)  # (P, 128)
+            if stages:
+                counts[r] += _tile_stage_counts(tiles, rays[r], t_eps, bt)
             t, slot = _first_least(tval, torch.ones_like(tval, dtype=torch.bool))
             cid = c.to(torch.int32) * 128 + lane[slot]
-            bt, bid = best_t[r], best_id[r]
             win = (t < bt) | ((t == bt) & (bid != _BIG_ID) & (cid < bid))
             best_t[r] = torch.where(win, t, bt)
             best_id[r] = torch.where(win, cid, bid)
-    return best_t, best_id, stats
+    return (best_t, best_id, stats, counts) if stages else (best_t, best_id, stats)
 
 
 def _walk(name: str, rays: torch.Tensor, t_eps: float, stats: bool, *tables) -> tuple:
@@ -646,15 +756,16 @@ def blk_intersect_plain(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Ten
 
 
 def blk_walk_plain(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
-                   t_eps: float):
+                   t_eps: float, stages: bool = False):
     """The blocked kernel's own walk in plain PyTorch (any device): (best_t,
     best_id, (R, 2) int32 blocks visited and clusters intersected), which
-    the kernel's ``stats=True`` call must equal. For tests and
+    the kernel's ``stats=True`` call must equal, and with ``stages`` the
+    stages' count of ``_group_walk_pruned``. For tests and
     ``chip_smoke.py``."""
     groups = _blk_groups(bbox_t, blk, rays)
     if rays.is_cuda:
         COUNTS.blk_plain_cuda += 1
-    return _group_walk_pruned(*groups, rays, t_eps)
+    return _group_walk_pruned(*groups, rays, t_eps, stages)
 
 
 def blk_intersect(bbox_t: torch.Tensor, blk: torch.Tensor, rays: torch.Tensor,
@@ -703,13 +814,13 @@ def blk_mxu_intersect_plain(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch
 
 
 def blk_mxu_walk_plain(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tensor,
-                       t_eps: float):
+                       t_eps: float, stages: bool = False):
     """The MXU blocked kernel's own walk in plain PyTorch, as
     ``blk_walk_plain``."""
     groups = _blk_mxu_groups(bbox_t, mxu, rays)
     if rays.is_cuda:
         COUNTS.blk_mxu_plain_cuda += 1
-    return _group_walk_pruned(*groups, rays, t_eps)
+    return _group_walk_pruned(*groups, rays, t_eps, stages)
 
 
 def blk_mxu_intersect(bbox_t: torch.Tensor, mxu: torch.Tensor, rays: torch.Tensor,
@@ -766,13 +877,13 @@ def hbm_intersect_plain(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tens
 
 
 def hbm_walk_plain(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,
-                   t_eps: float, oct_branch: int):
+                   t_eps: float, oct_branch: int, stages: bool = False):
     """The oct kernel's own walk in plain PyTorch, as ``blk_walk_plain``
     (octs visited, clusters intersected)."""
     groups = _oct_groups(oct_t, tri, rays, oct_branch)
     if rays.is_cuda:
         COUNTS.hbm_plain_cuda += 1
-    return _group_walk_pruned(*groups, rays, t_eps)
+    return _group_walk_pruned(*groups, rays, t_eps, stages)
 
 
 def hbm_intersect(oct_t: torch.Tensor, tri: torch.Tensor, rays: torch.Tensor,

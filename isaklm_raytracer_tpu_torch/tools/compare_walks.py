@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The group-walk kernels and the hero's one-pass render of checkouts of
-this repository, side by side on one CUDA card.
+"""The intersector kernels and one-pass renders of checkouts of this
+repository, side by side on one CUDA card.
 
 Usage (from anywhere, on a machine with a CUDA card):
 
@@ -10,26 +10,39 @@ runs a child process for each checkout in turns: the others in order, this
 checkout twice, the others in reverse order. Each child imports the
 ``isaklm_raytracer_tpu_torch`` of its own checkout, so it builds the
 kernels from that checkout's sources and calls them through that
-checkout's wrappers; the checkouts need not share a C interface. Each child builds the 2M-triangle hero, makes the camera,
-bounce and NEE wavefronts of ``chip_smoke.py`` (this checkout's
-``hero_ray_sets``) from one seed, and
+checkout's wrappers; the checkouts need not share a C interface. Each
+child builds its scenes, makes their rays with ``chip_smoke.py``'s
+helpers (this checkout's ``main_path_rays``, ``random_rays``, ``morton``)
+from fixed seeds, and
 
-- runs blk, hbm and blk_mxu with per-ray stats on each wavefront, and times
-  each alone by CUDA events;
-- times one pass of the hero at 640x360x6 (ray_chunk 0) under the auto
-  rule (blk) and under ISAKLM_INTERSECTOR=hbm, as chip_smoke's perf phase.
+- runs blk, hbm and blk_mxu with per-ray stats on the 2M-triangle hero's
+  camera, bounce and NEE wavefronts (640x360);
+- runs queue on the 20k hero's camera, bounce and NEE wavefronts (512x512,
+  Morton-ordered as the render calls it) and on 262,144 random rays of a
+  704-cluster soup, with per-ray stats where the checkout's queue has
+  them;
+- runs flat on 262,144 random rays of the demo and on the demo's camera,
+  bounce and NEE wavefronts (512x512, Morton-ordered);
+- times each of those kernels alone by CUDA events;
+- times one pass (ray_chunk 0) of the hero at 640x360x6 under the auto
+  rule (blk) and under ISAKLM_INTERSECTOR=hbm, of the 20k hero at
+  512x512x8 (queue) and of the demo at 512x512x8 (flat), as chip_smoke's
+  perf phase.
 
-Then, for each other checkout, one line per kernel and wavefront: the
-sums of group visits and clusters intersected, whether the rays and the
-per-ray (t, id, visits, clusters) have the same SHA-256 in both checkouts,
-and each checkout's two times; and the s/sample of each. Exits non-zero if
-a child fails or a digest differs.
+Then, for each other checkout, one line per kernel and ray set: the sums
+of group visits and clusters intersected (where both checkouts count
+them), whether the rays and the per-ray results (t, id, and the stats
+where both have them) have the same SHA-256 in both checkouts, and each
+checkout's two times; and the s/sample of each render. Exits non-zero if a
+child fails or a digest differs.
 """
 
 from __future__ import annotations
 
 import hashlib
 import importlib.util
+import inspect
+import functools
 import json
 import os
 import subprocess
@@ -39,7 +52,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 WALKS = ("blk", "hbm", "blk_mxu")
-REPS = {"blk": 10, "hbm": 3, "blk_mxu": 10}  # hbm at 3: the older oct walk takes ~0.3 s
+REPS = {"blk": 10, "hbm": 3, "blk_mxu": 10, "queue": 5, "flat": 20}  # hbm: PR 4's took 0.3 s
 SEED = 42
 
 
@@ -68,6 +81,72 @@ def child() -> dict:
     from isaklm_raytracer_tpu_torch.scene import procedural
 
     device = torch.device("cuda", 0)
+    out = {"package": os.path.dirname(port.__file__), "walks": {}, "s_per_sample": {}}
+    # a second of work first: the card idled while the process started, and
+    # the first timing would run below its clock
+    square = torch.ones((4096, 4096), device=device)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        square @ square
+        torch.cuda.synchronize()
+
+    def record(key, fn, rays, reps):
+        ms, res = smoke.cuda_ms(lambda: fn(rays), reps=reps)
+        stats = res[2] if len(res) > 2 else None
+        out["walks"][key] = {
+            "rays": rays.shape[0], "rays_sha256": _digest(rays), "ms": ms,
+            "sums": None if stats is None else stats.long().sum(dim=0).tolist(),
+            "sha256": _digest(*res[:2]), "stats_sha256": None if stats is None else _digest(stats)}
+
+    def one_pass(label, scene, camera, config, kernel):
+        ki.COUNTS.reset()
+        with smoke.intersector_env(None if kernel in ("blk", "queue", "flat") else kernel):
+            seconds, _ = smoke.sample_seconds(render, scene, camera, config, ki.COUNTS)
+        if getattr(ki.COUNTS, f"{kernel}_kernel") == 0:
+            raise RuntimeError(f"the {label} pass did not launch {kernel}")
+        out["s_per_sample"][label] = seconds
+
+    # the small scenes: flat on the demo, queue on the 20k hero and the soup
+    demo = prepare_scene(procedural.material_demo_scene(), device)
+    tri = demo.cbvh.tri_const[: demo.cbvh.real_clusters]
+    verts = demo.vertices.reshape(-1, 3).cpu().numpy()
+    o, d = smoke.random_rays(np.random.default_rng(SEED), 512 * 512, verts.min(axis=0),
+                             verts.max(axis=0), device)
+    flat = functools.partial(ki.flat_intersect, tri, t_eps=1e-5)
+    record("flat demo random", flat, ki.prep_rays(o, d), REPS["flat"])
+    sets, _ = smoke.main_path_rays(demo, np.random.default_rng(SEED), device,
+                                   ki.nearest_hit_flat, 512, 512)
+    for kind, (o, d, t_max) in sets.items():
+        record(f"flat demo {kind}", flat, smoke.morton(ki.prep_rays(o, d, None, t_max)),
+               REPS["flat"])
+    hero20k = prepare_scene(procedural.hero_scene(20_000), device)
+    soup = prepare_scene(procedural.triangle_soup(89_000, seed=3), device)
+    with_stats = "stats" in inspect.signature(ki.queue_intersect).parameters
+    for label, scene in (("hero20k", hero20k), ("soup", soup)):
+        tables = (scene.cbvh.clu_bbox_t, scene.cbvh.tri_const)
+        queue = functools.partial(ki.queue_intersect, *tables, t_eps=1e-5,
+                                  **({"stats": True} if with_stats else {}))
+        if label == "soup":
+            verts = scene.vertices.reshape(-1, 3).cpu().numpy()
+            o, d = smoke.random_rays(np.random.default_rng(SEED), 512 * 512,
+                                     verts.min(axis=0), verts.max(axis=0), device)
+            record("queue soup random", queue, ki.prep_rays(o, d), REPS["queue"])
+            continue
+        sets, _ = smoke.main_path_rays(scene, np.random.default_rng(SEED), device,
+                                       ki.nearest_hit_queue, 512, 512, eye=smoke.GOLDEN_EYE,
+                                       pitch=0.0)
+        for kind, (o, d, t_max) in sets.items():
+            record(f"queue hero20k {kind}", queue,
+                   smoke.morton(ki.prep_rays(o, d, None, t_max)), REPS["queue"])
+    config = RenderConfig(width=512, height=512, max_bounces=8, ray_chunk=0)
+    one_pass("demo 512x512x8 (flat)", demo,
+             Camera.create(smoke.BENCH_EYE, pitch=smoke.BENCH_PITCH, fov=np.pi / 2,
+                           device=device), config, "flat")
+    one_pass("hero20k 512x512x8 (queue)", hero20k,
+             Camera.create(smoke.GOLDEN_EYE, fov=np.pi / 2, device=device), config, "queue")
+    del demo, hero20k, soup
+
+    # the 2M-triangle hero: the group walks
     hero = prepare_scene(procedural.hero_scene(), device)
     cb = hero.cbvh
     mcb = with_mxu_blocks(cb, cb.blk_branch)
@@ -77,26 +156,17 @@ def child() -> dict:
                                           True),
         "blk_mxu": lambda r: ki.blk_mxu_intersect(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5, True),
     }
-    sets, _ = smoke.hero_ray_sets(hero, np.random.default_rng(SEED), device)
-    out = {"package": os.path.dirname(port.__file__), "walks": {}, "s_per_sample": {}}
+    sets, _ = smoke.main_path_rays(hero, np.random.default_rng(SEED), device)
     for kind, (o, d, t_max) in sets.items():
         rays = ki.prep_rays(o, d, None, t_max)
         for name in WALKS:
-            ms, (t, ids, stats) = smoke.cuda_ms(lambda: walks[name](rays), reps=REPS[name])
-            out["walks"][f"{name} {kind}"] = {
-                "rays": rays.shape[0], "rays_sha256": _digest(rays), "ms": ms,
-                "sums": stats.long().sum(dim=0).tolist(), "sha256": _digest(t, ids, stats)}
-    camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
+            record(f"{name} {kind}", walks[name], rays, REPS[name])
+    camera = Camera.create(smoke.BENCH_EYE, pitch=smoke.BENCH_PITCH, fov=np.pi / 2,
+                           device=device)
     config = RenderConfig(width=smoke.HERO_W, height=smoke.HERO_H,
                           max_bounces=smoke.HERO_BOUNCES, ray_chunk=0)
-    for name in (None, "hbm"):
-        ki.COUNTS.reset()
-        with smoke.intersector_env(name):
-            seconds, _ = smoke.sample_seconds(render, hero, camera, config, ki.COUNTS)
-        kernel = name or "blk"
-        if getattr(ki.COUNTS, f"{kernel}_kernel") == 0:
-            raise RuntimeError(f"the hero pass under {kernel} did not launch its kernel")
-        out["s_per_sample"][kernel] = seconds
+    for kernel in ("blk", "hbm"):
+        one_pass(f"hero 640x360x6 ({kernel})", hero, camera, config, kernel)
     return out
 
 
@@ -138,18 +208,23 @@ def main(argv) -> int:
             ws = [r["walks"][key] for r in mine + theirs]
             rays_same = len({w["rays_sha256"] for w in ws}) == 1
             same = len({w["sha256"] for w in ws}) == 1
-            ok &= rays_same and same
+            counted = all(w["stats_sha256"] is not None for w in ws)
+            stats_same = counted and len({w["stats_sha256"] for w in ws}) == 1
+            ok &= rays_same and same and (stats_same or not counted)
             print(f"  {key}, {first['rays']} rays: rays {'equal' if rays_same else 'DIFFER'}, "
-                  f"per-ray (t, id, visits, clusters) {'equal' if same else 'DIFFER'}; sums this "
-                  f"{first['sums']}, other {theirs[0]['walks'][key]['sums']} (group visits, "
-                  f"clusters intersected); kernel alone, ms: other "
+                  f"per-ray (t, id) {'equal' if same else 'DIFFER'}"
+                  + (f", per-ray (visits, clusters) {'equal' if stats_same else 'DIFFER'}; sums "
+                     f"this {first['sums']}, other {theirs[0]['walks'][key]['sums']} (group "
+                     "visits, clusters intersected)" if counted else
+                     f"; sums this {first['sums']} (the other counts none)")
+                  + "; kernel alone, ms: other "
                   + "/".join(f"{r['walks'][key]['ms']:.3f}" for r in theirs) + ", this "
                   + "/".join(f"{r['walks'][key]['ms']:.3f}" for r in mine) + f" [{card}]",
                   flush=True)
-        for kernel in mine[0]["s_per_sample"]:
-            print(f"  hero 640x360x6 ray_chunk 0 under {kernel}, s/sample: other "
-                  + "/".join(f"{r['s_per_sample'][kernel]:.4f}" for r in theirs) + ", this "
-                  + "/".join(f"{r['s_per_sample'][kernel]:.4f}" for r in mine) + f" [{card}]",
+        for label in mine[0]["s_per_sample"]:
+            print(f"  {label} ray_chunk 0, s/sample: other "
+                  + "/".join(f"{r['s_per_sample'][label]:.4f}" for r in theirs) + ", this "
+                  + "/".join(f"{r['s_per_sample'][label]:.4f}" for r in mine) + f" [{card}]",
                   flush=True)
     if not ok:
         print("compare_walks: the checkouts differ", file=sys.stderr)

@@ -51,6 +51,8 @@ from isaklm_raytracer_tpu_torch.scene.procedural import (
     material_demo_scene,
 )
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 PI = float(np.pi)
 
 

@@ -54,6 +54,8 @@ from isaklm_raytracer_tpu_torch.integrator.render import (
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 from isaklm_raytracer_tpu_torch.scene import procedural
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
 

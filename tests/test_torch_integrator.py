@@ -39,6 +39,8 @@ from isaklm_raytracer_tpu_torch.integrator.bsdf import scatter
 from isaklm_raytracer_tpu_torch.integrator.nee import sample_direct_light
 from isaklm_raytracer_tpu_torch.integrator.path_trace import trace_paths
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 ATOL = 2e-5
 N = 1024
 

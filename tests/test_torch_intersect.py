@@ -35,6 +35,8 @@ from isaklm_raytracer_tpu_torch.accel.traverse import nearest_hit_brute
 from isaklm_raytracer_tpu_torch.integrator.render import intersector_name
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 
 def _soup(r, n):
     base = r.uniform(-2.0, 2.0, (n, 1, 3))
@@ -99,6 +101,91 @@ def test_plain_flat_matches_pallas_interpret(case, num_tris, num_rays):
     np.testing.assert_array_equal(ph.numpy(), want)
     np.testing.assert_array_equal(pi.numpy()[want], bi.numpy()[want])
     np.testing.assert_allclose(pt.numpy()[want], bt.numpy()[want], rtol=1e-4, atol=1e-6)
+
+
+def _flush(x):
+    """x with its float32 subnormals set to zero, as XLA on the CPU treats
+    its operands."""
+    return np.where(np.abs(x) < np.finfo(np.float32).tiny, np.float32(0.0) * x, x)
+
+
+def _both_flat(verts, o, d, act, t_max, t_eps):
+    """(t, id, hit) of the JAX package's flat kernel (Pallas interpret
+    mode) and of the port's plain flat version on the same numpy rays."""
+    j = nearest_hit_cluster_flat(
+        jbuild(verts), jnp.asarray(o), jnp.asarray(d), t_eps=t_eps, active=jnp.asarray(act),
+        t_max=jnp.asarray(t_max), interpret=True)
+    p = ki.nearest_hit_flat(build_cluster_bvh(verts).to("cpu"), torch.from_numpy(o),
+                            torch.from_numpy(d), t_eps=t_eps, active=torch.from_numpy(act),
+                            t_max=torch.from_numpy(t_max))
+    return tuple(np.asarray(x) for x in j), tuple(x.numpy() for x in p)
+
+
+def _assert_flat_equal(got, want, rows):
+    """Hit masks and ids exact, t (NaN included) to 1e-5 relative, on rows."""
+    (pt, pi, ph), (jt, ji, jh) = got, want
+    np.testing.assert_array_equal(ph[rows], jh[rows])
+    np.testing.assert_array_equal(pi[rows], ji[rows])
+    np.testing.assert_allclose(pt[rows], jt[rows], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("t_eps", [1e-5, 0.0])
+def test_plain_flat_matches_pallas_interpret_on_edge_rays(t_eps):
+    """The rays of the flat kernel's exactness argument (tests/test_torch_flat.py):
+    origins on a plane, rays parallel to it, zero, NaN and inf directions and
+    origins, each with every window of WINDOWS (above 3.4e38, +inf, NaN, 0,
+    at a hit and just past it), a third of them inactive, in one packet.
+
+    XLA on the CPU treats subnormal operands as zero; the port keeps them
+    (IEEE, on the CPU and in the kernels). So the rays whose direction is
+    subnormal, against the planes at z = +-1e-40, hit at t = 1 in the port
+    and not in the JAX package. With those directions flushed to zero,
+    the port gives the JAX package's result on every ray."""
+    from test_torch_flat import EDGE_RAYS, HANDMADE, WINDOWS
+    from test_torch_flat import _soup as flat_soup
+
+    verts = np.concatenate([HANDMADE, flat_soup(np.random.default_rng(5), 200)])
+    edge_o, edge_d = (np.array(x, np.float32) for x in zip(*EDGE_RAYS))
+    o = np.repeat(edge_o, len(WINDOWS), axis=0)
+    d = np.repeat(edge_d, len(WINDOWS), axis=0)
+    t_max = np.resize(WINDOWS, o.shape[0])
+    act = np.arange(o.shape[0]) % 3 != 2
+    subnormal = ((np.abs(d) < np.finfo(np.float32).tiny) & (d != 0.0)).any(axis=1)
+    assert 0 < subnormal.sum() < o.shape[0] and o.shape[0] <= ki.DEFAULT_PACKET
+    with np.errstate(invalid="ignore"):
+        jax_raw, port_raw = _both_flat(verts, o, d, act, t_max, t_eps)
+        jax_flushed, port_flushed = _both_flat(verts, o, _flush(d), act, t_max, t_eps)
+    every = np.ones(o.shape[0], bool)
+    _assert_flat_equal(jax_flushed, jax_raw, every)
+    _assert_flat_equal(port_flushed, jax_raw, every)
+    _assert_flat_equal(port_raw, jax_raw, ~subnormal)
+    # the subnormal rays that reach the planes inside their windows
+    pt, pi, ph = port_raw
+    reach = subnormal & act & (t_max > 1.0)
+    assert ph[reach].all() and not jax_raw[2][reach & (t_max <= np.float32(3.4e38))].any()
+    if t_eps > 0.0:
+        assert (pt[reach] == 1.0).all() and set(pi[reach]) == {1, 2}
+
+
+def test_flat_windows_above_the_miss_value_pin_the_reference():
+    """A flat ray whose window lies above 3.4e38 and that hits nothing: the
+    JAX package gives (3.4e38, triangle 0), a hit, when it is active and when
+    it is inactive in a packet with an active ray, because a rejected slot's
+    3.4e38 beats the window; a packet of inactive rays only is skipped and
+    misses. The port's plain version has no packets and gives (3.4e38, 0) to
+    the inactive ray alone too; its kernel keeps an inactive ray's window
+    (the cuda test of tests/test_torch_flat.py)."""
+    verts = _soup(np.random.default_rng(6), 300)
+    o = np.full((2, 3), 100.0, np.float32)
+    d = np.array([[1.0, 0.0, 0.0]] * 2, np.float32)
+    t_max = np.full(2, np.inf, np.float32)
+    (jt, ji, jh), (pt, pi, ph) = _both_flat(verts, o, d, np.array([True, False]), t_max, 1e-5)
+    for t, i, h in ((jt, ji, jh), (pt, pi, ph)):
+        assert h.all() and (i == 0).all() and (t == np.float32(3.4e38)).all()
+    (jt, ji, jh), (pt, pi, ph) = _both_flat(verts, o[:1], d[:1], np.array([False]), t_max[:1],
+                                            1e-5)
+    assert not jh.any() and (ji == -1).all() and np.isinf(jt).all()
+    assert ph.all() and (pi == 0).all() and (pt == np.float32(3.4e38)).all()
 
 
 def test_cpu_wrapper_runs_plain_version_without_launch():

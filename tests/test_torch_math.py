@@ -20,6 +20,8 @@ from isaklm_raytracer_tpu_torch.math import color as pc
 from isaklm_raytracer_tpu_torch.math import sampling as ps
 from isaklm_raytracer_tpu_torch.math import transforms as pt
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 ATOL = 1e-6
 N = 2048
 

@@ -34,6 +34,8 @@ from isaklm_raytracer_tpu_torch.integrator.render import blk_sort_mode, make_tra
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 from isaklm_raytracer_tpu_torch.scene import procedural
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 BIG = 2**31 - 1
 
 

@@ -41,6 +41,8 @@ from isaklm_raytracer_tpu_torch.math import rng
 from isaklm_raytracer_tpu_torch.scene import procedural
 from isaklm_raytracer_tpu_torch.scene.types import GBuffer
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

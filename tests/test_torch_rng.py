@@ -14,6 +14,8 @@ from isaklm_raytracer_tpu.integrator.render import sample_key_data
 from isaklm_raytracer_tpu.math import rng as jrng
 from isaklm_raytracer_tpu_torch.math import rng as prng
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 
 def test_threefry_words_bit_exact():
     r = np.random.default_rng(0)

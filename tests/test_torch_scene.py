@@ -22,6 +22,8 @@ from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh, cluster_
 from isaklm_raytracer_tpu_torch.scene import procedural
 from isaklm_raytracer_tpu_torch.scene.types import sample_texture
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 SCENES = {
     "cornell": (lambda: jproc.cornell_box(glossy=True),
                 lambda: procedural.cornell_box(glossy=True)),

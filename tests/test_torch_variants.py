@@ -58,6 +58,8 @@ from isaklm_raytracer_tpu_torch.integrator.render import intersector_name, rende
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 from isaklm_raytracer_tpu_torch.scene import procedural
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 
 def _soup(r, n):
     base = r.uniform(-2.0, 2.0, (n, 1, 3))
