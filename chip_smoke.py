@@ -27,11 +27,18 @@ raising on failure:
    plain version, with the pairs that reach each stage of the kernel's
    test; and the rays of tests/test_torch_flat.py's card test (the
    exactness argument's edge cases);
-4. kernel flat_mxu: the flat intersector over MXU tile pairs, checked in
-   phase 3 on the same rays as the flat kernel (equal to its plain version
-   and to the flat kernel bit for bit, so the oracle gate holds for both);
-   timed against its plain version at 262,144 rays, and beside the flat
-   kernel in turns;
+4. kernel flat_mxu: the flat intersector over MXU tile pairs (flat's
+   staged walk, csrc/flat_walk.cuh), checked in phase 3 on the same rays as
+   the flat kernel (equal to its plain version and to the flat kernel bit
+   for bit, so the oracle gate holds for both); timed against its plain
+   version at 262,144 rays, and beside the flat kernel in turns; equal there
+   to its staged walk (``flat_staged_plain`` over the unpacked pairs, whose
+   pairs per stage must equal the tiles') with the pairs per stage (its
+   bound); then the demo's camera, bounce and NEE wavefronts at 512x512 in
+   the caller's order (the render does not sort flat_mxu's rays): equal to
+   its plain version and its staged walk, with the pairs per stage, timed in
+   turns with flat; and the card test of tests/test_torch_flat.py for
+   flat_mxu;
 5. kernel queue: the queue intersector on the 20k hero scene and on a
    triangle soup of about 700 clusters (near the 6 MB table bound), against
    its plain version (exact), its plain walk (``queue_walk_plain``: exact
@@ -76,7 +83,12 @@ raising on failure:
    777 and the whole wavefront, in the four activity cases; the key's
    leading factor against a numpy slab oracle at 256 rays; kernel and
    plain timed in turns at 230,400 camera rays, the argsort of the keys
-   on its own;
+   on its own; the kernel alone at each wavefront beside its bound from
+   the valid boxes; the card test of tests/test_torch_ordering.py (ray
+   counts around the kernel's block of rays, tables with invalid boxes
+   between valid ones, the widest table the wrapper admits); and one
+   profiled hero sample in one pass under ISAKLM_BLK_SORT=block: the keys'
+   launches and device time;
 10. fixed cost: the counterpart of scripts/fixed_cost_probe.py on the hero
    with 65,536 rays that miss everything, per call and per 128-ray block,
    by CUDA events and by the host clock: the whole blocked call in Morton
@@ -716,17 +728,27 @@ def check_first_blocks(scene, sets, rng, device):
             raise RuntimeError(f"first_blocks hero {kind}: the key does not lead with the "
                                "block entered first")
 
-    o, d, _ = sets["camera"]
-    rays = ki.prep_rays(o, d)
-    ms, plain_ms, (k,) = time_in_turns(
-        f"first_block_keys hero {rays.shape[0]} camera rays x {n} block columns",
-        lambda: keys(ki.first_block_keys, rays), lambda: keys(ki.first_block_keys_plain, rays),
-    )
-    argsort_ms, _ = cuda_ms(lambda: torch.argsort(k, stable=True))
-    log(f"time argsort(stable) of {k.numel()} first-block keys: {argsort_ms:.4f} ms")
+    # the bound: one key test per ray and VALID box (the kernel stages only
+    # those); the rays, the keys and the table
     valid = int((bbox_t[6] > 0).sum())
-    b = bound(rays.shape[0] * valid * KEY_SLOTS, rays.shape[0] * (32 + 4) + bbox_t.numel() * 4)
-    return 0.0, ms, plain_ms, argsort_ms, b
+    for kind, (o, d, _) in sets.items():
+        rays = ki.prep_rays(o, d)
+        b = bound(rays.shape[0] * valid * KEY_SLOTS, rays.shape[0] * (32 + 4) + bbox_t.numel() * 4)
+        if kind == "camera":
+            ms, plain_ms, (k,) = time_in_turns(
+                f"first_block_keys hero {rays.shape[0]} camera rays x {valid} valid of {n} "
+                "block columns",
+                lambda: keys(ki.first_block_keys, rays), lambda: keys(ki.first_block_keys_plain, rays),
+            )
+            camera_bound = b
+            argsort_ms, _ = cuda_ms(lambda: torch.argsort(k, stable=True))
+            log(f"time argsort(stable) of {k.numel()} first-block keys: {argsort_ms:.4f} ms")
+        k_ms, _ = cuda_ms(lambda: keys(ki.first_block_keys, rays), reps=50)
+        log(f"time first_block_keys hero {kind} rays, kernel alone, {rays.shape[0]} rays x "
+            f"{valid} valid blocks: {k_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"bound / time {b['bound_ms'] / k_ms:.1%}")
+    card_test("test_torch_ordering", "test_cuda_first_block_keys_match_plain_version")
+    return 0.0, ms, plain_ms, argsort_ms, camera_bound
 
 
 ORDERINGS = (False, True, "block")
@@ -1041,6 +1063,13 @@ def check_only(counts, kernel: str, label: str) -> int:
     return launches
 
 
+def kernel_symbol(name: str) -> str:
+    """A part of the name torch.profiler gives intersector ``name``'s CUDA
+    kernel: flat and flat_mxu are the template ``flat_kernel`` over their
+    layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``."""
+    return {"flat": "TileLayout", "flat_mxu": "PairLayout"}.get(name, f"{name}_intersect_kernel")
+
+
 def profile_sample(render, scene, camera, config, kernel_name):
     """torch.profiler over one full step: (CUDA kernels, their summed device
     seconds, launches of ``kernel_name``, its device seconds)."""
@@ -1054,6 +1083,8 @@ def profile_sample(render, scene, camera, config, kernel_name):
     if not kernels:
         raise RuntimeError("the profiler recorded no CUDA kernel")
     mine = [e for e in kernels if kernel_name in e.name]
+    if not mine:
+        raise RuntimeError(f"no kernel named like {kernel_name} in the profile")
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     mine_us = sum(e.time_range.elapsed_us() for e in mine)
     return len(kernels), busy_us / 1e6, len(mine), mine_us / 1e6
@@ -1107,7 +1138,7 @@ def perf_overrides(label, scene, camera, width, height, bounces, names, counts, 
     for name in names:
         with intersector_env(name):
             n, busy_s, mine_n, mine_s = profile_sample(render, scene, camera, config,
-                                                       f"{name}_intersect_kernel")
+                                                       kernel_symbol(name))
         s = min(per[name])
         log(f"profile {label} under {name} ray_chunk 0: {n} CUDA kernels/sample, device kernel "
             f"time {busy_s:.4f} s = {busy_s / s:.1%} of the unprofiled {s:.4f} s/sample; "
@@ -1356,10 +1387,11 @@ def main() -> int:
                 lambda: ki.flat_intersect(tri, rays_w, 1e-5),
                 lambda: ki.flat_intersect_plain(tri, rays_w, 1e-5), plain_reps=2, plain_warmup=1)
             stage_line(f"demo {kind} wavefront", rays_w, rays_w.shape[0] * 40 + tri.numel() * 4)
-        card_test("test_torch_flat", "test_cuda_flat_kernel_on_coherent_and_edge_rays")
+        card_test("test_torch_flat", "test_cuda_flat_kernel_on_coherent_and_edge_rays", "flat")
 
     with Phase("kernel flat_mxu"):
         tiles = pair_tables(demo)[0]
+        unpacked = ki._mxu_unpack(tiles)
         m_ms, m_plain_ms, _ = time_in_turns(
             f"flat_mxu_intersect 262144 rays x {demo.cbvh.real_clusters} clusters",
             lambda: ki.flat_mxu_intersect(tiles, flat_rays, 1e-5),
@@ -1369,11 +1401,42 @@ def main() -> int:
             "flat": lambda: ki.flat_intersect(tri, flat_rays, 1e-5),
             "flat_mxu": lambda: ki.flat_mxu_intersect(tiles, flat_rays, 1e-5),
         })
-        # the flat function's issue slots on the same rays; the pairs' bytes
-        # are twice the tiles'
+
+        def mxu_stage_line(label, rays):
+            """flat_mxu's staged walk (flat's, over the unpacked pairs) on
+            ``rays``: the kernel's result and the flat tiles' stage counts;
+            logs the pairs that reach each stage and returns the bound of
+            the function on them (the pairs' bytes are twice the tiles')."""
+            staged = ki.flat_staged_plain(unpacked, rays, 1e-5)
+            exact(f"flat_mxu {label}: kernel == its staged walk",
+                  ki.flat_mxu_intersect(tiles, rays, 1e-5), staged)
+            if not torch.equal(staged[2], ki.flat_staged_plain(tri, rays, 1e-5)[2]):
+                raise RuntimeError(f"flat_mxu {label}: stage counts differ from the tiles'")
+            nbytes = rays.shape[0] * 40 + tiles.numel() * 4
+            b = bound(flat_slots(staged[2]), nbytes)
+            stage_log(f"flat_mxu {label}, {rays.shape[0]} rays, kernel == its staged walk",
+                      staged[2], b, bound(rays.shape[0] * slots * TRI_HIT_SLOTS, nbytes))
+            return b
+
+        mxu_bound = mxu_stage_line("262144 random rays", flat_rays)
+        # the demo's own wavefronts in the order the render calls flat_mxu
+        # (the caller's: nearest_hit_flat_mxu does not sort)
+        for kind, (o_w, d_w, t_w) in demo_sets.items():
+            rays_w = ki.prep_rays(o_w, d_w, None, t_w)
+            exact(f"flat_mxu demo {kind} wavefront (caller order)",
+                  ki.flat_mxu_intersect(tiles, rays_w, 1e-5),
+                  ki.flat_mxu_intersect_plain(tiles, rays_w, 1e-5))
+            mxu_stage_line(f"demo {kind} wavefront (caller order)", rays_w)
+            kernels_in_turns(
+                f"flat and flat_mxu kernels, demo {kind} wavefront (caller order), "
+                f"{rays_w.shape[0]} rays", {
+                    "flat": lambda: ki.flat_intersect(tri, rays_w, 1e-5),
+                    "flat_mxu": lambda: ki.flat_mxu_intersect(tiles, rays_w, 1e-5)})
+        card_test("test_torch_flat", "test_cuda_flat_kernel_on_coherent_and_edge_rays",
+                  "flat_mxu")
         mxu_err = max(v for k, v in errs.items() if k.startswith("flat_mxu"))
         results["flat_mxu"] = {"max_abs_err": mxu_err, "ms": m_ms, "plain_ms": m_plain_ms,
-                               **bound(flat_bound["ops"], 512 * 512 * 40 + tiles.numel() * 4),
+                               **mxu_bound,
                                "shape": f"262144 rays x {demo.cbvh.real_clusters} tile pairs "
                                         "(demo)"}
 
@@ -1466,7 +1529,7 @@ def main() -> int:
         sec, per_sample = sample_seconds(render, hero20k, camera20k, config, counts)
         queue_launches = check_only(counts, "queue", "render of hero20k 512x512x8 ray_chunk 0")
         n, busy_s, mine_n, mine_s = profile_sample(render, hero20k, camera20k, config,
-                                                   "queue_intersect_kernel")
+                                                   kernel_symbol("queue"))
         rays_n = config.num_pixels * config.max_bounces * 2
         log(f"main path queue, render of hero20k 512x512x8 ray_chunk 0: {sec:.4f} s/sample "
             f"(two after a warm-up; {rays_n / sec / 1e6:.3f} M rays/s), {per_sample:g} queue "
@@ -1573,6 +1636,18 @@ def main() -> int:
 
     with Phase("kernel first_blocks"):
         k_err, k_ms, k_plain_ms, argsort_ms, k_bound = check_first_blocks(hero, sets, rng, device)
+        # the keys' device time in one profiled hero sample under block order
+        os.environ["ISAKLM_BLK_SORT"] = "block"
+        n, busy_s, mine_n, mine_s = profile_sample(
+            render, hero, Camera.create(BENCH_EYE, pitch=BENCH_PITCH, fov=np.pi / 2,
+                                        device=device),
+            RenderConfig(width=HERO_W, height=HERO_H, max_bounces=HERO_BOUNCES, ray_chunk=0),
+            "first_block_keys_kernel")
+        os.environ["ISAKLM_BLK_SORT"] = "morton"
+        log(f"profile hero {HERO_W}x{HERO_H}x{HERO_BOUNCES} ray_chunk 0 under "
+            f"ISAKLM_BLK_SORT=block: first_block_keys {mine_n} launches, {mine_s * 1e3:.4f} ms "
+            f"a sample = {mine_s / busy_s:.2%} of {busy_s * 1e3:.2f} ms of device kernel time "
+            f"({n} CUDA kernels)")
         results["first_blocks"] = {
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain_ms, **k_bound,
             "shape": f"{HERO_W * HERO_H} camera rays x {cbvh.blk_bbox_t.shape[1]} block columns "
@@ -1673,9 +1748,9 @@ def main() -> int:
 
     with Phase("perf"):
         camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
-        perf("demo", render, demo, camera, 512, 512, 8, counts, "flat_intersect", card)
+        perf("demo", render, demo, camera, 512, 512, 8, counts, kernel_symbol("flat"), card)
         hero_s = perf("hero", render, hero, camera, HERO_W, HERO_H, HERO_BOUNCES, counts,
-                      "blk_intersect", card)
+                      kernel_symbol("blk"), card)
         log(f"hero s/sample: ray_chunk 0 {hero_s[0]}, ray_chunk {defaults.ray_chunk} "
             f"{hero_s[defaults.ray_chunk]} on {card}")
         perf_overrides("demo", demo, camera, 512, 512, 8, ["flat", "flat_mxu"], counts, card)

@@ -8,53 +8,38 @@
 // kernel's six ray/triangle dot products run as (2B, 8) @ (8, 128)
 // matmuls on the MXU.
 //
-// Contract (the flat kernel's, over the MXU layout):
+// Contract: `flat_kernel` of flat_walk.cuh over
 //   tiles   (C, 2, 16, 128) f32 (accel/cluster.py `with_mxu_tiles`): W1
 //           holds n in rows 0-2 and e1 in rows 8-10, W2 holds e2 in rows
 //           0-2 and np1 p1e1 p1e2 ca cb cc in rows 8-13; the kernel reads
-//           the first `num_clusters` pairs
-//   rays    (R, 8) f32, columns [ox oy oz dx dy dz active t_max]
-//   out_t   (R,) f32: the best t, or t_max when no triangle beat it
-//   out_id  (R,) i32: the winning id c*128 + lane, or 2^31-1 (no winner)
-// The running best starts at (t_max, 2^31-1) and follows `accept`
-// (intersect_common.cuh). Each dot product is the IEEE f32 sum of
-// `tri_hit` (no tensor-core product), so the result equals the flat
+//           those 15 rows of the first `num_clusters` pairs.
+// The pair holds exactly the 15 constants of a cluster tile in other rows,
+// so the flat kernel's staged walk runs on it unchanged: only the row of
+// each constant differs (`PairLayout`). Each dot product is the IEEE f32
+// sum of `tri_hit` (no tensor-core product), so the result equals the flat
 // kernel's bit for bit.
 //
-// What bounds it on the H100: as the flat kernel, about 56 operations per
-// ray per triangle slot and little memory traffic (the demo's six pairs
-// are 96 KB, of which the test reads 15 rows of 32), so compute. The
-// design, simple first: one thread per ray, walking the pairs in id order
-// and reading each slot's 15 constants straight from the pair's rows
-// (`intersect_tile_mxu`); every thread of a warp reads the same address,
-// which L1 serves as one broadcast. Inactive rays skip the walk.
+// Why no tensor cores: a 3xTF32 `mma.sync` of the six dot products (18 of
+// the 51 issue slots of a full test) would leave 33 slots a pair on the
+// CUDA cores, more than the staged walk's least work per pair (PERF.md,
+// section 6), and would lose both bit equality and the per-ray early
+// exits; fp64 DMMA runs at the FP32 CUDA-core rate and gains nothing.
 
-#include "intersect_common.cuh"
+#include "flat_walk.cuh"
 
 namespace {
 
 using namespace isaklm;
 
-constexpr int kThreads = 128;  // rays per block
-
-__global__ void __launch_bounds__(kThreads)
-flat_mxu_intersect_kernel(const float* __restrict__ tiles, int num_clusters,
-                          const float* __restrict__ rays, int num_rays, float t_eps,
-                          float* __restrict__ out_t, int* __restrict__ out_id) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= num_rays) return;
-  const Ray ray = load_ray(rays, r);
-  float best_t = ray.t_max;
-  int best_id = kBigId;
-  if (ray.active) {
-    for (int c = 0; c < num_clusters; ++c) {
-      const float* w1 = tiles + (int64_t)c * 2 * kTile;
-      intersect_tile_mxu(w1, w1 + kTile, c * kWidth, ray, t_eps, best_t, best_id);
-    }
+// MXU pairs: constant k of cluster c is row kPairRows[k] of pair c, W1's
+// rows counted 0-15 and W2's 16-31 (`_mxu_pairs_np` backwards).
+struct PairLayout {
+  static constexpr int kClusterFloats = 2 * kTile;
+  __host__ __device__ static constexpr int row(int k) {
+    constexpr int kPairRows[kFlatRows] = {0, 1, 2, 8, 9, 10, 16, 17, 18, 24, 25, 26, 27, 28, 29};
+    return kPairRows[k];
   }
-  out_t[r] = best_t;
-  out_id[r] = best_id;
-}
+};
 
 }  // namespace
 
@@ -63,12 +48,6 @@ flat_mxu_intersect_kernel(const float* __restrict__ tiles, int num_clusters,
 extern "C" int flat_mxu_intersect(int device, const float* tiles, int num_clusters,
                                   const float* rays, int num_rays, float t_eps,
                                   float* out_t, int* out_id, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_rays > 0) {
-    const int blocks = (num_rays + kThreads - 1) / kThreads;
-    flat_mxu_intersect_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tiles, num_clusters, rays, num_rays, t_eps, out_t, out_id);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_flat<PairLayout>(device, tiles, num_clusters, rays, num_rays, t_eps, out_t,
+                                 out_id, stream);
 }

@@ -8,11 +8,11 @@
 //   - `slab`: the NaN-conservative slab test of `_make_box_any` and
 //     `_dense_near` (intersect.py:121-149, 155-197);
 //   - `accept`: the running-best update of the shared output contract;
-//   - `intersect_tile` / `intersect_tile_mxu`: `tri_hit` over the 128 slots
-//     of a cluster in the VPU layout or the MXU tile-pair layout
-//     (`_make_intersect_mxu`, intersect.py:259-309), by one thread;
-//     `warp_intersect_tile` / `warp_intersect_tile_mxu`: the same by the 32
-//     lanes of a warp, with the same result.
+//   - `warp_intersect_tile` / `warp_intersect_tile_mxu`: `tri_hit` over the
+//     128 slots of a cluster in the VPU layout or the MXU tile-pair layout
+//     (`_make_intersect_mxu`, intersect.py:259-309), by the 32 lanes of a
+//     warp (the walks of group_walk.cuh). The flat kernels test a slot in
+//     stages instead (flat_walk.cuh).
 // Every library that includes this file is built with --fmad=false, so
 // each product and sum rounds as in the plain PyTorch versions.
 
@@ -89,48 +89,6 @@ __device__ __forceinline__ void accept(float t, int id, float& best_t, int& best
   }
 }
 
-// Intersects every slot of one cluster whose 15 constants lie in device
-// memory as four runs of consecutive 128-lane rows: n (3 rows), e1 (3), e2
-// (3) and np1 p1e1 p1e2 ca cb cc (6); `base` is the id of lane 0. The
-// threads of a warp that walk the same cluster read the same addresses
-// (broadcast loads).
-__device__ __forceinline__ void intersect_rows(
-    const float* __restrict__ n, const float* __restrict__ e1,
-    const float* __restrict__ e2, const float* __restrict__ aux, int base,
-    const Ray& r, float t_eps, float& best_t, int& best_id) {
-  for (int lane = 0; lane < kWidth; ++lane) {
-    const float t = tri_hit(
-        r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-        __ldg(n + lane), __ldg(n + kWidth + lane), __ldg(n + 2 * kWidth + lane),
-        __ldg(e1 + lane), __ldg(e1 + kWidth + lane), __ldg(e1 + 2 * kWidth + lane),
-        __ldg(e2 + lane), __ldg(e2 + kWidth + lane), __ldg(e2 + 2 * kWidth + lane),
-        __ldg(aux + lane), __ldg(aux + kWidth + lane), __ldg(aux + 2 * kWidth + lane),
-        __ldg(aux + 3 * kWidth + lane), __ldg(aux + 4 * kWidth + lane),
-        __ldg(aux + 5 * kWidth + lane), t_eps);
-    accept(t, base + lane, best_t, best_id);
-  }
-}
-
-// One (16, 128) cluster tile of the VPU layout (rows 0-14, see above).
-__device__ __forceinline__ void intersect_tile(
-    const float* __restrict__ tile, int base, const Ray& r, float t_eps,
-    float& best_t, int& best_id) {
-  intersect_rows(tile, tile + 3 * kWidth, tile + 6 * kWidth, tile + 9 * kWidth,
-                 base, r, t_eps, best_t, best_id);
-}
-
-// One MXU tile pair (accel/cluster.py `with_mxu_tiles`): W1 holds n in rows
-// 0-2 and e1 in rows 8-10, W2 holds e2 in rows 0-2 and np1 p1e1 p1e2 ca cb
-// cc in rows 8-13. The TPU kernels form the six dot products as matmuls of
-// [d; o] against W1 and W2; here each is the same IEEE f32 sum `tri_hit`
-// forms from the VPU layout, so the two layouts give the same bits.
-__device__ __forceinline__ void intersect_tile_mxu(
-    const float* __restrict__ w1, const float* __restrict__ w2, int base,
-    const Ray& r, float t_eps, float& best_t, int& best_id) {
-  intersect_rows(w1, w1 + 8 * kWidth, w2, w2 + 8 * kWidth, base, r, t_eps,
-                 best_t, best_id);
-}
-
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // The least (t, id) over the warp's lanes, by t and then by id, in every
@@ -151,24 +109,26 @@ __device__ __forceinline__ float component(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// `intersect_rows` by the 32 lanes of a warp that all hold the same ray and
-// running best: lane l tests slots 4l..4l+3, so each 128-lane row is one
-// coalesced 512-byte request of float4 loads (the rows must be 16-byte
-// aligned). The warp takes the least (t, id) of the 128 candidates, by t
-// and then by id, and applies `accept` to it once; every lane ends with the
-// same best.
+// `tri_hit` over the 128 slots of a cluster whose 15 constants lie in
+// device memory as four runs of consecutive 128-lane rows: n (3 rows), e1
+// (3), e2 (3) and np1 p1e1 p1e2 ca cb cc (6); `base` is the id of lane 0.
+// The 32 lanes of a warp all hold the same ray and running best: lane l
+// tests slots 4l..4l+3, so each 128-lane row is one coalesced 512-byte
+// request of float4 loads (the rows must be 16-byte aligned). The warp
+// takes the least (t, id) of the 128 candidates, by t and then by id, and
+// applies `accept` to it once; every lane ends with the same best.
 //
-// That equals `intersect_rows`' `accept` of every slot in ascending id
-// order. Let m be the least candidate t and i the lowest id with t = m.
-// Sequentially, best t only falls, and a candidate replaces the best only
-// if strictly nearer, or as near with a lower id than a triangle that won.
-// If m < best t, the first candidate at m (id i) wins and a later one at m
-// has a higher id, so the result is (m, i). If m = best t, no candidate is
-// nearer; a candidate at m replaces only a won id above its own, and ids
-// ascend, so the result is (m, min(best id, i)) when the best id won, and
-// unchanged when it is the seed. If m > best t nothing changes. One
-// `accept` of (m, i) gives each of the three. Rejected slots carry kMiss,
-// a t like any other, in both.
+// That equals an `accept` of every slot in ascending id order. Let m be
+// the least candidate t and i the lowest id with t = m. Sequentially, best
+// t only falls, and a candidate replaces the best only if strictly nearer,
+// or as near with a lower id than a triangle that won. If m < best t, the
+// first candidate at m (id i) wins and a later one at m has a higher id,
+// so the result is (m, i). If m = best t, no candidate is nearer; a
+// candidate at m replaces only a won id above its own, and ids ascend, so
+// the result is (m, min(best id, i)) when the best id won, and unchanged
+// when it is the seed. If m > best t nothing changes. One `accept` of
+// (m, i) gives each of the three. Rejected slots carry kMiss, a t like
+// any other, in both.
 __device__ __forceinline__ void warp_intersect_rows(
     const float* __restrict__ n, const float* __restrict__ e1,
     const float* __restrict__ e2, const float* __restrict__ aux, int base,
@@ -209,7 +169,12 @@ __device__ __forceinline__ void warp_intersect_tile(
                       base, r, t_eps, best_t, best_id);
 }
 
-// One MXU tile pair (see `intersect_tile_mxu`), by a warp.
+// One MXU tile pair (accel/cluster.py `with_mxu_tiles`), by a warp: W1
+// holds n in rows 0-2 and e1 in rows 8-10, W2 holds e2 in rows 0-2 and np1
+// p1e1 p1e2 ca cb cc in rows 8-13. The TPU kernels form the six dot
+// products as matmuls of [d; o] against W1 and W2; here each is the same
+// IEEE f32 sum `tri_hit` forms from the VPU layout, so the two layouts
+// give the same bits.
 __device__ __forceinline__ void warp_intersect_tile_mxu(
     const float* __restrict__ w1, const float* __restrict__ w2, int base,
     const Ray& r, float t_eps, float& best_t, int& best_id) {
@@ -240,16 +205,6 @@ __device__ __forceinline__ bool slab(
   if ((near > far) | (far < t_eps)) return false;
   entry = fmaxf(near, 0.0f);
   return true;
-}
-
-// Copies rows 0-6 of a component-major (8, stride) box table, boxes
-// [0, n), to shared memory as boxes[k * n + i] (first_block_keys.cu).
-__device__ __forceinline__ void stage_boxes(
-    const float* __restrict__ table, int stride, int n, float* boxes) {
-  for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) {
-    const int k = i / n, b = i - k * n;
-    boxes[i] = table[(int64_t)k * stride + b];
-  }
 }
 
 }  // namespace isaklm

@@ -10,8 +10,8 @@ that ``integrator.render.intersector_name`` picks by scene size or by
   stopped at the first of three stages (plane, window, edges) that rules
   it out;
 - ``flat_mxu_intersect`` (``csrc/flat_mxu_intersect.cu``) <-
-  ``_flat_mxu_kernel`` of ``nearest_hit_cluster_flat_mxu``: the same over
-  the MXU tile pairs (``mxu_tiles``);
+  ``_flat_mxu_kernel`` of ``nearest_hit_cluster_flat_mxu``: the same staged
+  walk (``csrc/flat_walk.cuh``) over the MXU tile pairs (``mxu_tiles``);
 - ``queue_intersect`` (``csrc/queue_intersect.cu``) <- ``_vmem_kernel`` of
   ``nearest_hit_cluster``: a front-to-back walk over the pierced clusters,
   for a cluster table of at most ``VMEM_TABLE_LIMIT`` bytes;
@@ -28,10 +28,10 @@ queue, blk, blk_mxu and hbm share one walk (``csrc/group_walk.cuh``): one
 warp per ray, the queue's groups being single clusters.
 ``queue_walk_plain``, ``blk_walk_plain``, ``blk_mxu_walk_plain`` and
 ``hbm_walk_plain`` run that walk in plain PyTorch, with its per-ray
-counts, and ``flat_staged_plain`` runs the flat kernel's staged walk with
-its counts of pairs per stage; the walks count their cluster tests' pairs
-by the same stages on request. They serve the tests and ``chip_smoke.py``,
-not the render.
+counts, and ``flat_staged_plain`` runs the flat kernels' staged walk
+(``csrc/flat_walk.cuh``) with its counts of pairs per stage; the walks
+count their cluster tests' pairs by the same stages on request. They
+serve the tests and ``chip_smoke.py``, not the render.
 
 ``null_intersect`` (``csrc/null_intersect.cu``) ports the two probe
 kernels of ``scripts/fixed_cost_probe.py``: zeros in the walks' launch
@@ -88,10 +88,12 @@ BLK_PACKET = 128
 _INF = 3.4e38  # unbounded t_max seed and the value of a rejected candidate
 _BIG_ID = 2**31 - 1
 _CUT = 1e38  # block entry keys at or above this mean "not pierced"
-# The first-block kernel stages 7 floats per box in shared memory; a block
-# may use at most 232,448 bytes of it on the H100.
+# A block may use at most 232,448 bytes of shared memory on the H100. The
+# first-block kernel (csrc/first_block_keys.cu, kBoxBytes) takes 28 of them
+# a box of the padded table: its six coordinates and its index.
 _MAX_SHARED_BYTES = 232_448
-_MAX_SHARED_BOXES = _MAX_SHARED_BYTES // (7 * 4)
+_KEY_BOX_BYTES = 28
+_MAX_SHARED_BOXES = _MAX_SHARED_BYTES // _KEY_BOX_BYTES
 # The walks (csrc/group_walk.cuh: kWalkWarps, walk_shared_bytes) run
 # blocks of _WALK_WARPS warps, one ray each, and give each warp a list of
 # one 8-byte key per group in shared memory.
@@ -222,8 +224,8 @@ def _check_boxes(box_t: torch.Tensor, num: int, what: str) -> None:
 def _check_shared(num: int, what: str) -> None:
     if num > _MAX_SHARED_BOXES:
         raise ValueError(
-            f"{num} {what} boxes exceed the {_MAX_SHARED_BOXES} the kernel stages "
-            "in shared memory"
+            f"{num} {what} boxes exceed the {_MAX_SHARED_BOXES} the first-block kernel stages "
+            f"in the {_MAX_SHARED_BYTES} bytes of shared memory a block ({_KEY_BOX_BYTES} a box)"
         )
 
 
@@ -391,7 +393,7 @@ def _stages_apply(best_t: torch.Tensor, t_eps: float) -> torch.Tensor:
 
 def _flat_stages(tile: torch.Tensor, rays: torch.Tensor, t_eps: float,
                  best_t: torch.Tensor, fast: torch.Tensor, keep_ties: bool = False):
-    """The plane and window stages of the flat kernel (``csrc/flat_intersect.cu``)
+    """The plane and window stages of the flat kernels (``csrc/flat_walk.cuh``)
     for each active ray against each slot of ``tile`` (..., 16, k), as
     ``_tri_hits`` broadcasts, with the ray's best ``best_t`` (n, 1) or
     (n, k). Returns (plane, window): the pairs the plane stage passes on to

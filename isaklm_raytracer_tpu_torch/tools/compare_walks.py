@@ -22,19 +22,26 @@ from fixed seeds, and
   704-cluster soup, with per-ray stats where the checkout's queue has
   them;
 - runs flat on 262,144 random rays of the demo and on the demo's camera,
-  bounce and NEE wavefronts (512x512, Morton-ordered);
+  bounce and NEE wavefronts (512x512, Morton-ordered), and flat_mxu on the
+  same random rays and on those wavefronts in the caller's order (the
+  render's order for flat_mxu);
+- runs first_block_keys on the hero's camera, bounce and NEE wavefronts;
 - times each of those kernels alone by CUDA events;
 - times one pass (ray_chunk 0) of the hero at 640x360x6 under the auto
-  rule (blk) and under ISAKLM_INTERSECTOR=hbm, of the 20k hero at
-  512x512x8 (queue) and of the demo at 512x512x8 (flat), as chip_smoke's
-  perf phase.
+  rule (blk), under ISAKLM_BLK_SORT=block and under
+  ISAKLM_INTERSECTOR=hbm, of the 20k hero at 512x512x8 (queue) and of the
+  demo at 512x512x8 (flat, and under ISAKLM_INTERSECTOR=flat_mxu), as
+  chip_smoke's perf phase.
 
 Then, for each other checkout, one line per kernel and ray set: the sums
 of group visits and clusters intersected (where both checkouts count
 them), whether the rays and the per-ray results (t, id, and the stats
-where both have them) have the same SHA-256 in both checkouts, and each
-checkout's two times; and the s/sample of each render. Exits non-zero if a
-child fails or a digest differs.
+where both have them; the keys of first_block_keys) have the same SHA-256
+in both checkouts, and each checkout's two times; the s/sample of each
+render; and, for each source of ``csrc/`` both checkouts built, whether
+the two libraries hold the same instructions (``cuobjdump -sass``, with
+addresses, encodings and kernel names left out). Exits non-zero if a child
+fails or a digest differs.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ import inspect
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -52,7 +61,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 WALKS = ("blk", "hbm", "blk_mxu")
-REPS = {"blk": 10, "hbm": 3, "blk_mxu": 10, "queue": 5, "flat": 20}  # hbm: PR 4's took 0.3 s
+# timed calls a kernel; hbm few, as an older checkout's oct walk took 0.3 s a call
+REPS = {"blk": 10, "hbm": 3, "blk_mxu": 10, "queue": 5, "flat": 20, "first_blocks": 50}
 SEED = 42
 
 
@@ -98,12 +108,16 @@ def child() -> dict:
             "sums": None if stats is None else stats.long().sum(dim=0).tolist(),
             "sha256": _digest(*res[:2]), "stats_sha256": None if stats is None else _digest(stats)}
 
-    def one_pass(label, scene, camera, config, kernel):
+    def one_pass(label, scene, camera, config, kernel, blk_sort="morton"):
         ki.COUNTS.reset()
+        os.environ["ISAKLM_BLK_SORT"] = blk_sort
         with smoke.intersector_env(None if kernel in ("blk", "queue", "flat") else kernel):
             seconds, _ = smoke.sample_seconds(render, scene, camera, config, ki.COUNTS)
+        os.environ["ISAKLM_BLK_SORT"] = "morton"
         if getattr(ki.COUNTS, f"{kernel}_kernel") == 0:
             raise RuntimeError(f"the {label} pass did not launch {kernel}")
+        if blk_sort == "block" and ki.COUNTS.first_blocks_kernel == 0:
+            raise RuntimeError(f"the {label} pass did not launch first_block_keys")
         out["s_per_sample"][label] = seconds
 
     # the small scenes: flat on the demo, queue on the 20k hero and the soup
@@ -113,12 +127,17 @@ def child() -> dict:
     o, d = smoke.random_rays(np.random.default_rng(SEED), 512 * 512, verts.min(axis=0),
                              verts.max(axis=0), device)
     flat = functools.partial(ki.flat_intersect, tri, t_eps=1e-5)
-    record("flat demo random", flat, ki.prep_rays(o, d), REPS["flat"])
+    flat_mxu = functools.partial(ki.flat_mxu_intersect,
+                                 demo.cbvh.mxu_tiles[: demo.cbvh.real_clusters], t_eps=1e-5)
+    random = ki.prep_rays(o, d)
+    record("flat demo random", flat, random, REPS["flat"])
+    record("flat_mxu demo random", flat_mxu, random, REPS["flat"])
     sets, _ = smoke.main_path_rays(demo, np.random.default_rng(SEED), device,
                                    ki.nearest_hit_flat, 512, 512)
     for kind, (o, d, t_max) in sets.items():
-        record(f"flat demo {kind}", flat, smoke.morton(ki.prep_rays(o, d, None, t_max)),
-               REPS["flat"])
+        rays = ki.prep_rays(o, d, None, t_max)
+        record(f"flat demo {kind}", flat, smoke.morton(rays), REPS["flat"])
+        record(f"flat_mxu demo {kind} (caller order)", flat_mxu, rays, REPS["flat"])
     hero20k = prepare_scene(procedural.hero_scene(20_000), device)
     soup = prepare_scene(procedural.triangle_soup(89_000, seed=3), device)
     with_stats = "stats" in inspect.signature(ki.queue_intersect).parameters
@@ -139,9 +158,10 @@ def child() -> dict:
             record(f"queue hero20k {kind}", queue,
                    smoke.morton(ki.prep_rays(o, d, None, t_max)), REPS["queue"])
     config = RenderConfig(width=512, height=512, max_bounces=8, ray_chunk=0)
-    one_pass("demo 512x512x8 (flat)", demo,
-             Camera.create(smoke.BENCH_EYE, pitch=smoke.BENCH_PITCH, fov=np.pi / 2,
-                           device=device), config, "flat")
+    demo_camera = Camera.create(smoke.BENCH_EYE, pitch=smoke.BENCH_PITCH, fov=np.pi / 2,
+                                device=device)
+    one_pass("demo 512x512x8 (flat)", demo, demo_camera, config, "flat")
+    one_pass("demo 512x512x8 (flat_mxu)", demo, demo_camera, config, "flat_mxu")
     one_pass("hero20k 512x512x8 (queue)", hero20k,
              Camera.create(smoke.GOLDEN_EYE, fov=np.pi / 2, device=device), config, "queue")
     del demo, hero20k, soup
@@ -156,17 +176,23 @@ def child() -> dict:
                                           True),
         "blk_mxu": lambda r: ki.blk_mxu_intersect(mcb.blk_bbox_t, mcb.mxu_const, r, 1e-5, True),
     }
+
+    def keys(r):
+        return (ki.first_block_keys(cb.blk_bbox_t, r, 1e-5),)
+
     sets, _ = smoke.main_path_rays(hero, np.random.default_rng(SEED), device)
     for kind, (o, d, t_max) in sets.items():
         rays = ki.prep_rays(o, d, None, t_max)
         for name in WALKS:
             record(f"{name} {kind}", walks[name], rays, REPS[name])
+        record(f"first_block_keys {kind}", keys, rays, REPS["first_blocks"])
     camera = Camera.create(smoke.BENCH_EYE, pitch=smoke.BENCH_PITCH, fov=np.pi / 2,
                            device=device)
     config = RenderConfig(width=smoke.HERO_W, height=smoke.HERO_H,
                           max_bounces=smoke.HERO_BOUNCES, ray_chunk=0)
     for kernel in ("blk", "hbm"):
         one_pass(f"hero 640x360x6 ({kernel})", hero, camera, config, kernel)
+    one_pass("hero 640x360x6 (blk, ISAKLM_BLK_SORT=block)", hero, camera, config, "blk", "block")
     return out
 
 
@@ -183,6 +209,23 @@ def run_child(tree: Path) -> dict:
     if Path(result["package"]).resolve() != (tree / "isaklm_raytracer_tpu_torch").resolve():
         raise RuntimeError(f"the child in {tree} imported the package of {result['package']}")
     return result
+
+
+def sass(tree: Path, source: str):
+    """The instructions of the library that ``tree`` built from
+    csrc/<source> (its newest), without addresses, encodings and kernel
+    names, or None when there is no such library or no cuobjdump."""
+    libs = sorted((tree / "isaklm_raytracer_tpu_torch" / "_build").glob(
+        f"lib{Path(source).stem}_*.so"), key=lambda p: p.stat().st_mtime)
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not libs or not os.path.exists(tool):
+        return None
+    dump = subprocess.run([tool, "-sass", str(libs[-1])], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return [re.sub(r"0x[0-9a-f]+", "X", " ".join(m.group(1).split()))
+            for m in (re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+                      for line in dump.splitlines()) if m]
 
 
 def main(argv) -> int:
@@ -212,20 +255,27 @@ def main(argv) -> int:
             stats_same = counted and len({w["stats_sha256"] for w in ws}) == 1
             ok &= rays_same and same and (stats_same or not counted)
             print(f"  {key}, {first['rays']} rays: rays {'equal' if rays_same else 'DIFFER'}, "
-                  f"per-ray (t, id) {'equal' if same else 'DIFFER'}"
+                  f"per-ray (t, id) or keys {'equal' if same else 'DIFFER'}"
                   + (f", per-ray (visits, clusters) {'equal' if stats_same else 'DIFFER'}; sums "
                      f"this {first['sums']}, other {theirs[0]['walks'][key]['sums']} (group "
                      "visits, clusters intersected)" if counted else
                      f"; sums this {first['sums']} (the other counts none)")
                   + "; kernel alone, ms: other "
-                  + "/".join(f"{r['walks'][key]['ms']:.3f}" for r in theirs) + ", this "
-                  + "/".join(f"{r['walks'][key]['ms']:.3f}" for r in mine) + f" [{card}]",
+                  + "/".join(f"{r['walks'][key]['ms']:.4f}" for r in theirs) + ", this "
+                  + "/".join(f"{r['walks'][key]['ms']:.4f}" for r in mine) + f" [{card}]",
                   flush=True)
         for label in mine[0]["s_per_sample"]:
             print(f"  {label} ray_chunk 0, s/sample: other "
                   + "/".join(f"{r['s_per_sample'][label]:.4f}" for r in theirs) + ", this "
                   + "/".join(f"{r['s_per_sample'][label]:.4f}" for r in mine) + f" [{card}]",
                   flush=True)
+        for source in sorted(p.name for p in (REPO / "isaklm_raytracer_tpu_torch" / "csrc")
+                             .glob("*.cu")):
+            a, b = sass(other, source), sass(REPO, source)
+            if a is not None and b is not None:
+                print(f"  SASS of {source}: " + ("identical" if a == b else
+                                                 f"differs ({len(a)} against {len(b)} "
+                                                 "instructions, other against this)"), flush=True)
     if not ok:
         print("compare_walks: the checkouts differ", file=sys.stderr)
         return 1

@@ -1,8 +1,10 @@
-"""The flat kernel's staged test (``csrc/flat_intersect.cu``) in plain
-PyTorch: ``_flat_stages`` (the plane and window stages),
-``flat_staged_plain`` (the kernel's walk: slot by slot, each ray's running
-best, the stages decided once a tile, pad slots skipped) and
-``_tile_stage_counts`` (the same count for one tile test of a walk kernel).
+"""The flat kernels' staged test (``csrc/flat_walk.cuh``, which
+``flat_intersect.cu`` runs over the cluster tiles and
+``flat_mxu_intersect.cu`` over the MXU tile pairs) in plain PyTorch:
+``_flat_stages`` (the plane and window stages), ``flat_staged_plain`` (the
+kernels' walk: slot by slot, each ray's running best, the stages decided
+once a tile, pad slots skipped) and ``_tile_stage_counts`` (the same count
+for one tile test of a walk kernel).
 
 The stages may reject a pair only if the full test (``_tri_hits``, which
 tests/test_torch_intersect.py holds to the JAX package's Pallas kernel)
@@ -20,19 +22,27 @@ exactness argument:
   and exactly at a hit, and t_eps = 0 (where the stages must not apply);
 - the demo's and the Cornell box's own tiles, pad slots included.
 
-No tolerance: every comparison is exact. The kernel itself runs only on the
-card: its test (Morton-ordered camera rays of the demo, and the rays
-above) is marked ``cuda`` and skips without one.
+The staged walk over the unpacked MXU pairs gives flat_mxu's plain version
+bit for bit and the tiles' counts, and the pair rows that
+``flat_mxu_intersect.cu`` reads are held to ``_mxu_unpack`` and to the JAX
+package's ``with_mxu_tiles``.
+
+No tolerance: every comparison is exact. The kernels themselves run only
+on the card: their test (the demo's camera rays in caller and Morton
+order, and the rays above) is marked ``cuda`` and skips without one.
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from isaklm_raytracer_tpu_torch.accel import prepare_scene
-from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh
+from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh, with_mxu_tiles
 from isaklm_raytracer_tpu_torch.camera import Camera
 from isaklm_raytracer_tpu_torch.camera.camera import generate_rays
+from isaklm_raytracer_tpu_torch.kernels import build
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 from isaklm_raytracer_tpu_torch.scene import procedural
 
@@ -79,15 +89,24 @@ def _soup(r, n):
     return (base + r.uniform(-0.4, 0.4, (n, 3, 3))).astype(np.float32)
 
 
-def _tiles(name):
-    """The real cluster tiles of one scene."""
+def _tables(name):
+    """The real cluster tiles of one scene, their MXU tile pairs, and the
+    scene's vertices."""
     if name == "handmade":
         verts = np.concatenate([HANDMADE, _soup(np.random.default_rng(5), 200)])
-        return build_cluster_bvh(verts).to("cpu").tri_const[:2], verts
-    scene = {"demo": procedural.material_demo_scene,
-             "cornell": procedural.cornell_box}[name]()
-    cbvh = prepare_scene(scene, "cpu").cbvh
-    return cbvh.tri_const[: cbvh.real_clusters], np.asarray(scene.vertices)
+        cbvh, real = with_mxu_tiles(build_cluster_bvh(verts).to("cpu")), 2
+    else:
+        scene = {"demo": procedural.material_demo_scene,
+                 "cornell": procedural.cornell_box}[name]()
+        cbvh, verts = prepare_scene(scene, "cpu").cbvh, np.asarray(scene.vertices)
+        real = cbvh.real_clusters
+    return cbvh.tri_const[:real], cbvh.mxu_tiles[:real], verts
+
+
+def _tiles(name):
+    """The real cluster tiles of one scene, and its vertices."""
+    tri, _, verts = _tables(name)
+    return tri, verts
 
 
 def _rays(name, verts, seed=11):
@@ -221,16 +240,68 @@ def test_tile_stage_counts_match_the_staged_walk(scene, t_eps):
         assert (got[:, 2] >= walk[:, 2]).all()
 
 
+@pytest.mark.parametrize("t_eps", [1e-5, 0.0])
+@pytest.mark.parametrize("scene", SCENES)
+def test_staged_walk_over_unpacked_pairs_equals_flat_mxu(scene, t_eps):
+    """flat_mxu runs the flat kernel's staged walk over the MXU pairs: that
+    walk over the unpacked pairs gives flat_mxu's plain version bit for bit,
+    and each ray meets the stages at the same pairs as over the tiles."""
+    tri, pairs, verts = _tables(scene)
+    rays = _rays(scene, verts)
+    t, ids, counts = ki.flat_staged_plain(ki._mxu_unpack(pairs), rays, t_eps)
+    want_t, want_id = ki.flat_mxu_intersect_plain(pairs, rays, t_eps)
+    assert torch.equal(_bits(t), _bits(want_t)) and torch.equal(ids, want_id)
+    assert torch.equal(counts, ki.flat_staged_plain(tri, rays, t_eps)[2])
+
+
+def _pair_rows():
+    """The pair rows (W1's 0-15, then W2's 16-31) that flat_mxu_intersect.cu
+    reads for the 15 constants, from its ``kPairRows`` table."""
+    source = (build.CSRC / "flat_mxu_intersect.cu").read_text()
+    match = re.search(r"kPairRows\[kFlatRows\] = \{([^}]*)\}", source)
+    assert match, "flat_mxu_intersect.cu lost its kPairRows table"
+    rows = [int(x) for x in match.group(1).split(",")]
+    assert len(rows) == 15 and len(set(rows)) == 15 and all(0 <= x < 32 for x in rows)
+    return rows
+
+
+def test_pair_rows_of_the_kernel_match_both_packages():
+    """The rows flat_mxu_intersect.cu reads are the cluster tile's rows 0-14
+    in the pairs of both packages' ``with_mxu_tiles`` and in ``_mxu_unpack``."""
+    from isaklm_raytracer_tpu.accel.cluster import build_cluster_bvh as jbuild
+    from isaklm_raytracer_tpu.accel.cluster import with_mxu_tiles as jwith_mxu_tiles
+
+    rows = _pair_rows()
+    verts = np.concatenate([HANDMADE, _soup(np.random.default_rng(5), 300)])
+    jc = jwith_mxu_tiles(jbuild(verts))
+    jpairs = np.asarray(jc.mxu_tiles)
+    jtri = np.asarray(jc.tri_const)
+    assert jpairs.shape == (jtri.shape[0], 2, 16, 128)
+    np.testing.assert_array_equal(jpairs.reshape(-1, 32, 128)[:, rows], jtri[:, :15])
+    pc = with_mxu_tiles(build_cluster_bvh(verts).to("cpu"))
+    np.testing.assert_array_equal(pc.mxu_tiles.numpy(), jpairs)
+    pairs = pc.mxu_tiles
+    assert torch.equal(pairs.reshape(-1, 32, 128)[:, rows], ki._mxu_unpack(pairs)[:, :15])
+    assert torch.equal(pairs.reshape(-1, 32, 128)[:, rows], pc.tri_const[:, :15])
+    # every other row of a pair is zero: the kernel reads all it needs
+    rest = [x for x in range(32) if x not in rows]
+    assert not pairs.reshape(-1, 32, 128)[:, rest].any()
+
+
 @pytest.mark.cuda
-def test_cuda_flat_kernel_on_coherent_and_edge_rays():
-    """The kernel equals its plain version bit for bit on Morton-ordered
-    camera rays of the demo (the order the render calls it in) and on the
-    rays above, at t_eps 1e-5 and 0."""
+@pytest.mark.parametrize("kernel", ["flat", "flat_mxu"])
+def test_cuda_flat_kernel_on_coherent_and_edge_rays(kernel):
+    """The kernel (flat over the tiles, or flat_mxu over the MXU pairs)
+    equals its plain version bit for bit on camera rays of the demo in
+    caller order (the order the render calls flat_mxu in) and Morton order
+    (flat's), and on the rays above, at t_eps 1e-5 and 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    fn, plain = {"flat": (ki.flat_intersect, ki.flat_intersect_plain),
+                 "flat_mxu": (ki.flat_mxu_intersect, ki.flat_mxu_intersect_plain)}[kernel]
     for scene in SCENES:
-        tri, verts = _tiles(scene)
-        tri = tri.cuda()
+        tri, pairs, verts = _tables(scene)
+        table = (tri if kernel == "flat" else pairs).cuda()
         sets = [_rays(scene, verts).cuda()]
         if scene == "demo":
             camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device="cuda")
@@ -239,21 +310,20 @@ def test_cuda_flat_kernel_on_coherent_and_edge_rays():
                            device="cuda")
             o, d = generate_rays(camera, 128, 128, ids % 128, ids // 128, u)
             rays = ki.prep_rays(o, d)
-            sets.append(rays[ki.coherence_perm(o, d, rays[:, 6])].contiguous())
+            sets += [rays, rays[ki.coherence_perm(o, d, rays[:, 6])].contiguous()]
         for rays in sets:
             for t_eps in (1e-5, 0.0):
-                got, want = ki.flat_intersect(tri, rays, t_eps), ki.flat_intersect_plain(
-                    tri, rays, t_eps)
+                got, want = fn(table, rays, t_eps), plain(table, rays, t_eps)
                 torch.cuda.synchronize()
-                assert torch.equal(_bits(got[0]), _bits(want[0])), scene
-                assert torch.equal(got[1], want[1]), scene
+                assert torch.equal(_bits(got[0]), _bits(want[0])), (kernel, scene)
+                assert torch.equal(got[1], want[1]), (kernel, scene)
         # an inactive ray with an unbounded window: the kernel keeps its
         # window, the plain version gives (3.4e38, id 0) (ROADMAP C)
         rays = ki.prep_rays(torch.tensor([[100.0, 100.0, 100.0]] * 2, device="cuda"),
                             torch.tensor([[1.0, 0.0, 0.0]] * 2, device="cuda"),
                             torch.tensor([True, False], device="cuda"),
                             torch.tensor([float("inf")] * 2, device="cuda"))
-        t, ids = ki.flat_intersect(tri, rays, 1e-5)
+        t, ids = fn(table, rays, 1e-5)
         assert t.tolist() == [np.float32(3.4e38), float("inf")] and ids.tolist() == [0, ki._BIG_ID]
-        t, ids = ki.flat_intersect_plain(tri, rays, 1e-5)
+        t, ids = plain(table, rays, 1e-5)
         assert t.tolist() == [np.float32(3.4e38)] * 2 and ids.tolist() == [0, 0]

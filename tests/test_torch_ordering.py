@@ -11,26 +11,28 @@ Every intersector gives the same (t, idx, hit) in every ordering as in the
 caller's order, bit for bit: a ray's result never depends on its
 neighbours.
 
+The same holds on hand-made box tables whose invalid boxes lie between
+valid ones, at odd widths, and the wrapper admits exactly the widest table
+the kernel's shared memory holds.
+
 The CUDA kernel runs only on the card: its test is marked ``cuda`` and
-skips without one; ``python3 chip_smoke.py`` checks it at the hero's shapes.
+skips without one; ``python3 chip_smoke.py`` runs it (this module imports
+JAX only inside the tests that compare with it, as the card's machine has
+none) and checks the kernel at the hero's shapes.
 """
 
 import functools
+import re
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from isaklm_raytracer_tpu.accel.cluster import build_cluster_bvh as jbuild
-from isaklm_raytracer_tpu.accel.cluster import cluster_order as jorder
-from isaklm_raytracer_tpu.accel.cluster import with_blocks as jwith_blocks
-from isaklm_raytracer_tpu.kernels.intersect import _coherence_perm
-from isaklm_raytracer_tpu.kernels.intersect import first_block_keys as jfirst_block_keys
 from isaklm_raytracer_tpu_torch.accel import move_scene, prepare_scene
-from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh, with_blocks
+from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh, cluster_order, with_blocks
 from isaklm_raytracer_tpu_torch.config import RenderConfig
 from isaklm_raytracer_tpu_torch.integrator.render import blk_sort_mode, make_trace_fn
+from isaklm_raytracer_tpu_torch.kernels import build
 from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 from isaklm_raytracer_tpu_torch.scene import procedural
 
@@ -42,7 +44,7 @@ BIG = 2**31 - 1
 def _soup(r, n):
     base = r.uniform(-2.0, 2.0, (n, 1, 3))
     verts = (base + r.uniform(-0.4, 0.4, (n, 3, 3))).astype(np.float32)
-    return verts[jorder(verts)]
+    return verts[cluster_order(verts)]
 
 
 def _rays(r, n, spread=3.0):
@@ -57,7 +59,7 @@ def _edge_rays(r, o, d, bbox_t):
     there (0 * inf = NaN in the slab test), and rays that pierce nothing."""
     o, d = o.copy(), d.copy()
     valid = np.nonzero(bbox_t[6] > 0)[0]
-    for i in range(8):
+    for i in range(min(8, len(o))):
         b = valid[i % valid.size]
         o[i] = (bbox_t[0:3, b] + bbox_t[3:6, b]) / 2
         axis, row = (0, 0) if i % 2 == 0 else (1, 4)
@@ -79,6 +81,9 @@ BLOCKED = {
 
 @pytest.fixture(scope="module", params=sorted(BLOCKED))
 def blocked(request):
+    from isaklm_raytracer_tpu.accel.cluster import build_cluster_bvh as jbuild
+    from isaklm_raytracer_tpu.accel.cluster import with_blocks as jwith_blocks
+
     num, branch = BLOCKED[request.param]
     r = np.random.default_rng(num)
     verts = _soup(r, num)
@@ -90,6 +95,10 @@ def blocked(request):
 
 @pytest.mark.parametrize("n", [300, 3000])
 def test_morton_permutation_equals_jax(n):
+    import jax.numpy as jnp
+
+    from isaklm_raytracer_tpu.kernels.intersect import _coherence_perm
+
     r = np.random.default_rng(n)
     o, d = _rays(r, n)
     o[:5] = o[5]  # equal keys: the stable order decides
@@ -102,6 +111,10 @@ def test_morton_permutation_equals_jax(n):
 
 
 def test_first_block_keys_equal_jax(blocked):
+    import jax.numpy as jnp
+
+    from isaklm_raytracer_tpu.kernels.intersect import first_block_keys as jfirst_block_keys
+
     jc, pc, r = blocked
     n = 1000
     o, d = _edge_rays(r, *_rays(r, n), pc.blk_bbox_t.numpy())
@@ -162,6 +175,73 @@ def test_key_capacity_at_the_largest_admitted_width():
     fidx = torch.tensor([n - 1], dtype=torch.int32)
     top = int(((fidx * (n + 1) + n) * 8 + 7)[0])
     assert top == 8 * n * n + 8 * n - 1 <= 2**31 - 9 < BIG - 1
+
+
+def _gap_table(r, width):
+    """A component-major (8, width) block box table of random boxes, about
+    a third of them invalid and scattered between valid ones (rows 0-5
+    min/max xyz, row 6 validity, row 7 zero)."""
+    lo = r.uniform(-5.0, 5.0, (3, width))
+    table = np.zeros((8, width), np.float32)
+    table[0:3], table[3:6] = lo, lo + r.uniform(0.0, 3.0, (3, width))
+    table[6] = r.random(width) > 0.35
+    table[6, [0, 1, 2, 3, width - 1]] = [0.0, 1.0, 0.0, 1.0, 1.0]  # gaps from the first box on
+    return table
+
+
+def _key_block():
+    """(rays a thread, threads a block) of csrc/first_block_keys.cu."""
+    source = (build.CSRC / "first_block_keys.cu").read_text()
+    rays = re.search(r"constexpr int kKeyRays = (\d+);", source)
+    threads = re.search(r"constexpr int kKeyThreads = (\d+);", source)
+    assert rays and threads, "first_block_keys.cu lost its launch shape"
+    return int(rays.group(1)), int(threads.group(1))
+
+
+@pytest.mark.parametrize("width,num_rays", [(5, 777), (131, 1023), (257, 129)])
+def test_first_block_keys_equal_jax_on_tables_with_gaps(width, num_rays):
+    """Invalid boxes between valid ones (the kernel stages only the valid
+    ones and keeps their indices), at odd widths (not a multiple of the
+    kernel's rays a thread), with edge rays on slab planes."""
+    import jax.numpy as jnp
+
+    from isaklm_raytracer_tpu.accel.cluster import build_cluster_bvh as jbuild
+    from isaklm_raytracer_tpu.kernels.intersect import first_block_keys as jfirst_block_keys
+
+    assert width % _key_block()[0] and num_rays % _key_block()[0]
+    r = np.random.default_rng(width)
+    table = _gap_table(r, width)
+    valid = np.nonzero(table[6] > 0)[0]
+    assert ((valid[:-1] + 1) != valid[1:]).any()  # a gap between valid boxes
+    o, d = _edge_rays(r, *_rays(r, num_rays, spread=6.0), table)
+    act = r.random(num_rays) > 0.2
+    act[:16] = True
+    jc = jbuild(_soup(r, 200)).replace(blk_bbox_t=jnp.asarray(table))
+    want = np.asarray(jfirst_block_keys(
+        jc, jnp.asarray(o), jnp.asarray(d), active=jnp.asarray(act), interpret=True))
+    rays = ki.prep_rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(act))
+    got = ki.first_block_keys(torch.from_numpy(table), rays, 1e-5)
+    np.testing.assert_array_equal(got.numpy(), want)
+    pierced = want[act & (want < BIG - 1)]
+    assert pierced.size and set(pierced // (8 * (width + 1))) <= set(valid)
+    assert (want[8:16] == BIG - 1).all() and (want[~act] == BIG).all()
+
+
+def test_shared_box_limit_is_the_kernels():
+    """The wrapper admits the widest table whose 28 bytes a box (and the
+    kernel's per-warp counts) fit a block's 232,448 bytes of shared memory,
+    and refuses one box more, saying so."""
+    source = (build.CSRC / "first_block_keys.cu").read_text()
+    assert "kBoxBytes = sizeof(float4) + sizeof(float2) + sizeof(int);" in source
+    assert ki._KEY_BOX_BYTES == 16 + 8 + 4
+    warps = _key_block()[1] // 32
+    limit = ki._MAX_SHARED_BOXES
+    assert limit * ki._KEY_BOX_BYTES + 4 * warps <= ki._MAX_SHARED_BYTES
+    assert (limit + 1) * ki._KEY_BOX_BYTES > ki._MAX_SHARED_BYTES
+    assert limit == 8301
+    ki._check_shared(limit, "block")
+    with pytest.raises(ValueError, match=f"8302 block boxes exceed the {limit} .* 232448 bytes"):
+        ki._check_shared(limit + 1, "block")
 
 
 def _scene_for(kernel):
@@ -260,16 +340,24 @@ def test_cpu_wrapper_runs_plain_version_without_launch(blocked):
 @pytest.mark.cuda
 def test_cuda_first_block_keys_match_plain_version():
     """The kernel against its plain version on the card, key for key, with
-    the edge-case rays, at the bench's ray counts."""
+    the edge-case rays, at the bench's ray counts, at counts around the
+    kernel's block of rays (its tail rays masked), on tables with invalid
+    boxes between valid ones, and on the widest table the wrapper admits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    per_thread, threads = _key_block()
+    block = per_thread * threads
     r = np.random.default_rng(5)
-    cbvh = with_blocks(build_cluster_bvh(_soup(r, 17000)).to("cuda"), 1)
-    for n in (2048, 777):
-        o, d = _edge_rays(r, *_rays(r, n), cbvh.blk_bbox_t.cpu().numpy())
-        act = torch.from_numpy(r.random(n) > 0.2).cuda()
-        rays = ki.prep_rays(torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda(), act)
-        got = ki.first_block_keys(cbvh.blk_bbox_t, rays, 1e-5)
-        want = ki.first_block_keys_plain(cbvh.blk_bbox_t, rays, 1e-5)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), n
+    soup = with_blocks(build_cluster_bvh(_soup(r, 17000)).to("cuda"), 1).blk_bbox_t
+    counts = sorted({1, 127, 129, 777, 2048, block - 1, block + 1, 2 * block + per_thread - 1,
+                     threads + 1})
+    tables = [soup, *(torch.from_numpy(_gap_table(r, w)).cuda() for w in (131, ki._MAX_SHARED_BOXES))]
+    for table in tables:
+        for n in counts if table is soup else (777, block + 1):
+            o, d = _edge_rays(r, *_rays(r, n, spread=6.0), table.cpu().numpy())
+            act = torch.from_numpy(r.random(n) > 0.2).cuda()
+            rays = ki.prep_rays(torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda(), act)
+            got = ki.first_block_keys(table, rays, 1e-5)
+            want = ki.first_block_keys_plain(table, rays, 1e-5)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (table.shape[1], n)
