@@ -118,7 +118,40 @@ raising on failure:
    just after: its kernel must have launched, no other intersector, and no
    plain version may have run on CUDA; each override's image must equal
    the default intersector's bit for bit;
-14. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
+14. assets: the user's path through files, each file written under a
+   temporary directory: (a) the full 2M-triangle hero exported with the
+   port's save_obj/save_mat and rendered again through a one-entry JSON
+   manifest (load_offset) by the CLI with the hero's argv: export, g++
+   build, native parse, assembly and prepare_scene seconds and the OBJ
+   size; the native parser ran; vertices and normals within 1e-5 of the
+   procedural arrays; the blocked kernel alone launched; the image within
+   the aggregate gate of scripts/hero_obj_roundtrip.py (mean |d| < 2e-3 on
+   [0, 1], pixels with a channel off by more than 0.05 under 1%: the
+   loader's re-centering rounds vertices by ~2e-7, which flips knife-edge
+   hits) of the main path's procedural hero; (b) the demo with its checker
+   written as a PNG and named by a ``texture`` line of its .mat: the atlas
+   equal to the procedural one exactly, the flat kernel alone, the same
+   gate against the main path's demo image at the demo's argv (in one
+   pass, ``--ray-chunk 0``), and the card
+   test of tests/test_torch_assets.py; (c) a two-mesh manifest (the 20k
+   hero and the Cornell box, each with a yaw, a scale and an offset, one
+   shared .mat) at 512x512x8: the queue kernel alone, the triangle count
+   the sum of both meshes, the G-buffer finite (read from its checkpoint),
+   the image's mean above 1;
+15. resume: the demo at 512x512x8 through the CLI with ``--checkpoint``
+   (in one pass, ``--ray-chunk 0``): 8 samples straight, and 4 then a
+   second CLI call resuming to 8 on the same file, with ``--no-adaptive``
+   and with the adaptive gate; the resumed PNG and G-buffer must equal the
+   straight run's bit for bit; then 8 samples in batches of 2 with the
+   second batch failing (an injected exception, as
+   tests/test_io_cli.py does): the CLI reloads the checkpoint, retries,
+   exits 0 and writes the straight run's PNG; the flat kernel alone;
+16. interactive: ``InteractiveSession`` on the demo at 512x512x8 without
+   the adaptive gate: two steps, the ``w`` key for 0.1 s, two steps; the
+   image equals ``render`` of two samples from the moved camera bit for
+   bit, through the flat kernel alone; then ``run_preview`` headless to 4
+   samples writes ANSI frames and returns a finite image;
+17. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
    steps, demo 512x512x8 and hero 640x360x6, at the CLI's ray_chunk (16384,
    one timed sample after a warm-up) and in one pass (0, two), in turns,
    and one torch.profiler sample at each:
@@ -126,7 +159,7 @@ raising on failure:
    intersector's share; then in one pass each override beside its default
    (demo: flat, flat_mxu; hero: blk, blk_mxu, hbm), in turns, with one
    profiled sample each;
-15. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
+18. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
    the material albedo) through the entry points: demo 512x512x8 and hero
    640x360x6 at ray_chunk 0 (two timed samples each) and 16384 (one), the
    hero again in one pass under
@@ -153,13 +186,16 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib.util
+import io
 import json
 import os
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1269,6 +1305,305 @@ def same_image(label, got, want) -> None:
     log(f"{label}: image equal to the default intersector's bit for bit")
 
 
+# scripts/hero_obj_roundtrip.py's aggregate gate of a scene loaded from files
+# against its procedural original: mean |d| on [0, 1] and the share of
+# pixels with a channel off by more than AGG_PIXEL.
+AGG_MEAN, AGG_PIXEL, AGG_SHARE = 2e-3, 0.05, 0.01
+
+
+def aggregate_gate(label, got, want) -> None:
+    a, b = got.astype(np.float64) / 255.0, want.astype(np.float64) / 255.0
+    if a.shape != b.shape:
+        raise RuntimeError(f"{label}: image shapes {a.shape} and {b.shape}")
+    dev = np.abs(a - b)
+    share = float((dev.max(axis=-1) > AGG_PIXEL).mean())
+    log(f"{label}: against the procedural scene's image mean |d| {dev.mean():.3e} "
+        f"(gate {AGG_MEAN:g}), max {dev.max():.3e}, pixels off by more than {AGG_PIXEL:g} "
+        f"{share:.3%} (gate {AGG_SHARE:.0%})")
+    if dev.mean() >= AGG_MEAN or share >= AGG_SHARE:
+        raise RuntimeError(f"{label}: outside the aggregate gate")
+
+
+def run_cli(label, cli, argv, out):
+    """``cli.main(argv + --out out)``; its stderr lines are printed and
+    returned with the PNG image."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(buf):
+            rc = cli.main([*argv, "--out", out])
+        torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"  cli {label}: {line}")
+    if rc != 0:
+        raise RuntimeError(f"CLI {label} exited {rc}")
+    img = read_png(out)
+    log(f"cli {label}: {time.perf_counter() - t0:.2f} s wall, png {img.shape}, "
+        f"mean {img.mean():.2f}")
+    return img, buf.getvalue()
+
+
+def with_scene(argv, scene):
+    """``argv`` with ``--scene`` set to ``scene``."""
+    argv = list(argv)
+    argv[argv.index("--scene") + 1] = scene
+    return argv
+
+
+def export_scene(tmp, name, scene, names, texture_paths=None, uvs=False):
+    """Write ``scene`` as <tmp>/<name>.obj + .mat; returns the paths and
+    the export's seconds."""
+    from isaklm_raytracer_tpu_torch.scene.export import material_rows, save_mat, save_obj
+
+    obj, mat = os.path.join(tmp, f"{name}.obj"), os.path.join(tmp, f"{name}.mat")
+    t0 = time.perf_counter()
+    save_mat(mat, names, material_rows(scene.materials, texture_paths))
+    save_obj(obj, scene.vertices, scene.normals, scene.mat_id, names,
+             uvs=scene.uvs if uvs else None)
+    return obj, mat, time.perf_counter() - t0
+
+
+def write_manifest(tmp, name, entries) -> str:
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(entries, f)
+    return path
+
+
+def phase_assets(cli, counts, demo_argv, hero_argv, demo_png, hero_png, tmp) -> None:
+    """Phase assets (the module docstring, 14)."""
+    from isaklm_raytracer_tpu_torch import native
+    from isaklm_raytracer_tpu_torch.accel import prepare_scene
+    from isaklm_raytracer_tpu_torch.integrator.render import intersector_name
+    from isaklm_raytracer_tpu_torch.io.checkpoint import load_checkpoint
+    from isaklm_raytracer_tpu_torch.io.png import save_png
+    from isaklm_raytracer_tpu_torch.scene import procedural
+    from isaklm_raytracer_tpu_torch.scene.export import load_offset, material_rows, save_mat
+    from isaklm_raytracer_tpu_torch.scene.obj import Transformation, create_scene_from_files
+
+    eye3 = np.eye(3, dtype=np.float32)
+    # (a) the full hero through OBJ + .mat and the CLI
+    t0 = time.perf_counter()
+    hero = procedural.hero_scene()
+    gen_s = time.perf_counter() - t0
+    obj, mat, export_s = export_scene(tmp, "hero", hero, ["white", "gold", "glass", "light"])
+    size = os.path.getsize(obj)
+    t0 = time.perf_counter()
+    native._load("objload")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = native.obj_parse_native(obj)
+    parse_s = time.perf_counter() - t0
+    del parsed
+    offset = load_offset(hero.vertices)
+    meshes = [(obj, mat, Transformation(offset, eye3), False)]
+    t0 = time.perf_counter()
+    loaded = create_scene_from_files(meshes, prepare=False)
+    load_s = time.perf_counter() - t0
+    dv = float(np.abs(loaded.vertices - hero.vertices).max())
+    dn = float(np.abs(loaded.normals - hero.normals).max())
+    t0 = time.perf_counter()
+    prepared = prepare_scene(loaded, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    picked = intersector_name(prepared.cbvh)
+    log(f"assets hero: {hero.num_triangles} triangles (procedural build {gen_s:.2f} s); "
+        f"export (save_mat + save_obj) {export_s:.2f} s, OBJ {size} bytes "
+        f"({size / 2**20:.1f} MiB); g++ build of the parser {build_s:.2f} s; native parse "
+        f"{parse_s:.2f} s; assembly {load_s - parse_s:.2f} s (create_scene_from_files "
+        f"{load_s:.2f} s less the parse); prepare_scene onto the card {prepare_s:.2f} s; "
+        f"max deviation from the procedural arrays: vertices {dv:.2e}, normals {dn:.2e}; "
+        f"intersector {picked}")
+    if loaded.num_triangles != hero.num_triangles or dv >= 1e-5 or dn >= 1e-5:
+        raise RuntimeError("assets hero: the OBJ round trip changed the triangle soup")
+    if picked != "blk":
+        raise RuntimeError(f"assets hero: the rule picked {picked}, not blk")
+    del loaded, prepared
+    manifest = write_manifest(tmp, "hero", [{"obj": obj, "mat": mat, "offset": offset.tolist()}])
+    parses = []
+    real_parse = native.obj_parse_native
+
+    def counted_parse(path):
+        parses.append(path)
+        return real_parse(path)
+
+    native.obj_parse_native = counted_parse
+    counts.reset()
+    try:
+        img, err = run_cli("hero_obj", cli, with_scene(hero_argv, manifest),
+                           os.path.join(tmp, "hero_obj.png"))
+    finally:
+        native.obj_parse_native = real_parse
+    if parses != [obj] or f"triangle count: {hero.num_triangles}" not in err:
+        raise RuntimeError(f"assets hero: the native parser ran on {parses}, not on {obj}")
+    log(f"assets hero: the CLI parsed {obj} with the native parser")
+    check_only(counts, "blk", "hero through OBJ + .mat")
+    aggregate_gate("assets hero_obj", img, hero_png)
+    del hero
+
+    # (b) the textured demo through OBJ + .mat + PNG
+    demo = procedural.material_demo_scene()
+    png = os.path.join(tmp, "checker.png")
+    if " " in png:
+        raise RuntimeError(f"{png}: a .mat texture path must not hold spaces")
+    save_png(png, procedural.checker_texture(), flip_vertical=False)
+    textured = {i: png for i, t in enumerate(np.asarray(demo.materials.tex_id)) if t >= 0}
+    obj, mat, _ = export_scene(tmp, "demo", demo, ["floor", "white", "gold", "glass", "light"],
+                               textured, uvs=True)
+    offset = load_offset(demo.vertices)
+    loaded = create_scene_from_files([(obj, mat, Transformation(offset, eye3), False)],
+                                     prepare=False)
+    for k in ("buffer", "offset", "width", "height"):
+        if not np.array_equal(getattr(loaded.textures, k), getattr(demo.textures, k)):
+            raise RuntimeError(f"assets demo: atlas {k} differs from the procedural one")
+    log(f"assets demo: atlas of {loaded.textures.buffer.shape[0]} texels from {png} equal to "
+        "the procedural checker's")
+    manifest = write_manifest(tmp, "demo", [{"obj": obj, "mat": mat, "offset": offset.tolist()}])
+    counts.reset()
+    # in one pass: every ray's result is its own, so the image is the one
+    # the main path drew in chunks of 16384 rays
+    img, _ = run_cli("demo_obj", cli, [*with_scene(demo_argv, manifest), "--ray-chunk", "0"],
+                     os.path.join(tmp, "demo_obj.png"))
+    check_only(counts, "flat", "demo through OBJ + .mat + PNG")
+    aggregate_gate("assets demo_obj", img, demo_png)
+    card = Path(tmp) / "card_test"
+    card.mkdir()
+    card_test("test_torch_assets", "test_cuda_loaded_demo_through_flat", card)
+
+    # (c) two meshes, one .mat: the 20k hero and the Cornell box
+    h20, box = procedural.hero_scene(20_000), procedural.cornell_box(glossy=True)
+    h_names = [f"hero_{n}" for n in ("white", "gold", "glass", "light")]
+    c_names = [f"cornell_{n}" for n in ("white", "red", "green", "light")]
+    h_obj, _, _ = export_scene(tmp, "hero20k", h20, h_names)
+    c_obj, _, _ = export_scene(tmp, "cornell", box, c_names)
+    mat = os.path.join(tmp, "shared.mat")
+    save_mat(mat, h_names + c_names, material_rows(h20.materials) + material_rows(box.materials))
+    manifest = write_manifest(tmp, "two_meshes", [
+        {"obj": h_obj, "mat": mat, "offset": load_offset(h20.vertices).tolist(), "yaw": 0.15,
+         "scale": 0.9},
+        {"obj": c_obj, "mat": mat, "offset": [0.4, 1.5, 0.5], "yaw": 0.5, "scale": 1.5},
+    ])
+    ck = os.path.join(tmp, "two_meshes.npz")
+    counts.reset()
+    img, err = run_cli("two_meshes", cli, [
+        "--scene", manifest, "--width", "512", "--height", "512", "--max-bounces", "8",
+        "--min-samples", "1", "--max-samples", "2", "--ray-chunk", "0",
+        "--camera", "0", "2", "-6", "0", "0", "--checkpoint", ck,
+    ], os.path.join(tmp, "two_meshes.png"))
+    check_only(counts, "queue", "two-mesh manifest")
+    want = h20.num_triangles + box.num_triangles
+    gb = load_checkpoint(ck)[0]
+    finite = bool(torch.isfinite(gb.frame).all())
+    log(f"assets two_meshes: triangle count {want} = {h20.num_triangles} + {box.num_triangles}: "
+        f"{f'triangle count: {want}' in err}; G-buffer finite: {finite}")
+    if f"triangle count: {want}\n" not in err or not finite or img.mean() <= 1.0:
+        raise RuntimeError("assets two_meshes: wrong triangle count, non-finite or dark image")
+
+
+def phase_resume(cli, counts, demo_argv, tmp) -> None:
+    """Phase resume (the module docstring, 15)."""
+    from isaklm_raytracer_tpu_torch.integrator import render as integ_render
+    from isaklm_raytracer_tpu_torch.io.checkpoint import load_checkpoint
+
+    argv = [*demo_argv, "--ray-chunk", "0"]
+    counts.reset()
+    straight = {}
+    for mode, flags in (("no_adaptive", ["--no-adaptive"]), ("adaptive", [])):
+        cks = [os.path.join(tmp, f"resume_{mode}_{k}.npz") for k in ("straight", "split")]
+        pngs = {}
+        pngs["straight"], _ = run_cli(f"resume {mode} straight", cli, [
+            *argv, *flags, "--max-samples", "8", "--checkpoint", cks[0]],
+            os.path.join(tmp, f"resume_{mode}_straight.png"))
+        run_cli(f"resume {mode} first 4", cli, [
+            *argv, *flags, "--max-samples", "4", "--checkpoint", cks[1]],
+            os.path.join(tmp, f"resume_{mode}_half.png"))
+        pngs["split"], err = run_cli(f"resume {mode} resumed to 8", cli, [
+            *argv, *flags, "--max-samples", "8", "--checkpoint", cks[1]],
+            os.path.join(tmp, f"resume_{mode}_split.png"))
+        if "resumed at sample 4" not in err:
+            raise RuntimeError(f"resume {mode}: the second call did not resume")
+        gbs = [load_checkpoint(ck)[0] for ck in cks]
+        counts_min = int(gbs[0].count.min())
+        same = all(torch.equal(getattr(gbs[0], k), getattr(gbs[1], k))
+                   for k in ("frame", "sq_luminance", "count"))
+        log(f"resume {mode}: PNG {'equal' if np.array_equal(*pngs.values()) else 'DIFFERENT'}, "
+            f"G-buffer {'equal' if same else 'DIFFERENT'} bit for bit; counts "
+            f"{counts_min}-{int(gbs[0].count.max())}")
+        if not same or not np.array_equal(*pngs.values()):
+            raise RuntimeError(f"resume {mode}: the resumed render differs from the straight one")
+        if mode == "adaptive" and counts_min == int(gbs[0].count.max()):
+            log("resume adaptive: the gate stopped no pixel early (counts all equal)")
+        straight[mode] = pngs["straight"]
+
+    real_render = integ_render.render
+    calls = {"n": 0}
+
+    def flaky_render(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:  # the second batch dies mid-flight
+            raise RuntimeError("injected device fault")
+        return real_render(*a, **kw)
+
+    integ_render.render = flaky_render
+    try:
+        img, err = run_cli("resume retry", cli, [
+            *argv, "--no-adaptive", "--max-samples", "8", "--checkpoint-every", "2",
+            "--checkpoint", os.path.join(tmp, "resume_retry.npz")],
+            os.path.join(tmp, "resume_retry.png"))
+    finally:
+        integ_render.render = real_render
+    log(f"resume retry: {calls['n']} render calls (4 batches + the failed one); PNG "
+        f"{'equal' if np.array_equal(img, straight['no_adaptive']) else 'DIFFERENT'} to the "
+        "straight run's")
+    if calls["n"] != 5 or "injected device fault" not in err or not np.array_equal(
+            img, straight["no_adaptive"]):
+        raise RuntimeError("resume retry: the CLI did not recover to the straight run's image")
+    check_only(counts, "flat", "resume and retry of the demo")
+
+
+def phase_interactive(demo, counts, device) -> None:
+    """Phase interactive (the module docstring, 16)."""
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.cli.preview import run_preview
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.integrator.render import render, resolve_image
+    from isaklm_raytracer_tpu_torch.viewer import InteractiveSession
+
+    config = RenderConfig(width=512, height=512, max_bounces=8, ray_chunk=0)
+    camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
+    counts.reset()
+    t0 = time.perf_counter()
+    session = InteractiveSession(demo, camera, config, adaptive=False)
+    session.step()
+    session.step()
+    moved = session.handle_input(["w"], 0.1)
+    session.step()
+    session.step()
+    image = session.image()
+    steps_s = time.perf_counter() - t0
+    gb = render(demo, session.camera, config, num_samples=2, adaptive=False)
+    want = resolve_image(gb, config).cpu().numpy()
+    pos = session.camera.position.tolist()
+    log(f"interactive: 2 steps, w for 0.1 s (moved {moved}, camera now {pos}), 2 steps in "
+        f"{steps_s:.2f} s; sample_count {session.sample_count}; image "
+        f"{'equal' if np.array_equal(image, want) else 'DIFFERENT'} to render of 2 samples "
+        "from the moved camera bit for bit")
+    if not moved or session.sample_count != 2 or not np.array_equal(image, want):
+        raise RuntimeError("interactive: the session after the move differs from render")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    final = run_preview(session, 4, out=out, interactive=False)
+    text = out.getvalue()
+    log(f"interactive: run_preview to 4 samples in {time.perf_counter() - t0:.2f} s, "
+        f"{len(text)} characters of ANSI frames, image {final.shape} finite "
+        f"{bool(np.isfinite(final).all())}")
+    if session.sample_count != 4 or "\u2580" not in text or "sample 4/4" not in text \
+            or not np.isfinite(final).all():
+        raise RuntimeError("interactive: the headless preview did not draw its frames")
+    check_only(counts, "flat", "interactive session on the demo")
+
+
 def main() -> int:
     global CARD, LANE_SLOTS_PER_S
     if not torch.cuda.is_available():
@@ -1745,6 +2080,15 @@ def main() -> int:
                 blk_mxu_launches = launches
         same_image("render of the hero under ISAKLM_INTERSECTOR=blk_mxu", images["blk_mxu"],
                    images[None])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        with Phase("assets"):
+            phase_assets(cli, counts, demo_argv, hero_argv, flat_png["demo"], blk_png["hero"],
+                         tmp)
+        with Phase("resume"):
+            phase_resume(cli, counts, demo_argv, tmp)
+        with Phase("interactive"):
+            phase_interactive(demo, counts, device)
 
     with Phase("perf"):
         camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)

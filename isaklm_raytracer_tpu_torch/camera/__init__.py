@@ -1,3 +1,3 @@
-from isaklm_raytracer_tpu_torch.camera.camera import Camera, generate_rays
+from isaklm_raytracer_tpu_torch.camera.camera import Camera, camera_movement, generate_rays
 
-__all__ = ["Camera", "generate_rays"]
+__all__ = ["Camera", "camera_movement", "generate_rays"]

@@ -1,15 +1,15 @@
-"""Pinhole + thin-aperture camera.
+"""Pinhole + thin-aperture camera and its movement.
 
-Port of ``Camera`` and ``generate_rays`` of
-``isaklm_raytracer_tpu/camera/camera.py`` (reference camera.cuh:15-26,
-path_tracing.cuh:327-336, 379-391). ``camera_movement`` is not ported yet.
-Pose leaves that require grad carry gradients through ``generate_rays``.
+Port of ``isaklm_raytracer_tpu/camera/camera.py`` (reference
+camera.cuh:15-100, path_tracing.cuh:327-336, 379-391). Pose leaves that
+require grad carry gradients through ``generate_rays``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Iterable
 
 import torch
 
@@ -85,3 +85,65 @@ def generate_rays(
     )
     offset = transforms.apply(rot, torch.stack([ox, oy, torch.zeros_like(ox)], dim=-1))
     return camera.position + offset, dirs
+
+
+# WASD in the view frame (camera.cuh:38-63): the local direction each key
+# moves along, rotated by the camera's rotation.
+_MOVE_KEYS = {
+    "w": (0.0, 0.0, 1.0),
+    "a": (-1.0, 0.0, 0.0),
+    "s": (0.0, 0.0, -1.0),
+    "d": (1.0, 0.0, 0.0),
+}
+
+
+def camera_movement(camera: Camera, keys: Iterable[str], time_step: float):
+    """Headless equivalent of the GLFW input handler (camera.cuh:28-100).
+
+    WASD move in the view frame, space/shift move world up/down
+    (speed 0.5/s), arrows rotate (2 rad/s). Returns (new_camera, moved):
+    any pressed key invalidates the progressive accumulation exactly as the
+    reference zeroes sample_count. The new pose lies on the camera's device.
+    """
+    keys = set(keys)
+    movement_speed = 0.5 * time_step
+    rotation_speed = 2.0 * time_step
+    device = camera.position.device
+
+    def vec(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    position = camera.position
+    yaw = camera.yaw
+    pitch = camera.pitch
+    moved = False
+
+    motion = None
+    rot = camera.rotation()
+    for key, local in _MOVE_KEYS.items():
+        if key in keys:
+            motion = transforms.apply(rot, vec(local)) * movement_speed
+            moved = True
+    if "space" in keys:
+        motion = vec((0.0, 1.0, 0.0)) * movement_speed
+        moved = True
+    if "shift" in keys:
+        motion = vec((0.0, -1.0, 0.0)) * movement_speed
+        moved = True
+    if motion is not None:
+        position = position + motion
+
+    if "left" in keys:
+        yaw = yaw - rotation_speed
+        moved = True
+    if "right" in keys:
+        yaw = yaw + rotation_speed
+        moved = True
+    if "up" in keys:
+        pitch = pitch - rotation_speed
+        moved = True
+    if "down" in keys:
+        pitch = pitch + rotation_speed
+        moved = True
+
+    return camera.replace(position=position, yaw=yaw, pitch=pitch), moved

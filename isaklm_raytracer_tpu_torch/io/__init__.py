@@ -1,3 +1,3 @@
-from isaklm_raytracer_tpu_torch.io.png import save_png
+from isaklm_raytracer_tpu_torch.io.png import load_image, save_png
 
-__all__ = ["save_png"]
+__all__ = ["load_image", "save_png"]
