@@ -151,7 +151,27 @@ raising on failure:
    image equals ``render`` of two samples from the moved camera bit for
    bit, through the flat kernel alone; then ``run_preview`` headless to 4
    samples writes ANSI frames and returns a finite image;
-17. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
+17. sharded: ``dist.sharding`` on the card, two ranks on this one card
+   over gloo (``dist.launch`` with device cuda:0; NCCL refuses two ranks on
+   one card): ``render_sharded`` on a (2, 1) mesh of the demo (flat) and
+   hero20k (queue) at 512x512x8 with 4 adaptive samples and of the hero
+   (blk) at 640x360x6 with 2, in one pass, each G-buffer bit-equal to the
+   single-process ``render`` on the card, each rank launching the path's
+   kernel, with each rank's s/sample of two full steps (both ranks at
+   once) beside one process's; the tail mode at the demo's width from a
+   95%-converged G-buffer (tail steps counted on each rank), bit-equal;
+   ``sharded_value_and_grad_fn`` of the demo on a (1, 2) mesh with the
+   decorrelated gradient against the single-process hand-built estimator
+   (the loss and grads within rtol 1e-4, atol 1e-6), grads bit-identical on
+   both ranks, and three ``sharded_train_step_fn`` steps (finite params,
+   s a step); the CLI with the demo, checkpointed, under the two ranks'
+   group: both PNGs byte-equal to one process's; the ms of the G-buffer
+   all_gather and of the grad all_reduce. Then NCCL at world size 1 in
+   this process: ``render_sharded`` of the demo on a (1, 1) mesh bit-equal
+   to ``render``, ``unshard_gbuffer`` and the grad all_reduce through NCCL,
+   and their ms. The collectives' times on one card are no multi-card
+   scaling numbers;
+18. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
    steps, demo 512x512x8 and hero 640x360x6, at the CLI's ray_chunk (16384,
    one timed sample after a warm-up) and in one pass (0, two), in turns,
    and one torch.profiler sample at each:
@@ -159,7 +179,7 @@ raising on failure:
    intersector's share; then in one pass each override beside its default
    (demo: flat, flat_mxu; hero: blk, blk_mxu, hbm), in turns, with one
    profiled sample each;
-18. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
+19. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
    the material albedo) through the entry points: demo 512x512x8 and hero
    640x360x6 at ray_chunk 0 (two timed samples each) and 16384 (one), the
    hero again in one pass under
@@ -1604,6 +1624,353 @@ def phase_interactive(demo, counts, device) -> None:
     check_only(counts, "flat", "interactive session on the demo")
 
 
+# The sharded phase's paths: label, kernel, (width, height, bounces), adaptive
+# samples, camera eye, pitch (the main path's presets, in one pass)
+SHARDED_PATHS = (
+    ("demo", "flat", (512, 512, 8), 4, BENCH_EYE, BENCH_PITCH),
+    ("hero20k", "queue", (512, 512, 8), 4, GOLDEN_EYE, 0.0),
+    ("hero", "blk", (HERO_W, HERO_H, HERO_BOUNCES), 2, BENCH_EYE, BENCH_PITCH),
+)
+SHARDED_KEY = (0, 13)  # the train step's key words (the JAX package's PRNGKey(13))
+
+
+def sharded_scene(label, device, hero_triangles):
+    from isaklm_raytracer_tpu_torch.accel import prepare_scene
+    from isaklm_raytracer_tpu_torch.scene import procedural
+
+    build = {"demo": procedural.material_demo_scene,
+             "hero20k": lambda: procedural.hero_scene(20_000),
+             "hero": lambda: procedural.hero_scene(hero_triangles)}[label]
+    return prepare_scene(build(), device)
+
+
+def gbuffer_arrays(gb) -> dict:
+    return {k: getattr(gb, k).cpu().numpy() for k in ("frame", "sq_luminance", "count")}
+
+
+def digest(arrays: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+def collective_ms(fn, sync, reps: int = 10) -> float:
+    """ms a call of the collective ``fn`` (every rank calls it in step),
+    after one warm-up, by the host clock around a synchronise."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def hand_built_grads(scene, camera, config, params, target, key, streams: int):
+    """The single-process objective of ``sharded_value_and_grad_fn``: the
+    mean over ``streams`` streams of the image MSE (the loss) and of the
+    dual-buffer estimator in which stream s takes the detached residual of
+    stream (s - 1) mod n (the gradient; the MSE's own at one stream), with
+    grads of the six material fields and the pose."""
+    from isaklm_raytracer_tpu_torch.dist import sharding
+    from isaklm_raytracer_tpu_torch.integrator.render import render_sample
+    from isaklm_raytracer_tpu_torch.math import rng
+
+    floats = [getattr(params, f).detach().clone().requires_grad_()
+              for f in sharding.FLOAT_FIELDS]
+    pose = [x.detach().clone().requires_grad_()
+            for x in (camera.position, camera.yaw, camera.pitch)]
+    s = scene.replace(materials=params.replace(**dict(zip(sharding.FLOAT_FIELDS, floats))))
+    cam = camera.replace(position=pose[0], yaw=pose[1], pitch=pose[2])
+    rad = [render_sample(s, cam, rng.fold_in(key, i), config) for i in range(streams)]
+    norm = 3.0 * config.num_pixels
+    loss = sum(torch.sum((r - target) ** 2) for r in rad) / norm / streams
+    pseudo = sum(2.0 * torch.sum((rad[(i - 1) % streams] - target).detach() * rad[i])
+                 for i in range(streams)) / norm / streams
+    grads = torch.autograd.grad(pseudo, floats + pose, allow_unused=True)
+    names = sharding.FLOAT_FIELDS + sharding.POSE_FIELDS
+    return float(loss.detach()), {
+        name: (torch.zeros_like(x) if g is None else g).cpu().numpy()
+        for name, g, x in zip(names, grads, floats + pose)}
+
+
+def sharded_rank(rank: int, world: int, spec: dict) -> dict:
+    """One of the ranks of phase sharded (the module docstring, 17), all on
+    the parent's card over gloo: each path through render_sharded, the
+    tail mode, the train step on a (1, 2) mesh, the collectives' times and
+    the CLI under this group."""
+    global CARD
+    CARD = spec["card"]
+    import torch.distributed as dist
+
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.cli import render as cli
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.dist import sharding
+    from isaklm_raytracer_tpu_torch.kernels import intersect as ki
+    from isaklm_raytracer_tpu_torch.math import rng
+    from isaklm_raytracer_tpu_torch.scene.types import GBuffer
+
+    device = torch.device(spec["device"])
+    sync = torch.cuda.synchronize
+    counts = ki.COUNTS
+
+    def launched(kernel, label):
+        return check_only(counts, kernel, f"rank {rank} {label}")
+
+    tile = sharding.make_render_mesh(world, 1, device=device)
+    streams = sharding.make_render_mesh(1, world, device=device)
+    out = {"paths": {}}
+    for label, kernel, (w, h, b), samples, eye, pitch in spec["paths"]:
+        scene = sharded_scene(label, device, spec["hero_triangles"])
+        camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
+        config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
+        dist.barrier()
+        counts.reset()
+        t0 = time.perf_counter()
+        gb = sharding.render_sharded(scene, camera, config, samples, tile, adaptive=True)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = launched(kernel, f"sharded {label}")
+        arrays = gbuffer_arrays(sharding.unshard_gbuffer(gb, config, tile))
+        dist.barrier()  # full steps, warm, every rank at once
+        t0 = time.perf_counter()
+        sharding.render_sharded(scene, camera, config, 2, tile, sample_offset=samples)
+        sync()
+        out["paths"][label] = {
+            "launches": launches, "wall": wall, "s_per_sample": (time.perf_counter() - t0) / 2,
+            "digest": digest(arrays), "arrays": arrays if rank == 0 else None}
+        if label == "demo":
+            demo, demo_camera, demo_config = scene, camera, config
+        del scene, gb
+
+    # the tail mode at the demo's width from a 95%-converged G-buffer
+    n = demo_config.num_pixels
+    gb0 = GBuffer(torch.zeros((n, 3), device=device), torch.zeros(n, device=device),
+                  torch.from_numpy(spec["tail_counts"]).to(device))
+    calls = {"n": 0}
+    real_tail = sharding._sharded_tail_step
+
+    def counting_tail(*a, **kw):
+        calls["n"] += 1
+        return real_tail(*a, **kw)
+
+    sharding._sharded_tail_step = counting_tail
+    counts.reset()
+    try:
+        gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, tile, seed=7,
+                                     adaptive=True, gbuffer=gb0)
+    finally:
+        sharding._sharded_tail_step = real_tail
+    arrays = gbuffer_arrays(sharding.unshard_gbuffer(gb, demo_config, tile))
+    out["tail"] = {"calls": calls["n"], "launches": launched("flat", "sharded tail"),
+                   "digest": digest(arrays), "arrays": arrays if rank == 0 else None}
+
+    # the train step on a (1, world) mesh: every rank renders the whole image
+    target = torch.from_numpy(spec["target"]).to(device)
+    params = demo.materials.replace(albedo=demo.materials.albedo * 0.6)
+    vg = sharding.sharded_value_and_grad_fn(demo, demo_config, streams, decorrelate=True)
+    counts.reset()
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss, grads = vg(params, demo_camera, target, SHARDED_KEY)
+    sync()
+    out["vg"] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
+                 "grads": {k: v.cpu().numpy() for k, v in grads.items()},
+                 "launches": launched("flat", "sharded value_and_grad")}
+    step = sharding.sharded_train_step_fn(demo, demo_config, streams)
+    p, losses = params, []
+    dist.barrier()
+    t0 = time.perf_counter()
+    for i in range(3):
+        p, loss = step(p, demo_camera, target, rng.fold_in(SHARDED_KEY, 10 + i))
+        losses.append(float(loss))
+    sync()
+    out["train"] = {"s_per_step": (time.perf_counter() - t0) / 3, "losses": losses,
+                    "finite": all(bool(torch.isfinite(getattr(p, f)).all())
+                                  for f in sharding.FLOAT_FIELDS)}
+
+    # the collectives alone
+    shard = sharding.shard_gbuffer(GBuffer.create(n, device), demo_config, tile)
+    flat = torch.zeros(1 + sum(g.numel() for g in grads.values()), device=device)
+    out["all_gather_ms"] = collective_ms(
+        lambda: sharding.unshard_gbuffer(shard, demo_config, tile), sync)
+    out["all_reduce_ms"] = collective_ms(lambda: dist.all_reduce(flat), sync)
+    out["grad_floats"] = flat.numel() - 1
+
+    # the CLI under this group, checkpointed
+    png = os.path.join(spec["tmp"], f"sharded_cli_r{rank}.png")
+    counts.reset()
+    rc = cli.main([*spec["cli_argv"], "--checkpoint",
+                   os.path.join(spec["tmp"], "sharded_cli.npz"), "--out", png])
+    with open(png, "rb") as f:
+        out["cli"] = {"rc": rc, "png": f.read(), "launches": launched("flat", "sharded CLI")}
+    return out
+
+
+def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
+                  hero_triangles=2_000_000) -> None:
+    """Phase sharded (the module docstring, 17)."""
+    import torch.distributed as dist
+
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.dist import sharding
+    from isaklm_raytracer_tpu_torch.dist.launch import free_port, launch
+    from isaklm_raytracer_tpu_torch.integrator.render import render, render_sample
+    from isaklm_raytracer_tpu_torch.math import rng
+    from isaklm_raytracer_tpu_torch.scene.types import GBuffer
+
+    sync = torch.cuda.synchronize
+    launched = functools.partial(check_only, counts)
+
+    # single-process references on this card
+    refs = {}
+    for label, kernel, (w, h, b), samples, eye, pitch in paths:
+        camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
+        config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
+        counts.reset()
+        gb = render(scenes[label], camera, config, samples, adaptive=True)
+        launched(kernel, f"single-process render of {label}")
+        sync()
+        t0 = time.perf_counter()
+        render(scenes[label], camera, config, 2, sample_offset=samples)
+        sync()
+        refs[label] = (gbuffer_arrays(gb), (time.perf_counter() - t0) / 2)
+        if label == "demo":
+            demo_camera, demo_config = camera, config
+    demo = scenes["demo"]
+    n = demo_config.num_pixels
+    conv = np.random.default_rng(0).random(n) < 0.95
+    tail_counts = np.where(conv, demo_config.max_samples, 0).astype(np.int32)
+    gb0 = GBuffer(torch.zeros((n, 3), device=device), torch.zeros(n, device=device),
+                  torch.from_numpy(tail_counts).to(device))
+    tail_ref = gbuffer_arrays(render(demo, demo_camera, demo_config, 4, seed=7, adaptive=True,
+                                     gbuffer=gb0))
+    with torch.no_grad():
+        target = render_sample(demo, demo_camera, rng.fold_in(SHARDED_KEY, 0), demo_config)
+    params = demo.materials.replace(albedo=demo.materials.albedo * 0.6)
+    vg_ref = hand_built_grads(demo, demo_camera, demo_config, params, target, SHARDED_KEY, 2)
+    cli_argv = ["--scene", "demo", "--width", str(demo_config.width), "--height",
+                str(demo_config.height), "--max-bounces", str(demo_config.max_bounces),
+                "--min-samples", "4", "--max-samples", "8", "--checkpoint-every", "4",
+                "--ray-chunk", "0", "--camera", "0", "1.2", "-1.8", "0", "0.15"]
+    run_cli("sharded reference, one process", cli, [
+        *cli_argv, "--checkpoint", os.path.join(tmp, "sharded_ref.npz")],
+        os.path.join(tmp, "sharded_ref.png"))
+    with open(os.path.join(tmp, "sharded_ref.png"), "rb") as f:
+        cli_ref = f.read()
+
+    spec = {"device": str(device), "card": CARD, "tmp": tmp, "paths": paths,
+            "hero_triangles": hero_triangles, "tail_counts": tail_counts,
+            "target": target.cpu().numpy(), "cli_argv": cli_argv}
+    t0 = time.perf_counter()
+    ranks = launch(sharded_rank, 2, spec, device=str(device), timeout=900)
+    log(f"sharded: two ranks on {device} over gloo in {time.perf_counter() - t0:.1f} s "
+        "wall (spawn, scene builds and every check below)")
+
+    def same(label, got_rank0, want):
+        err = max(float(np.abs(got_rank0[k].astype(np.float64) - want[k]).max())
+                  for k in want)
+        equal = all(np.array_equal(got_rank0[k], want[k]) for k in want)
+        if not equal:
+            raise RuntimeError(f"sharded {label}: differs from one process (max |d| {err:.3e})")
+        return err
+
+    for label, kernel, (w, h, b), samples, *_ in paths:
+        want, one_s = refs[label]
+        r = [out["paths"][label] for out in ranks]
+        same(label, r[0]["arrays"], want)
+        if r[1]["digest"] != r[0]["digest"]:
+            raise RuntimeError(f"sharded {label}: the ranks gathered different G-buffers")
+        log(f"sharded {label} {w}x{h}x{b} ray_chunk 0, (2, 1) mesh, {samples} adaptive "
+            f"samples: G-buffer bit-equal to one process's render on both ranks; {kernel} "
+            f"launches {r[0]['launches']}/{r[1]['launches']} (rank 0/1), "
+            f"{r[0]['wall']:.3f}/{r[1]['wall']:.3f} s with the first call; full steps "
+            f"{r[0]['s_per_sample']:.4f}/{r[1]['s_per_sample']:.4f} s/sample a rank, both "
+            f"ranks at once, against {one_s:.4f} for one process")
+    t = [out["tail"] for out in ranks]
+    same("tail", t[0]["arrays"], tail_ref)
+    log(f"sharded tail mode, demo from a 95%-converged G-buffer, (2, 1) mesh: "
+        f"{t[0]['calls']}/{t[1]['calls']} tail steps (rank 0/1), flat launches "
+        f"{t[0]['launches']}/{t[1]['launches']}, bit-equal to one process")
+    if min(x["calls"] for x in t) == 0 or t[1]["digest"] != t[0]["digest"]:
+        raise RuntimeError("sharded tail mode did not engage on every rank, or ranks differ")
+
+    v = [out["vg"] for out in ranks]
+    for f, g in v[0]["grads"].items():
+        if not np.array_equal(v[1]["grads"][f], g):
+            raise RuntimeError(f"sharded value_and_grad: the {f} grads differ across ranks")
+    loss_ref, grads_ref = vg_ref
+    worst = 0.0
+    for f, g in grads_ref.items():
+        got = v[0]["grads"][f]
+        worst = max(worst, float(np.abs(got - g).max()))
+        if not np.allclose(got, g, rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL):
+            raise RuntimeError(f"sharded value_and_grad {f}: {got} against one process's {g}")
+    if not np.isclose(v[0]["loss"], loss_ref, rtol=CARD_VS_CPU_RTOL, atol=0.0):
+        raise RuntimeError(f"sharded loss {v[0]['loss']} against one process's {loss_ref}")
+    tr = [out["train"] for out in ranks]
+    log(f"sharded value_and_grad, demo, (1, 2) mesh, decorrelated: loss {v[0]['loss']:.6f} "
+        f"(one process {loss_ref:.6f}), grads bit-identical on both ranks, within rtol "
+        f"{CARD_VS_CPU_RTOL:g} atol {CARD_VS_CPU_ATOL:g} of one process's hand-built "
+        f"estimator (max |d| {worst:.3e}); {v[0]['seconds']:.4f}/{v[1]['seconds']:.4f} s with "
+        f"the first call, flat launches {v[0]['launches']}/{v[1]['launches']}; three train "
+        f"steps {tr[0]['s_per_step']:.4f}/{tr[1]['s_per_step']:.4f} s a step (fwd+bwd of one "
+        f"sample a rank), losses {tr[0]['losses']}, params finite {tr[0]['finite']}")
+    if not all(x["finite"] for x in tr) or not np.isfinite(tr[0]["losses"]).all():
+        raise RuntimeError("sharded train step: non-finite params or loss")
+
+    c = [out["cli"] for out in ranks]
+    log(f"sharded CLI, demo {demo_config.width}x{demo_config.height}x"
+        f"{demo_config.max_bounces} checkpointed, two ranks under the caller's gloo group: "
+        f"PNG {'byte-equal' if all(x['png'] == cli_ref for x in c) else 'DIFFERENT'} to one "
+        f"process's on both ranks; flat launches {c[0]['launches']}/{c[1]['launches']}")
+    if any(x["rc"] != 0 or x["png"] != cli_ref for x in c):
+        raise RuntimeError("sharded CLI: a rank's PNG differs from one process's")
+    log(f"collectives, gloo, 2 ranks on one card (not multi-card scaling): G-buffer "
+        f"all_gather ({n} pixels) {ranks[0]['all_gather_ms']:.3f}/"
+        f"{ranks[1]['all_gather_ms']:.3f} ms, grad all_reduce ({ranks[0]['grad_floats']} "
+        f"floats + the loss) {ranks[0]['all_reduce_ms']:.3f}/{ranks[1]['all_reduce_ms']:.3f} ms")
+
+    # NCCL at world size 1, in this process
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, device_id=device)
+    try:
+        mesh = sharding.make_render_mesh(1, 1, device=device)
+        counts.reset()
+        gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, mesh, adaptive=True)
+        launches = launched("flat", "render_sharded (1, 1) over NCCL")
+        same("NCCL (1, 1)", gbuffer_arrays(sharding.unshard_gbuffer(gb, demo_config, mesh)),
+             refs["demo"][0])
+        loss, grads = sharding.sharded_value_and_grad_fn(demo, demo_config, mesh)(
+            params, demo_camera, target, SHARDED_KEY)
+        loss_1, grads_1 = hand_built_grads(demo, demo_camera, demo_config, params, target,
+                                           SHARDED_KEY, 1)
+        for f, g in grads_1.items():
+            if not np.allclose(grads[f].cpu().numpy(), g, rtol=CARD_VS_CPU_RTOL,
+                               atol=CARD_VS_CPU_ATOL):
+                raise RuntimeError(f"NCCL (1, 1) value_and_grad {f} differs")
+        flat = torch.zeros(1 + sum(g.numel() for g in grads.values()), device=device)
+        shard = sharding.shard_gbuffer(GBuffer.create(n, device), demo_config, mesh)
+        gather_ms = collective_ms(lambda: sharding.unshard_gbuffer(shard, demo_config, mesh),
+                                  sync)
+        reduce_ms = collective_ms(lambda: dist.all_reduce(flat), sync)
+    finally:
+        dist.destroy_process_group()
+    log(f"sharded NCCL world 1: render_sharded of the demo on a (1, 1) mesh bit-equal to "
+        f"one process's render (flat launches {launches}); unshard_gbuffer through NCCL; "
+        f"value_and_grad loss {float(loss):.6f} (hand-built {loss_1:.6f}), grads within rtol "
+        f"{CARD_VS_CPU_RTOL:g}; collectives (world 1, not scaling): G-buffer all_gather "
+        f"{gather_ms:.3f} ms, grad all_reduce {reduce_ms:.3f} ms")
+
+
 def main() -> int:
     global CARD, LANE_SLOTS_PER_S
     if not torch.cuda.is_available():
@@ -2089,6 +2456,9 @@ def main() -> int:
             phase_resume(cli, counts, demo_argv, tmp)
         with Phase("interactive"):
             phase_interactive(demo, counts, device)
+        with Phase("sharded"):
+            phase_sharded(cli, counts, {"demo": demo, "hero20k": hero20k, "hero": hero}, device,
+                          tmp)
 
     with Phase("perf"):
         camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)

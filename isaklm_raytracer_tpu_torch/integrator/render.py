@@ -181,11 +181,24 @@ def render_step(
     config: RenderConfig,
     adaptive: bool = True,
     trace_fn=None,
+    pixel_ids: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+    reduce=None,
 ) -> GBuffer:
     """Progressive step over every pixel, masked by the adaptive gate
-    (path_tracing.cuh:338-395)."""
-    active = needs_sample(gbuffer, config) if adaptive else None
-    radiance = render_sample(scene, camera, key_words, config, active, trace_fn)
+    (path_tracing.cuh:338-395).
+
+    For a shard of the image (``dist.sharding``): ``pixel_ids`` are the
+    global ids of the G-buffer's entries, ``valid`` masks its padding, and
+    ``reduce`` maps the radiance before it is added (the mean over sample
+    streams)."""
+    active = valid
+    if adaptive:
+        gate = needs_sample(gbuffer, config)
+        active = gate if valid is None else gate & valid
+    radiance = render_sample(scene, camera, key_words, config, active, trace_fn, pixel_ids)
+    if reduce is not None:
+        radiance = reduce(radiance)
     took = active if active is not None else torch.ones_like(gbuffer.count, dtype=torch.bool)
     return GBuffer(
         frame=gbuffer.frame + radiance,
@@ -250,24 +263,29 @@ def compact_step(
     return _accumulate(gb, ids.long(), radiance, valid)
 
 
-def candidates(gb: GBuffer, config: RenderConfig, bucket: int):
-    """(bucket,) ascending ids of the unconverged pixels, -1 padded, and
-    their count. One O(num_pixels) scan, done once when entering tail mode."""
-    ids, n = _first_ids(needs_sample(gb, config), bucket)
+def candidates(gb: GBuffer, config: RenderConfig, bucket: int,
+               valid: Optional[torch.Tensor] = None):
+    """(bucket,) ascending ids of the unconverged pixels (among ``valid``
+    ones), -1 padded, and their count. One O(num_pixels) scan, done once
+    when entering tail mode."""
+    active = needs_sample(gb, config)
+    ids, n = _first_ids(active if valid is None else active & valid, bucket)
     ids = torch.where(torch.arange(bucket, device=ids.device) < n, ids, -1)
     return ids, n
 
 
 def tail_step(
     scene: Scene, camera: Camera, gb: GBuffer, cand: torch.Tensor, key_words,
-    config: RenderConfig, trace_fn=None,
+    config: RenderConfig, trace_fn=None, pixel_ids: Optional[torch.Tensor] = None,
+    reduce=None,
 ):
     """O(bucket) adaptive step over a CANDIDATE id set.
 
     A pixel that leaves the active set accumulates nothing, so it can never
     re-activate: the tail loop re-tests needs_sample only on the candidates.
     Actives stay ascending and compact to the front. Returns
-    (gbuffer', candidates', n_active).
+    (gbuffer', candidates', n_active). ``pixel_ids`` and ``reduce`` as in
+    ``render_step``.
     """
     bucket = cand.shape[0]
     valid_c = cand >= 0
@@ -281,8 +299,10 @@ def tail_step(
     valid = cand2 >= 0
     radiance = render_sample(
         scene, camera, key_words, config, active=valid, trace_fn=trace_fn,
-        pixel_ids=ids,
+        pixel_ids=ids if pixel_ids is None else pixel_ids[ids.long()],
     )
+    if reduce is not None:
+        radiance = reduce(radiance)
     return _accumulate(gb, ids.long(), radiance, valid), cand2, n
 
 

@@ -26,6 +26,7 @@ import torch
 
 from isaklm_raytracer_tpu_torch.accel.cluster import ClusterBVH
 from isaklm_raytracer_tpu_torch.camera.camera import Camera
+from isaklm_raytracer_tpu_torch.config import resolve_device
 from isaklm_raytracer_tpu_torch.scene.types import (
     GBuffer,
     MaterialTable,
@@ -76,8 +77,10 @@ def scene_to_numpy(scene) -> dict:
     }
 
 
-def scene_from_numpy(leaves: dict, device="cpu") -> Scene:
-    """A port Scene on ``device`` from a dict of numpy leaves."""
+def scene_from_numpy(leaves: dict, device="cuda") -> Scene:
+    """A port Scene on ``device`` from a dict of numpy leaves: the card
+    unless the caller passes "cpu"; without a card the default raises."""
+    device = resolve_device(device)
     cbvh = leaves.get("cbvh")
     shade = leaves.get("shade_table")
     return Scene(
@@ -102,8 +105,10 @@ def camera_to_numpy(camera) -> dict:
     return _leaves(camera, _CAMERA)
 
 
-def camera_from_numpy(position, yaw, pitch, fov, aperture_radius, device="cpu") -> Camera:
-    """A port Camera from a Camera's leaves."""
+def camera_from_numpy(position, yaw, pitch, fov, aperture_radius, device="cuda") -> Camera:
+    """A port Camera on ``device`` from a Camera's leaves (the card unless
+    the caller passes "cpu")."""
+    device = resolve_device(device)
     return Camera(*(
         _tensor(np.asarray(x, np.float32), device)
         for x in (position, yaw, pitch, fov, aperture_radius)
@@ -115,8 +120,10 @@ def gbuffer_to_numpy(gbuffer) -> dict:
     return _leaves(gbuffer, _GBUFFER)
 
 
-def gbuffer_from_numpy(frame, sq_luminance, count, device="cpu") -> GBuffer:
-    """A port GBuffer from a GBuffer's leaves."""
+def gbuffer_from_numpy(frame, sq_luminance, count, device="cuda") -> GBuffer:
+    """A port GBuffer on ``device`` from a GBuffer's leaves (the card
+    unless the caller passes "cpu")."""
+    device = resolve_device(device)
     return GBuffer(
         frame=_tensor(np.asarray(frame, np.float32), device),
         sq_luminance=_tensor(np.asarray(sq_luminance, np.float32), device),

@@ -56,16 +56,20 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def sample_key_words(seed: int, index: int) -> tuple[int, int]:
-    """Key words of sample ``index`` of a render seeded with ``seed``.
+def fold_in(key_words, data: int) -> tuple[int, int]:
+    """The key words of ``jax.random.fold_in(key, data)`` for a key with
+    words ``key_words``: with the default threefry implementation and
+    32-bit mode, fold_in hashes the counter ``[0, data mod 2**32]`` under
+    the key."""
+    k0, k1 = (int(k) & _MASK for k in key_words)
+    return threefry2x32(k0, k1, 0, int(data) & _MASK)
 
-    The JAX package draws them as
-    ``key_data(fold_in(PRNGKey(seed), index))``. With the default threefry
-    implementation and 32-bit mode, ``PRNGKey(seed)`` is ``[0, seed mod
-    2**32]`` and ``fold_in(key, i)`` hashes the counter ``[0, i]`` under
-    that key, which is what this returns.
-    """
-    return threefry2x32(0, seed & _MASK, 0, index & _MASK)
+
+def sample_key_words(seed: int, index: int) -> tuple[int, int]:
+    """Key words of sample ``index`` of a render seeded with ``seed``: the
+    JAX package's ``key_data(fold_in(PRNGKey(seed), index))``, where
+    ``PRNGKey(seed)`` has the words ``(0, seed mod 2**32)``."""
+    return fold_in((0, seed), index)
 
 
 def _to_unit(bits: torch.Tensor) -> torch.Tensor:

@@ -331,7 +331,7 @@ _CAMERA_LEAVES = ("position", "yaw", "pitch")
 def test_grad_equals_jax_grad(case):
     scene_fn, (pos, yaw, pitch, fov), seed, cfg, leaves = PARITY[case]
     jscene = scene_fn()
-    pscene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
+    pscene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device="cpu")
     jcam = JCamera.create(pos, yaw=yaw, pitch=pitch, fov=fov)
     pcam = cpu_camera(pos, yaw=yaw, pitch=pitch, fov=fov)
     x0 = [np.asarray(getattr(jcam if k in _CAMERA_LEAVES else jscene.materials, k), np.float32)

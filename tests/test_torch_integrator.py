@@ -48,7 +48,7 @@ N = 1024
 @pytest.fixture(scope="module")
 def scenes():
     jscene = jprepare(jproc.material_demo_scene())
-    return jscene, interop.scene_from_numpy(interop.scene_to_numpy(jscene))
+    return jscene, interop.scene_from_numpy(interop.scene_to_numpy(jscene), device="cpu")
 
 
 def _rays(r, jscene, n=N):
@@ -162,6 +162,6 @@ def test_needs_sample_masks_equal(min_samples, tol):
     jcfg = JConfig(width=64, height=64, min_samples=min_samples, max_samples=10, max_tolerance=tol)
     pcfg = RenderConfig(width=64, height=64, min_samples=min_samples, max_samples=10, max_tolerance=tol)
     want = np.asarray(jneeds(JGBuffer(jnp.asarray(frame), jnp.asarray(sq), jnp.asarray(count)), jcfg))
-    got = needs_sample(interop.gbuffer_from_numpy(frame, sq, count), pcfg).numpy()
+    got = needs_sample(interop.gbuffer_from_numpy(frame, sq, count, device="cpu"), pcfg).numpy()
     assert 0 < want.sum() < n
     np.testing.assert_array_equal(got, want)

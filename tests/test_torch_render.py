@@ -160,12 +160,37 @@ def test_cli_renders_png(tmp_path):
     assert img.shape == (32, 32, 3) and img.mean() > 5
 
 
-@pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--multihost"], ["--devices", "4"], ["--no-kd"],
-])
+@pytest.mark.parametrize("flags", [["--no-kd"]])
 def test_cli_rejects_unported_flags(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main([*flags, "--width", "8", "--height", "8"])
+
+
+@pytest.mark.parametrize("feature", ["devices 2 cpu", "devices 4 no card", "multihost no env"])
+def test_cli_multi_device_flags_reach_their_feature(feature, tmp_path, monkeypatch):
+    """The multi-device flags, rejected before their port, reach it at 8x8
+    on the CPU: ``--devices 2 --device cpu`` spawns two gloo ranks and
+    writes the PNG; ``--devices 4`` without a card names the count it
+    asked for and the count found; ``--multihost`` without torchrun's
+    variables names them."""
+    out = tmp_path / "x.png"
+    argv = ["--width", "8", "--height", "8", "--max-bounces", "2", "--min-samples", "1",
+            "--max-samples", "2", "--out", str(out)]
+    if feature == "devices 2 cpu":
+        assert cli.main([*argv, "--devices", "2", "--device", "cpu"]) == 0
+        assert _read_png(str(out)).shape == (8, 8, 3)
+        return
+    if feature == "devices 4 no card":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="asks for 4 CUDA cards, 0 found"):
+            cli.main([*argv, "--devices", "4"])
+    else:
+        for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(name, raising=False)
+        with pytest.raises(RuntimeError,
+                           match="--multihost: MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE not set"):
+            cli.main([*argv, "--multihost", "--device", "cpu"])
+    assert not out.exists()
 
 
 @pytest.mark.parametrize("feature", ["manifest", "checkpoint", "preview"])

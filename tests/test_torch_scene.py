@@ -91,7 +91,7 @@ def test_sample_texture_matches():
         JAtlas(**{k: jnp.asarray(v) for k, v in tex.items()}),
         jnp.asarray(tex_id), jnp.asarray(color), jnp.asarray(uv),
     )
-    port = interop.scene_from_numpy(leaves)
+    port = interop.scene_from_numpy(leaves, device="cpu")
     got = sample_texture(port.textures, torch.from_numpy(tex_id),
                          torch.from_numpy(color), torch.from_numpy(uv))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -102,11 +102,11 @@ def test_interop_round_trip():
     arrays, for scene, camera and G-buffer."""
     jscene = jprepare(jproc.material_demo_scene())
     leaves = interop.scene_to_numpy(jscene)
-    _assert_tree_equal(interop.scene_to_numpy(interop.scene_from_numpy(leaves)), leaves)
+    _assert_tree_equal(interop.scene_to_numpy(interop.scene_from_numpy(leaves, device="cpu")), leaves)
 
     jcam = JCamera.create((0.1, 1.2, -1.8), yaw=0.3, pitch=0.15, fov=1.2, aperture_radius=0.01)
     cam_leaves = interop.camera_to_numpy(jcam)
-    cam = interop.camera_from_numpy(**cam_leaves)
+    cam = interop.camera_from_numpy(**cam_leaves, device="cpu")
     _assert_tree_equal(interop.camera_to_numpy(cam), cam_leaves)
 
     r = np.random.default_rng(5)
@@ -116,6 +116,6 @@ def test_interop_round_trip():
         count=jnp.asarray(r.integers(0, 9, 64).astype(np.int32)),
     )
     gb_leaves = interop.gbuffer_to_numpy(jgb)
-    gb = interop.gbuffer_from_numpy(**gb_leaves)
+    gb = interop.gbuffer_from_numpy(**gb_leaves, device="cpu")
     assert gb.count.dtype == torch.int32 and gb.frame.dtype == torch.float32
     _assert_tree_equal(interop.gbuffer_to_numpy(gb), gb_leaves)

@@ -115,7 +115,7 @@ def test_checkpoint_file_matches_jax(tmp_path):
               "sq_luminance": rng.random(256).astype(np.float32),
               "count": rng.integers(0, 9, 256).astype(np.int32)}
     cam = dict(position=(0.25, -1.5, 2.0), yaw=0.3, pitch=-0.2, fov=1.1, aperture_radius=0.01)
-    save_checkpoint(str(tmp_path / "p.npz"), interop.gbuffer_from_numpy(**leaves),
+    save_checkpoint(str(tmp_path / "p.npz"), interop.gbuffer_from_numpy(**leaves, device="cpu"),
                     Camera.create(**cam, device="cpu"), seed=5, next_sample=17)
     jcheckpoint.save_checkpoint(
         str(tmp_path / "j.npz"), JGBuffer(**{k: jnp.asarray(v) for k, v in leaves.items()}),
@@ -174,7 +174,7 @@ def test_port_checkpoint_loads_in_jax_and_continues(tmp_path, scene):
 def test_load_checkpoint_without_card_raises_unless_cpu(tmp_path, monkeypatch):
     path = str(tmp_path / "ck.npz")
     save_checkpoint(path, interop.gbuffer_from_numpy(np.zeros((4, 3)), np.zeros(4),
-                                                     np.zeros(4)),
+                                                     np.zeros(4), device="cpu"),
                     _camera(), seed=0, next_sample=1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
