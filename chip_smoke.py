@@ -10,8 +10,9 @@ raising on failure:
 
 1. card: name, power limit and maximum SM clock as nvidia-smi reports
    them, and the SM count;
-2. build: compiles the eight kernels of ``csrc/`` (six intersectors, the
-   first-block keys and the null kernel) with nvcc, one process per
+2. build: compiles the ten kernels of ``csrc/`` (six intersectors, the
+   first-block keys, the null kernel, the KD walk and the brute force) with
+   nvcc, one process per
    source, all started together, and prints each one's ptxas register and
    spill lines;
 3. kernel flat: the flat intersector against its plain PyTorch version
@@ -171,7 +172,43 @@ raising on failure:
    to ``render``, ``unshard_gbuffer`` and the grad all_reduce through NCCL,
    and their ms. The collectives' times on one card are no multi-card
    scaling numbers;
-18. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
+18. kd: the KD tree's walk kernel (csrc/kd_intersect.cu, both layouts)
+   and the brute-force kernel (csrc/brute_intersect.cu). The demo, the 20k
+   hero and ``hero_scene(300_000)`` (KD_BUILD_LIMIT; its cluster path is
+   blk), each prepared with its KD tree (``prepare_scene(build_kd=True)``;
+   it builds none by default) and its seconds: the native KD build's and
+   ``build_wavefront_kd``'s seconds, nodes, chunk rows and table bytes; on
+   each scene's camera, bounce and NEE wavefronts at 512x512 and on 16,384
+   random rays with 30% inactive, the walk kernel over the chunk rows and
+   over the tree's lists equal to its plain version (``wavefront_plain``,
+   ``kd_plain``) in (t, id, per-ray stats), with the SHA-256 of each (t, id,
+   hit); on every ray of those wavefronts the walk against the scene's
+   cluster kernel under the bench gate (origins lifted LIFT; the
+   disagreements at exact surface origins counted), and on 4,096 rays of
+   each against the brute oracle; both layouts timed at each wavefront
+   beside their bounds (node steps and triangle tests from the kernel's
+   own per-ray counts, which equal the plain version's), and the chunk-row
+   kernel in turns with its plain version on the 20k hero's camera
+   wavefront; the card tests of tests/test_torch_kdtree.py (random and edge
+   rays: origins on a splitting plane, rays lying in it, origins on the
+   padded box's faces, axis-aligned rays, active masks). The brute-force
+   kernel equal to ``nearest_hit_brute`` on the Cornell box's and the
+   demo's wavefronts, timed in turns with it on the demo's camera
+   wavefront. Then the demo and the 20k hero rendered at 512x512x8 in one
+   pass with the cluster tables dropped, through the KD walk kernel alone,
+   and with every table dropped, through the brute kernel alone (16
+   launches a sample each), in turns with their cluster path: the
+   s/sample, the pixels that differ and the aggregate gate of each image
+   against the cluster path's; and the CLI's ``--scene demo --no-kd``
+   (the brute kernel alone) at 512x512, 4 samples: its PNG byte-equal to
+   the same run with ``nearest_hit_brute`` in the kernel's place, and
+   beside the flat path's PNG (``--no-kd`` keeps the scene's own light
+   order, so its samples differ by noise); the same run with the moved
+   scene's lights put in ``prepare_scene``'s order (the CLI's
+   ``load_scene`` wrapped) under the aggregate gate of the flat path's PNG.
+   The kernels line takes the KD walk's launches from one render through
+   it, and each kernel's max_abs_err over its kernel-vs-plain comparisons;
+19. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
    steps, demo 512x512x8 and hero 640x360x6, at the CLI's ray_chunk (16384,
    one timed sample after a warm-up) and in one pass (0, two), in turns,
    and one torch.profiler sample at each:
@@ -179,7 +216,7 @@ raising on failure:
    intersector's share; then in one pass each override beside its default
    (demo: flat, flat_mxu; hero: blk, blk_mxu, hbm), in turns, with one
    profiled sample each;
-19. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
+20. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
    the material albedo) through the entry points: demo 512x512x8 and hero
    640x360x6 at ray_chunk 0 (two timed samples each) and 16384 (one), the
    hero again in one pass under
@@ -1088,7 +1125,7 @@ def sample_seconds(render, scene, camera, config, counts, samples: int = 2):
     return seconds, (intersector_launches(counts) - before) / samples
 
 
-INTERSECTORS = ("flat", "flat_mxu", "queue", "hbm", "blk", "blk_mxu")
+INTERSECTORS = ("flat", "flat_mxu", "queue", "hbm", "blk", "blk_mxu", "kd", "brute")
 
 
 def intersector_launches(counts) -> int:
@@ -1971,6 +2008,367 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
         f"{gather_ms:.3f} ms, grad all_reduce {reduce_ms:.3f} ms")
 
 
+# Phase kd: the KD tree's walk kernel and the brute-force kernel. Issue
+# slots per unit of work (see the note on issue slots above):
+#   KD_NODE_SLOTS, one inner-node step: the plane subtraction and division
+#     11, the side tests 4, the near/far/push classification 5, the child
+#     and exit selects 4;
+#   KD_ROOT_SLOTS, the root box's slab test once a ray: six subtractions and
+#     six divisions 66, ten min/max and the comparison 11;
+#   each triangle test of a walk or of the brute force: TRI_HIT_SLOTS, the
+#     cluster test's (the normal and Cramer terms a KD test forms from the
+#     triangle's corners count as free: the bound is what the least work
+#     could take).
+KD_NODE_SLOTS, KD_ROOT_SLOTS = 24, 77
+KD_SIZE = (512, 512, 8)  # the phase's wavefronts and renders: width, height, bounces
+KD_ORACLE_RAYS = 4096
+
+
+def kd_tables_bytes(tree, vertices=None) -> int:
+    """The bytes of a walk's tables: the packed nodes and the chunk rows, or
+    the tree's lists and the vertices."""
+    if vertices is None:
+        leaves = (tree.leaf_first, tree.chunk_next, tree.chunk_tri, tree.chunk_data)
+    else:
+        leaves = (tree.tri_indices, vertices)
+    return tree.nodes.numel() * 4 + sum(t.numel() * t.element_size() for t in leaves)
+
+
+def kd_bound(stats, num_rays: int, table_bytes: int) -> dict:
+    """The bound of a KD walk call from its per-ray (steps, rows, tests):
+    the node steps, the triangle tests and the root test in issue slots, the
+    rays (32 bytes in, 8 out) and the tables in bytes."""
+    steps, _, tests = stats.sum(dim=0).tolist()
+    return bound(steps * KD_NODE_SLOTS + tests * TRI_HIT_SLOTS + num_rays * KD_ROOT_SLOTS,
+                 num_rays * 40 + table_bytes)
+
+
+def sha(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# the camera of each scene's wavefronts and renders: the bench camera, and
+# hero_small_32's for the 20k hero (as phase sharded)
+KD_EYES = {"demo": (BENCH_EYE, BENCH_PITCH), "hero20k": (GOLDEN_EYE, 0.0),
+           "hero300k": (BENCH_EYE, BENCH_PITCH), "cornell": ((0.0, 0.0, -0.9), 0.0)}
+
+
+def kd_wavefronts(label, scene, device):
+    """The scene's camera, bounce and NEE wavefronts at KD_SIZE through its
+    cluster kernel (main_path_rays), on the surfaces and lifted."""
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.integrator.render import make_trace_fn
+
+    w, h, b = KD_SIZE
+    trace = make_trace_fn(scene, RenderConfig(width=w, height=h, max_bounces=b))
+    sets, lifted = main_path_rays(scene, np.random.default_rng(10), device,
+                                  lambda cbvh, o, d: trace(o, d), w, h, *KD_EYES[label])
+    log(f"kd {label}: wavefronts " + ", ".join(f"{k} {v[0].shape[0]}" for k, v in sets.items()))
+    return trace, sets, lifted
+
+
+def kd_against_cluster(label, kd_out, cluster_out, o, d, t_max, vertices) -> None:
+    """The KD walk's (t, id) against a cluster kernel's (t, id, hit) on every
+    ray, under the bench gate (the walk ignores t_max; its hit counts
+    inside the window). The two exact structures test triangles by two
+    formulas: the walk by the brute oracle's (the unit normal), the cluster
+    kernels by the cluster contract's (precomputed Cramer terms), which
+    round apart for rays that graze or lie in a triangle's plane and at
+    knife-edge hits. So on every ray where they disagree the brute oracle
+    decides: the walk must equal it there bit for bit, or the check fails;
+    the rays where the cluster kernel alone parts from the oracle are
+    counted."""
+    t_k, i_k = kd_out
+    t_c, i_c, h_c = cluster_out
+    h_k = i_k >= 0
+    want = h_k if t_max is None else h_k & (t_k < t_max)
+    both = h_c & want
+    rel = torch.where(both, (t_c - t_k).abs() / t_k.clamp_min(1e-3), 0.0)
+    differ = (h_c != want) | (rel > 1e-3)
+    rows = torch.nonzero(differ).flatten()
+    ties = int(((i_c != i_k) & both & ~differ).sum())
+    walk_wrong = 0
+    if rows.numel():
+        t_b, i_b, _ = brute(o[rows], d[rows], vertices, rays_per_call=1024)
+        wrong = (i_k[rows] != i_b) | (t_k[rows] != t_b)
+        walk_wrong = int(wrong.sum())
+        for r in rows[wrong][:8].tolist():
+            log(f"  ray {r}: KD walk t={float(t_k[r]):.9g} id={int(i_k[r])}; cluster "
+                f"t={float(t_c[r]):.9g} id={int(i_c[r])} hit={bool(h_c[r])}")
+    log(f"{label}, {o.shape[0]} rays: hits {int(want.sum())}; within the bench gate on "
+        f"{o.shape[0] - rows.numel()} (max rel dt {float(torch.where(differ, 0.0, rel).max()):.2e}, "
+        f"ids differing at ties {ties}); on {rows.numel()} the cluster kernel parts from the "
+        f"brute oracle and the walk equals it bit for bit"
+        + (f", except {walk_wrong}" if walk_wrong else ""))
+    if walk_wrong:
+        raise RuntimeError(f"{label}: the KD walk differs from the cluster kernel and the oracle")
+
+
+def kernel_err(got, want) -> tuple:
+    """max |kernel t - plain t| over the rays where both are finite, and the
+    count of differing ids."""
+    fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
+    dt = (got[0][fin].double() - want[0][fin].double()).abs()
+    return (float(dt.max()) if dt.numel() else 0.0), int((got[1] != want[1]).sum())
+
+
+def in_prepared_light_order(scene):
+    """``scene`` (unprepared) with its light list in the order
+    ``prepare_scene`` gives it: sorted by the triangles' cluster order."""
+    from isaklm_raytracer_tpu_torch.accel.cluster import cluster_order
+
+    order = cluster_order(scene.vertices.cpu().numpy())
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size)
+    lights = scene.light_indices.cpu().numpy()
+    return scene.replace(light_indices=torch.as_tensor(
+        lights[np.argsort(inv[lights])], device=scene.light_indices.device))
+
+
+def phase_kd(cli, counts, device, demo_argv, results) -> None:
+    """Phase kd (the module docstring, 18)."""
+    from isaklm_raytracer_tpu_torch.accel import (
+        build_kd_tree,
+        build_wavefront_kd,
+        nearest_hit_brute,
+        prepare_scene,
+    )
+    from isaklm_raytracer_tpu_torch.accel.kd_traverse import kd_plain
+    from isaklm_raytracer_tpu_torch.accel.wavefront import wavefront_plain
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.integrator.render import (
+        intersector_name,
+        render,
+        resolve_image,
+    )
+    from isaklm_raytracer_tpu_torch.kernels import intersect as ki
+    from isaklm_raytracer_tpu_torch.scene import procedural
+
+    # 1. builds: prepare_scene asked for the KD tree (it builds none by
+    # default), then the native KD build and the chunk rows of each scene
+    scenes = {}
+    for label, build in (("demo", procedural.material_demo_scene),
+                         ("hero20k", lambda: procedural.hero_scene(20_000)),
+                         ("hero300k", lambda: procedural.hero_scene(300_000))):
+        raw = build()
+        t0 = time.perf_counter()
+        scene = scenes[label] = prepare_scene(raw, device, build_kd=True)
+        torch.cuda.synchronize()
+        log(f"kd {label}: prepare_scene(build_kd=True) {time.perf_counter() - t0:.2f} s "
+            f"(cluster tables, KD tree and chunk rows, moved); cluster path "
+            f"{intersector_name(scene.cbvh)}")
+    for label, scene in scenes.items():
+        verts = scene.vertices.cpu().numpy()
+        t0 = time.perf_counter()
+        kd = build_kd_tree(verts)
+        t1 = time.perf_counter()
+        wkd = build_wavefront_kd(kd, verts)
+        t2 = time.perf_counter()
+        if not (np.array_equal(kd.child_b, scene.kd.child_b.cpu().numpy())
+                and np.array_equal(wkd.chunk_tri, scene.wkd.chunk_tri.cpu().numpy())):
+            raise RuntimeError(f"kd {label}: the prepared tree differs from a rebuild")
+        log(f"kd {label}: {scene.num_triangles} triangles; native KD build {t1 - t0:.3f} s, "
+            f"build_wavefront_kd {t2 - t1:.3f} s; {kd.child_a.shape[0]} nodes, "
+            f"{kd.tri_indices.shape[0]} leaf entries, {wkd.chunk_tri.shape[0]} chunk rows of "
+            f"{wkd.leaf_width}; tables {kd_tables_bytes(scene.wkd) / 2**20:.2f} MiB (chunk "
+            f"rows), {kd_tables_bytes(scene.kd, scene.vertices) / 2**20:.2f} MiB (tree lists)")
+
+    # 2.-3. the walk kernel against its plain version (both layouts), and
+    # against the scene's cluster kernel and the brute oracle
+    rng = np.random.default_rng(18)
+    row = None
+    kd_err, kd_ids = 0.0, 0
+    for label, scene in scenes.items():
+        trace, sets, lifted = kd_wavefronts(label, scene, device)
+        cluster = intersector_name(scene.cbvh)
+        verts = scene.vertices
+        lo, hi = verts.reshape(-1, 3).min(0).values.cpu().numpy(), \
+            verts.reshape(-1, 3).max(0).values.cpu().numpy()
+        o_r, d_r = random_rays(rng, 16384, lo, hi, device)
+        act_r = torch.tensor(rng.random(16384) > 0.3, device=device)
+        checks = {**{k: (o, d, None) for k, (o, d, _) in sets.items()},
+                  "random, 70% active": (o_r, d_r, act_r)}
+        for kind, (o, d, act) in checks.items():
+            for layout, kernel, plain in (
+                ("chunk rows", lambda: ki.kd_intersect(scene.wkd, o, d, 1e-5, act, stats=True),
+                 lambda: wavefront_plain(scene.wkd, o, d, 1e-5, act, stats=True)),
+                ("tree lists",
+                 lambda: ki.kd_intersect(scene.kd, o, d, 1e-5, act, vertices=verts, stats=True),
+                 lambda: kd_plain(scene.kd, verts, o, d, 1e-5, act, stats=True)),
+            ):
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err, ids = kernel_err(got, want)
+                kd_err, kd_ids = max(kd_err, err), kd_ids + ids
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise RuntimeError(f"kd {label} {kind} ({layout}): kernel != plain version "
+                                       f"(max |dt| {err:.3e}, {ids} ids differ)")
+                log(f"kd {label} {kind} ({layout}): {o.shape[0]} rays, kernel == plain version "
+                    f"in (t, id, stats); sha256 (t, id, hit) {sha(got[0], got[1], got[1] >= 0)}; "
+                    f"steps/rows/tests {got[2].sum(dim=0).tolist()}")
+        # two exact structures: the walk against the cluster kernel on every
+        # ray, on the surfaces and lifted; the brute oracle on the rays where
+        # they disagree, and on a sample
+        for kind in sets:
+            for origin, rays in (("lifted", lifted), ("on the surface", sets)):
+                o, d, t_max = rays[kind]
+                kd_against_cluster(f"kd {label} {kind} ({origin}): the KD walk against "
+                                   f"{cluster}", ki.kd_intersect(scene.wkd, o, d),
+                                   trace(o, d, t_max=t_max), o, d, t_max, verts)
+            o, d, t_max = lifted[kind]
+            pick = torch.tensor(rng.choice(o.shape[0], min(KD_ORACLE_RAYS, o.shape[0]),
+                                           replace=False), device=device)
+            o, d = o[pick], d[pick]
+            t_max = None if t_max is None else t_max[pick]
+            t_k, i_k = ki.kd_intersect(scene.wkd, o, d)
+            oracle_gate(f"kd {label} {kind} (lifted): the KD walk against the brute oracle, "
+                        f"{o.shape[0]} rays", t_k, i_k, i_k >= 0,
+                        brute(o, d, verts, rays_per_call=1024), None, None, True)
+        if label == "hero20k":  # the kernels line's row
+            o, d, _ = sets["camera"]
+            nbytes = kd_tables_bytes(scene.wkd)
+            k_ms, p_ms, out = time_in_turns(
+                f"kd_intersect (chunk rows) hero20k camera wavefront, {o.shape[0]} rays",
+                lambda: ki.kd_intersect(scene.wkd, o, d, stats=True),
+                lambda: wavefront_plain(scene.wkd, o, d, stats=True), plain_reps=1,
+                plain_warmup=0)
+            row = {"ms": k_ms, "plain_ms": p_ms, **kd_bound(out[2], o.shape[0], nbytes),
+                   "shape": f"{o.shape[0]} camera rays x {scene.wkd.nodes.shape[0]} nodes, "
+                            f"{scene.wkd.chunk_tri.shape[0]} chunk rows (hero20k)"}
+        for kind, (o, d, _) in sets.items():
+            for layout, tree, v in (("chunk rows", scene.wkd, None), ("tree lists", scene.kd, verts)):
+                ms, out = cuda_ms(lambda: ki.kd_intersect(tree, o, d, vertices=v, stats=True),
+                                  reps=5)
+                b = kd_bound(out[2], o.shape[0], kd_tables_bytes(tree, v))
+                log(f"time kd_intersect ({layout}) {label} {kind} wavefront, {o.shape[0]} rays: "
+                    f"{ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+                    f"{b['ops']:.4g} issue slots, {b['bytes']:.4g} bytes)")
+    card_test("test_torch_kdtree", "test_cuda_kd_kernel_matches_plain_version", "wavefront")
+    card_test("test_torch_kdtree", "test_cuda_kd_kernel_matches_plain_version", "kd")
+
+    # 4. the brute-force kernel against nearest_hit_brute
+    cornell = prepare_scene(procedural.cornell_box(glossy=True), device)
+    brute_row = None
+    brute_err, brute_ids = 0.0, 0
+    for label, scene in (("cornell", cornell), ("demo", scenes["demo"])):
+        _, sets, _ = kd_wavefronts(label, scene, device)
+        v = scene.vertices
+        for kind, (o, d, _) in sets.items():
+            got = ki.brute_intersect(v, o, d)
+            want = brute(o, d, v, rays_per_call=16384)
+            torch.cuda.synchronize()
+            err, ids = kernel_err(got, want)
+            brute_err, brute_ids = max(brute_err, err), brute_ids + ids
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"brute {label} {kind}: kernel != nearest_hit_brute "
+                                   f"(max |dt| {err:.3e}, {ids} ids differ)")
+            log(f"brute {label} {kind}: {o.shape[0]} rays x {v.shape[0]} triangles, kernel == "
+                f"nearest_hit_brute; sha256 (t, id, hit) {sha(*got)}")
+        if label == "demo":
+            o, d, _ = sets["camera"]
+            k_ms, p_ms, _ = time_in_turns(
+                f"brute_intersect demo camera wavefront, {o.shape[0]} rays x {v.shape[0]} "
+                "triangles", lambda: ki.brute_intersect(v, o, d)[:2],
+                lambda: brute(o, d, v, rays_per_call=16384)[:2], plain_reps=1, plain_warmup=0)
+            brute_row = {"ms": k_ms, "plain_ms": p_ms,
+                         **bound(o.shape[0] * v.shape[0] * TRI_HIT_SLOTS,
+                                 o.shape[0] * 40 + v.numel() * 4),
+                         "shape": f"{o.shape[0]} camera rays x {v.shape[0]} triangles (demo)"}
+    card_test("test_torch_kdtree", "test_cuda_brute_kernel_matches_nearest_hit_brute")
+
+    # 5. renders through the KD walk kernel and the brute-force kernel, in
+    # turns with the cluster path, on the prepared scene (the same triangle
+    # and light order, so the same random numbers: the images differ only
+    # where the two formulas part); then the --no-kd CLI
+    w, h, b = KD_SIZE
+    config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
+    for label in ("demo", "hero20k"):
+        scene = scenes[label]
+        eye, pitch = KD_EYES[label]
+        camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
+        cluster = intersector_name(scene.cbvh)
+        paths = {cluster: scene, "kd": scene.replace(cbvh=None),
+                 "brute": scene.replace(cbvh=None, wkd=None, kd=None)}
+        images, per = {}, {}
+        for name in (*paths, *reversed(paths)):
+            counts.reset()
+            t0 = time.perf_counter()
+            gb = render(paths[name], camera, config, num_samples=2, seed=0)
+            torch.cuda.synchronize()
+            per.setdefault(name, []).append((time.perf_counter() - t0) / 2)
+            images[name] = resolve_image(gb, config).cpu().numpy()
+            if name != cluster:
+                launches = getattr(counts, f"{name}_kernel")
+                others = intersector_launches(counts) - launches
+                log(f"kd render {label} through {name}: {name}_kernel launches {launches} in 2 "
+                    f"samples ({launches / 2:g} a sample), other intersectors {others}, plain "
+                    f"calls on CUDA {counts.plain_cuda()}")
+                if launches != 2 * 2 * b or others or counts.plain_cuda():
+                    raise RuntimeError(f"kd render {label}: not through the {name} kernel alone")
+                if name == "kd":  # the kernels line's: one render, counts reset just before
+                    kd_launches = launches
+        log(f"kd render {label} {w}x{h}x{b}, s/sample in turns (2 samples each, the first "
+            "pass with its warm-up): " + "; ".join(
+                f"{n} {s[0]:.4f}/{s[1]:.4f}" for n, s in per.items()))
+        for name in ("kd", "brute"):
+            a, c = images[name], images[cluster]
+            log(f"kd render {label} through {name}: {int((a != c).any(axis=-1).sum())} of "
+                f"{w * h} pixels differ from the {cluster} path's")
+            aggregate_gate(f"kd render {label} through {name} (against the {cluster} path)",
+                           a * 255.0, c * 255.0)
+    # --no-kd renders the scene as built, in its own triangle and light
+    # order: its NEE picks another light with the same random numbers, so
+    # its PNG differs from the prepared scene's by the noise of 4 samples
+    # (logged). It is held to the same CLI run with nearest_hit_brute, the
+    # kernel's plain version, in its place, byte for byte; and the same run
+    # with the moved scene's lights in prepare_scene's order is held to the
+    # cluster path's PNG under the aggregate gate, which shows that the
+    # light order is the whole difference.
+    import isaklm_raytracer_tpu_torch.integrator.render as render_module
+
+    argv = [*demo_argv, "--no-adaptive", "--min-samples", "4", "--max-samples", "4",
+            "--ray-chunk", "0", "--no-kd"]
+    brute_launches, nokd = cli_path("brute", counts, (("demo_no_kd", argv),), "brute", cli)
+    kernel_wrapper = render_module.brute_intersect
+    render_module.brute_intersect = (
+        lambda v, o, d, t_eps, active=None, t_max=None: nearest_hit_brute(o, d, v, t_eps,
+                                                                          active=active))
+    try:
+        counts.reset()
+        plain = run_cli("demo --no-kd, nearest_hit_brute in place of the kernel", cli, argv,
+                        os.path.join(OUT_DIR, "chip_smoke_demo_no_kd_plain.png"))[0]
+    finally:
+        render_module.brute_intersect = kernel_wrapper
+    if counts.brute_kernel or not np.array_equal(plain, nokd["demo_no_kd"]):
+        raise RuntimeError("CLI demo --no-kd: the brute kernel's PNG differs from its plain "
+                           "version's")
+    log("CLI demo --no-kd: PNG byte-equal to the same run through nearest_hit_brute")
+    flat_png = cli_path("flat", counts, (("demo_4spp", argv[:-1]),), "flat", cli)[1]
+    dev = np.abs(nokd["demo_no_kd"].astype(np.float64) - flat_png["demo_4spp"]) / 255.0
+    log(f"CLI demo --no-kd against the prepared scene's flat path at 4 samples (other light "
+        f"order, not gated): mean |d| {dev.mean():.3e}, pixels off by more than {AGG_PIXEL:g} "
+        f"{float((dev.max(axis=-1) > AGG_PIXEL).mean()):.3%}, image means "
+        f"{nokd['demo_no_kd'].mean():.3f} and {flat_png['demo_4spp'].mean():.3f}")
+    real_load = cli.load_scene
+    cli.load_scene = lambda args, dev: in_prepared_light_order(real_load(args, dev))
+    try:
+        ordered = cli_path("brute", counts, (("demo_no_kd_light_order", argv),), "brute", cli)[1]
+    finally:
+        cli.load_scene = real_load
+    aggregate_gate("CLI demo --no-kd with its lights in prepare_scene's order, against the "
+                   "flat path's PNG", ordered["demo_no_kd_light_order"], flat_png["demo_4spp"])
+    log(f"kernels line, kd: max |dt| {kd_err:.3e} and {kd_ids} differing ids over every "
+        f"kernel-vs-plain comparison; brute: {brute_err:.3e} and {brute_ids}")
+    results["kd"] = {"max_abs_err": kd_err, "launches": kd_launches, **row}
+    results["brute"] = {"max_abs_err": brute_err, "launches": brute_launches, **brute_row}
+
+
 def main() -> int:
     global CARD, LANE_SLOTS_PER_S
     if not torch.cuda.is_available():
@@ -2460,6 +2858,9 @@ def main() -> int:
             phase_sharded(cli, counts, {"demo": demo, "hero20k": hero20k, "hero": hero}, device,
                           tmp)
 
+    with Phase("kd"):
+        phase_kd(cli, counts, device, demo_argv, results)
+
     with Phase("perf"):
         camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
         perf("demo", render, demo, camera, 512, 512, 8, counts, kernel_symbol("flat"), card)
@@ -2501,7 +2902,8 @@ def main() -> int:
     launches = {"flat": flat_launches, "queue": queue_launches, "blk": blk_launches,
                 "first_blocks": first_blocks_launches, "hbm": hbm_launches,
                 "flat_mxu": flat_mxu_launches, "blk_mxu": blk_mxu_launches,
-                "null": null_launches}
+                "null": null_launches, "kd": results["kd"]["launches"],
+                "brute": results["brute"]["launches"]}
     # the CUDA kernel of each entry and the TPU kernel it replaces
     pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
     kernels = {
@@ -2514,6 +2916,9 @@ def main() -> int:
         "blk_mxu": ("blk_mxu_intersect", pallas + "643"),  # _blk_kernel's mxu branches
         # null_kernel; null_small's lambda (:143) is the same kernel without scratch
         "null": ("null_intersect", "scripts/fixed_cost_probe.py:99"),
+        # no Pallas kernel: the jnp functions they compute
+        "kd": ("kd_intersect", "isaklm_raytracer_tpu/accel/wavefront.py:165"),
+        "brute": ("brute_intersect", "isaklm_raytracer_tpu/accel/traverse.py:73"),
     }
     for k, r in results.items():
         log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches from "

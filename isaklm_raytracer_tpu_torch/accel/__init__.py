@@ -14,19 +14,33 @@ from isaklm_raytracer_tpu_torch.accel.cluster import (
     with_mxu_tiles,
     with_oct_branch,
 )
+from isaklm_raytracer_tpu_torch.accel.kd_traverse import nearest_hit_kd
+from isaklm_raytracer_tpu_torch.accel.kdtree import build_kd_tree
 from isaklm_raytracer_tpu_torch.accel.traverse import (
     HitAttributes,
     hit_attributes,
     nearest_hit_brute,
 )
+from isaklm_raytracer_tpu_torch.accel.wavefront import (
+    WavefrontKD,
+    build_wavefront_kd,
+    nearest_hit_wavefront,
+)
 from isaklm_raytracer_tpu_torch.config import resolve_device
 from isaklm_raytracer_tpu_torch.kernels.intersect import VMEM_TABLE_LIMIT
 
+KD_BUILD_LIMIT = 300_000  # build_kd=None builds the KD tree up to this size
 
-def prepare_scene(scene, device="cuda"):
+
+def prepare_scene(scene, device="cuda", *, max_depth: int = 19, leaf_size: int = 7,
+                  leaf_width: int = 8, build_kd: bool | None = False):
     """Build the acceleration tables of a Scene and move it to ``device``:
     the card unless the caller passes "cpu"; without a card the default
     raises (``config.resolve_device``).
+
+    The KD arguments are keyword-only, after ``device``: the JAX package
+    takes ``(scene, max_depth, leaf_size, leaf_width, build_kd)``
+    positionally, and here the second positional argument is the device.
 
     Port of ``isaklm_raytracer_tpu.accel.prepare_scene``:
 
@@ -39,9 +53,20 @@ def prepare_scene(scene, device="cuda"):
        blocked layout with ``ISAKLM_BLK_BRANCH`` clusters per block
        (default 128, as the JAX package), else the MXU tile pairs;
     3. packs the (T, 32) shading rows
-       [p1 p2 p3 | n1 n2 n3 | uv1 uv2 uv3 | mat_id | pad].
+       [p1 p2 p3 | n1 n2 n3 | uv1 uv2 uv3 | mat_id | pad];
+    4. with ``build_kd``, builds the KD tree (``build_kd_tree(verts,
+       max_depth, leaf_size)``, the native builder) and its chunk-row layout
+       (``build_wavefront_kd`` with ``leaf_width``) on the host: the tables
+       of the walks (``nearest_hit_wavefront``, ``nearest_hit_kd``), which
+       ``integrator.render.make_trace_fn`` takes only for a scene without
+       cluster tables. ``build_kd=None`` builds them for scenes of at most
+       ``KD_BUILD_LIMIT`` triangles, the JAX package's default.
 
-    No KD tree is built: the port has no KD traversal.
+    The default here is ``build_kd=False``, unlike the JAX package: there
+    the tree serves every backend but the TPU, while the port's renders
+    take the cluster tables on every device, so a prepared scene's tree
+    would cost host time and memory before the first sample and serve no
+    render. A caller that walks the tree asks for it.
     """
     device = resolve_device(device)
     verts = np.asarray(scene.vertices)
@@ -63,6 +88,12 @@ def prepare_scene(scene, device="cuda"):
     table[:, 24] = mat_id
 
     blk_branch = _blk_branch(num)
+    if build_kd is None:
+        build_kd = num <= KD_BUILD_LIMIT
+    kd = wkd = None
+    if build_kd:
+        kd = build_kd_tree(verts, max_depth, leaf_size)
+        wkd = build_wavefront_kd(kd, verts, leaf_width)
     return move_scene(
         scene.replace(
             vertices=verts,
@@ -73,6 +104,8 @@ def prepare_scene(scene, device="cuda"):
             shade_table=table,
             cbvh=build_cluster_bvh(verts, blk_branch=blk_branch,
                                    mxu_tiles=blk_branch is None),
+            kd=kd,
+            wkd=wkd,
         ),
         device,
     )
@@ -102,17 +135,25 @@ def move_scene(scene, device):
         textures=scene.textures.to(device),
         shade_table=t(scene.shade_table),
         cbvh=None if scene.cbvh is None else scene.cbvh.to(device),
+        kd=None if scene.kd is None else scene.kd.to(device),
+        wkd=None if scene.wkd is None else scene.wkd.to(device),
     )
 
 
 __all__ = [
+    "KD_BUILD_LIMIT",
     "ClusterBVH",
     "HitAttributes",
+    "WavefrontKD",
     "build_cluster_bvh",
+    "build_kd_tree",
+    "build_wavefront_kd",
     "cluster_order",
     "hit_attributes",
     "move_scene",
     "nearest_hit_brute",
+    "nearest_hit_kd",
+    "nearest_hit_wavefront",
     "prepare_scene",
     "with_blocks",
     "with_mxu_blocks",

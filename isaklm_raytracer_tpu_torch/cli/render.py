@@ -39,8 +39,15 @@ Under a mesh rank 0 reads the checkpoint and broadcasts it, and writes
 it after gathering the G-buffer from every rank; a failed batch is
 retried when any rank failed (a MAX all_reduce of a flag). Every process
 writes ``--out``, except ranks the CLI spawned itself, of which rank 0
-does. Running without the cluster tables (``--no-kd``) is not ported and
-rejected by name.
+does.
+
+``--no-kd`` skips ``prepare_scene``, as in the JAX CLI: the scene is only
+moved to the device and every ray goes through the brute force (the
+brute-force kernel on the card). ``--kd-depth`` and ``--kd-leaf`` are
+accepted so that the JAX CLI's command lines run, and reach
+``RenderConfig`` as there, but build no KD tree and change no output: the
+port's renders take the cluster tables on every device, as the JAX CLI's
+do on a TPU (``accel.prepare_scene`` builds no tree by default).
 
   torchrun --nproc-per-node 4 -m isaklm_raytracer_tpu_torch.cli.render \\
       --multihost --scene hero --width 640 --height 360 --out hero.png
@@ -67,6 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--max-samples", type=int, default=5000)
     p.add_argument("--max-tolerance", type=float, default=0.05)
     p.add_argument("--max-bounces", type=int, default=24)
+    p.add_argument("--kd-depth", type=int, default=19, help="accepted; builds no tree")
+    p.add_argument("--kd-leaf", type=int, default=7, help="accepted; builds no tree")
     p.add_argument("--ray-chunk", type=int, default=16384)
     p.add_argument("--no-adaptive", action="store_true")
     p.add_argument("--no-kd", action="store_true")
@@ -102,20 +111,13 @@ def _devices(text: str):
     return int(text)
 
 
-def _reject_unported(args) -> None:
-    if args.no_kd:
-        raise SystemExit(
-            "isaklm_raytracer_tpu_torch.cli.render: not ported yet: "
-            "--no-kd (the port always builds its cluster tables)"
-        )
-
-
 def load_scene(args, device):
-    """The prepared scene ``--scene`` names, on ``device``: a preset, or the
-    meshes of a JSON manifest (a missing file raises FileNotFoundError)."""
+    """The scene ``--scene`` names, on ``device``: a preset, or the meshes of
+    a JSON manifest (a missing file raises FileNotFoundError); prepared,
+    or only moved under ``--no-kd``."""
     import numpy as np
 
-    from isaklm_raytracer_tpu_torch.accel import prepare_scene
+    from isaklm_raytracer_tpu_torch.accel import move_scene, prepare_scene
     from isaklm_raytracer_tpu_torch.scene import procedural
     from isaklm_raytracer_tpu_torch.scene.obj import Transformation, create_scene_from_files
 
@@ -125,7 +127,8 @@ def load_scene(args, device):
         "hero": procedural.hero_scene,
     }
     if args.scene in presets:
-        return prepare_scene(presets[args.scene](), device)
+        scene = presets[args.scene]()
+        return move_scene(scene, device) if args.no_kd else prepare_scene(scene, device)
 
     from isaklm_raytracer_tpu_torch.math import transforms
 
@@ -143,7 +146,8 @@ def load_scene(args, device):
             Transformation(np.asarray(entry.get("offset", [0, 0, 0]), np.float32), rot),
             entry.get("smooth_normals", False),
         ))
-    return create_scene_from_files(meshes, device=device)
+    scene = create_scene_from_files(meshes, prepare=not args.no_kd, device=device)
+    return move_scene(scene, device) if args.no_kd else scene
 
 
 def _cards_asked(args) -> int:
@@ -189,7 +193,6 @@ def _init_multihost(args) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    _reject_unported(args)
 
     import torch.distributed as dist
 
@@ -278,9 +281,9 @@ def _render(args, spawned: bool = False) -> int:
     from isaklm_raytracer_tpu_torch.dist import sharding
     from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
     from isaklm_raytracer_tpu_torch.integrator.render import (
-        intersector_name,
         render,
         resolve_image,
+        trace_name,
     )
     from isaklm_raytracer_tpu_torch.io.checkpoint import save_checkpoint
     from isaklm_raytracer_tpu_torch.io.png import save_png
@@ -307,6 +310,8 @@ def _render(args, spawned: bool = False) -> int:
         max_samples=args.max_samples,
         max_tolerance=args.max_tolerance,
         max_bounces=args.max_bounces,
+        kd_tree_depth=args.kd_depth,
+        kd_leaf_size=args.kd_leaf,
         ray_chunk=args.ray_chunk,
     )
 
@@ -318,7 +323,7 @@ def _render(args, spawned: bool = False) -> int:
         f"light count: {scene.num_lights if scene.has_lights else 0}\n"
         f"scene build: {time.time() - t0:.1f}s\n"
         f"device: {device} ({device_name}){rank}\n"
-        f"intersector: {intersector_name(scene.cbvh)}",
+        f"intersector: {trace_name(scene)}",
         file=sys.stderr,
     )
 

@@ -20,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from isaklm_raytracer_tpu_torch.accel.traverse import nearest_hit_brute
+from isaklm_raytracer_tpu_torch.accel.kd_traverse import nearest_hit_kd
+from isaklm_raytracer_tpu_torch.accel.wavefront import nearest_hit_wavefront
 from isaklm_raytracer_tpu_torch.camera.camera import Camera, generate_rays
 from isaklm_raytracer_tpu_torch.config import RenderConfig
 from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
@@ -28,6 +29,7 @@ from isaklm_raytracer_tpu_torch.integrator.path_trace import trace_paths
 from isaklm_raytracer_tpu_torch.kernels.intersect import (
     FLAT_CLUSTER_LIMIT,
     VMEM_TABLE_LIMIT,
+    brute_intersect,
     nearest_hit_blk,
     nearest_hit_blk_mxu,
     nearest_hit_flat,
@@ -104,29 +106,45 @@ def blk_sort_mode() -> str:
     return mode
 
 
+def trace_name(scene: Scene) -> str:
+    """What ``make_trace_fn`` traces ``scene`` with, in the JAX package's
+    order of preference: the intersector ``intersector_name`` picks when the
+    scene has cluster tables, else "wavefront kd" (``scene.wkd``), "kd"
+    (``scene.kd``) or "brute"."""
+    if scene.cbvh is not None:
+        return intersector_name(scene.cbvh)
+    if scene.wkd is not None:
+        return "wavefront kd"
+    return "brute" if scene.kd is None else "kd"
+
+
 def make_trace_fn(scene: Scene, config: RenderConfig):
-    """The intersector: trace(o, d, active=None, t_max=None) -> (t, idx, hit).
-    For a prepared scene, the one ``intersector_name`` picks, ordering its
-    rays as the JAX package's ``_pick_cluster_kernel`` does: caller order
-    for flat_mxu, ``blk_sort_mode`` for blk, Morton for the others. A scene
-    without cluster tables gets the brute-force oracle on the CPU; on CUDA
-    it raises, since every nearest-hit query there goes through a kernel."""
+    """The intersector ``trace_name`` names: trace(o, d, active=None,
+    t_max=None) -> (t, idx, hit), a kernel on CUDA tensors and its plain
+    version on CPU tensors:
+
+    - cluster tables: the ``nearest_hit_*`` of the intersector, ordering its
+      rays as the JAX package's ``_pick_cluster_kernel`` does: caller order
+      for flat_mxu, ``blk_sort_mode`` for blk, Morton for the others;
+    - "wavefront kd": ``nearest_hit_wavefront`` over ``scene.wkd``;
+    - "kd": ``nearest_hit_kd`` over ``scene.kd``;
+    - "brute": ``kernels.intersect.brute_intersect`` (``nearest_hit_brute``
+      on the CPU)."""
+    name = trace_name(scene)
     if scene.cbvh is not None:
         # read for every scene, as the JAX package does: a bad value raises
         blk_sort = {"block": "block", "morton": True}[blk_sort_mode()]
-        fn, sort_rays = _INTERSECTORS[intersector_name(scene.cbvh)]
+        fn, sort_rays = _INTERSECTORS[name]
         return functools.partial(
             fn, scene.cbvh, t_eps=config.t_epsilon,
             sort_rays=blk_sort if sort_rays is None else sort_rays,
         )
-    if torch.device(scene.device).type == "cuda":
-        raise ValueError(
-            "scene has no cluster tables: call accel.prepare_scene first (on CUDA "
-            "every nearest-hit query goes through a kernel)"
-        )
-    return functools.partial(
-        nearest_hit_brute, vertices=scene.vertices, t_eps=config.t_epsilon
-    )
+    if name == "wavefront kd":
+        return functools.partial(nearest_hit_wavefront, scene.wkd, t_eps=config.t_epsilon)
+    if name == "kd":
+        return functools.partial(nearest_hit_kd, scene.kd, scene.vertices,
+                                 t_eps=config.t_epsilon)
+    return functools.partial(brute_intersect, scene.vertices, t_eps=config.t_epsilon)
 
 
 def render_sample(

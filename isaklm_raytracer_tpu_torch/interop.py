@@ -16,7 +16,12 @@ Scene dict layout (keys as the Scene fields):
   shade_table (may be None),
   cbvh (may be None): {tri_const, clu_bbox, num_triangles, clu_bbox_t,
     blk_const, blk_bbox_t, blk_branch, oct_bbox, oct_bbox_t, mxu_const,
-    mxu_branch, mxu_tiles} (every table but the first two may be None).
+    mxu_branch, mxu_tiles} (every table but the first two may be None),
+  kd (may be None): {child_a, child_b, axis, plane, is_leaf, tri_indices,
+    bbox_min, bbox_max, max_depth},
+  wkd (may be None): {child_a, child_b, axis, plane, is_leaf, leaf_first,
+    chunk_next, chunk_tri, chunk_data, bbox_min, bbox_max, max_depth,
+    leaf_width}.
 """
 
 from __future__ import annotations
@@ -25,10 +30,12 @@ import numpy as np
 import torch
 
 from isaklm_raytracer_tpu_torch.accel.cluster import ClusterBVH
+from isaklm_raytracer_tpu_torch.accel.wavefront import WavefrontKD
 from isaklm_raytracer_tpu_torch.camera.camera import Camera
 from isaklm_raytracer_tpu_torch.config import resolve_device
 from isaklm_raytracer_tpu_torch.scene.types import (
     GBuffer,
+    KDTreeArrays,
     MaterialTable,
     Scene,
     TextureAtlas,
@@ -42,6 +49,9 @@ _GBUFFER = ("frame", "sq_luminance", "count")
 _CBVH = ("tri_const", "clu_bbox", "clu_bbox_t", "blk_const", "blk_bbox_t", "oct_bbox",
          "oct_bbox_t", "mxu_const", "mxu_tiles")
 _CBVH_INTS = ("num_triangles", "blk_branch", "mxu_branch")
+_KD = ("child_a", "child_b", "axis", "plane", "is_leaf", "tri_indices", "bbox_min", "bbox_max")
+_WKD = ("child_a", "child_b", "axis", "plane", "is_leaf", "leaf_first", "chunk_next",
+        "chunk_tri", "chunk_data", "bbox_min", "bbox_max")
 
 
 def _np(x) -> np.ndarray:
@@ -60,10 +70,18 @@ def _leaves(obj, names) -> dict:
     return {k: _np(getattr(obj, k)) for k in names}
 
 
+def _tree(tree, names, ints) -> dict:
+    if tree is None:
+        return None
+    return {**_leaves(tree, names), **{k: int(getattr(tree, k)) for k in ints}}
+
+
 def scene_to_numpy(scene) -> dict:
     """The numpy leaves of a JAX-package or port Scene."""
     cbvh = scene.cbvh
     return {
+        "kd": _tree(scene.kd, _KD, ("max_depth",)),
+        "wkd": _tree(scene.wkd, _WKD, ("max_depth", "leaf_width")),
         **_leaves(scene, _SCENE),
         "has_lights": bool(scene.has_lights),
         "materials": _leaves(scene.materials, _MATERIALS),
@@ -83,6 +101,7 @@ def scene_from_numpy(leaves: dict, device="cuda") -> Scene:
     device = resolve_device(device)
     cbvh = leaves.get("cbvh")
     shade = leaves.get("shade_table")
+    kd, wkd = leaves.get("kd"), leaves.get("wkd")
     return Scene(
         **{k: _tensor(leaves[k], device) for k in _SCENE},
         materials=MaterialTable(
@@ -96,6 +115,11 @@ def scene_from_numpy(leaves: dict, device="cuda") -> Scene:
             **{k: int(cbvh.get(k, 0)) for k in _CBVH_INTS},
         ),
         shade_table=None if shade is None else _tensor(shade, device),
+        kd=None if kd is None else KDTreeArrays(
+            **{k: _tensor(kd[k], device) for k in _KD}, max_depth=kd["max_depth"]),
+        wkd=None if wkd is None else WavefrontKD(
+            **{k: _tensor(wkd[k], device) for k in _WKD}, max_depth=wkd["max_depth"],
+            leaf_width=wkd["leaf_width"]),
         has_lights=bool(leaves["has_lights"]),
     )
 

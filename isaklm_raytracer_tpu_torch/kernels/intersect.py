@@ -37,6 +37,19 @@ serve the tests and ``chip_smoke.py``, not the render.
 kernels of ``scripts/fixed_cost_probe.py``: zeros in the walks' launch
 shape, the fixed cost of a launch.
 
+Two kernels have no Pallas counterpart; each computes a jnp function of
+the JAX package with that function's contract, (t, idx) with +inf and -1
+for a miss, t_max ignored:
+
+- ``kd_intersect`` (``csrc/kd_intersect.cu``): the KD walk, one thread a
+  ray, over the chunk rows of a ``WavefrontKD`` (``nearest_hit_wavefront``)
+  or the tree's own triangle lists (``nearest_hit_kd``); the plain
+  versions are ``accel.wavefront.wavefront_plain`` and
+  ``accel.kd_traverse.kd_plain``;
+- ``brute_intersect`` (``csrc/brute_intersect.cu``): every ray against
+  every triangle (``nearest_hit_brute``, which stays the plain version and
+  the oracle).
+
 Contract, shared by every intersector and its plain version: rays (R, 8)
 float32 with columns [ox oy oz dx dy dz active t_max] give, per ray, the
 best t (t_max when nothing beat it) and the winning id c*128 + lane
@@ -79,7 +92,8 @@ FLAT_CLUSTER_LIMIT = 64  # as the JAX package: at most this many real clusters
 VMEM_TABLE_LIMIT = 6 * 1024 * 1024
 SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu",
            "first_block_keys.cu", "hbm_intersect.cu", "flat_mxu_intersect.cu",
-           "blk_mxu_intersect.cu", "null_intersect.cu")
+           "blk_mxu_intersect.cu", "null_intersect.cu", "kd_intersect.cu",
+           "brute_intersect.cu")
 # The JAX package's packet sizes: the ordering sorts a call's rays only when
 # there are more of them than one packet (DEFAULT_PACKET for every
 # intersector but blk, which the render path calls with BLK_PACKET).
@@ -102,12 +116,16 @@ _WALK_WARPS = 2
 # and at most this many (ray, cluster) pairs tested at once.
 _MASK_ELEMS = 1 << 22
 _PAIR_CHUNK = 4096
+# Stack slots a thread of the KD walk kernel has (csrc/kd_intersect.cu
+# kKdStack): a tree's max_depth + 2 must fit.
+KD_STACK = 64
 
 
 class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
-    KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null")
+    KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null",
+               "kd", "brute")
 
     def __init__(self) -> None:
         self.reset()
@@ -148,6 +166,12 @@ _ENTRY_ARGS = {
     "blk_mxu_intersect": [_P, _I, _I, _P, _I, _P, _I, _F, _P, _P, _P],
     # num_rays, shared_groups, out_t, out_id
     "null_intersect": [_I, _I, _P, _P],
+    # nodes, bbox_min, bbox_max, chunks, leaf_first, chunk_next, chunk_tri,
+    # chunk_data, width, tri_indices, vertices, depth, rays, num_rays, t_eps,
+    # out_t, out_id, stats (or null)
+    "kd_intersect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _F, _P, _P, _P],
+    # vertices, num_tris, rays, num_rays, t_eps, out_t, out_id
+    "brute_intersect": [_P, _I, _P, _I, _F, _P, _P],
 }
 # the COUNTS attribute prefix of each entry point
 _COUNTER = {
@@ -159,6 +183,8 @@ _COUNTER = {
     "flat_mxu_intersect": "flat_mxu",
     "blk_mxu_intersect": "blk_mxu",
     "null_intersect": "null",
+    "kd_intersect": "kd",
+    "brute_intersect": "brute",
 }
 
 
@@ -938,6 +964,95 @@ def null_intersect(rays: torch.Tensor, shared_groups: int = 0):
     _launch("null_intersect", rays, rays.shape[0], int(shared_groups), out_t.data_ptr(),
             out_id.data_ptr())
     return out_t, out_id
+
+
+# --- the KD walk and the brute force (no Pallas counterpart) ---------------
+
+
+def _check_kd(tree, o, d, vertices) -> None:
+    depth = tree.max_depth + 2
+    if depth > KD_STACK:
+        raise ValueError(
+            f"max_depth {tree.max_depth}: the KD walk kernel's stack holds {KD_STACK} cells "
+            f"a ray, the walk needs max_depth + 2 = {depth}"
+        )
+    floats = [o, d, tree.bbox_min, tree.bbox_max]
+    floats += [tree.chunk_data] if vertices is None else [vertices]
+    ints = ([tree.leaf_first, tree.chunk_next, tree.chunk_tri] if vertices is None
+            else [tree.tri_indices])
+    if any(t.dtype != torch.float32 for t in floats) or any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("KD walk: float32 rays, boxes and triangles, int32 indices expected")
+    if any(t.device != o.device for t in floats + ints):
+        raise ValueError("KD walk: the rays and the tree must lie on one device")
+
+
+@torch.no_grad()
+def kd_intersect(tree, o, d, t_eps: float = 1e-5, active=None, vertices=None,
+                 stats: bool = False):
+    """The KD walk kernel on CUDA tensors, its plain version on CPU tensors.
+
+    ``tree``: a ``WavefrontKD`` (the chunk rows; plain version
+    ``accel.wavefront.wavefront_plain``), or with ``vertices`` (N, 3, 3) a
+    ``KDTreeArrays`` (the tree's own lists; ``accel.kd_traverse.kd_plain``).
+    o, d: (R, 3) float32; ``active`` (R,) bool or None. Returns (t (R,)
+    float32, idx (R,) int32): +inf and -1 for a miss and an inactive ray;
+    with ``stats`` also (R, 3) int32 inner-node steps, leaf rows and
+    triangle tests per ray (csrc/kd_intersect.cu).
+    """
+    vertices = None if vertices is None else torch.as_tensor(vertices)
+    _check_kd(tree, o, d, vertices)
+    if not o.is_cuda:
+        if vertices is None:
+            from isaklm_raytracer_tpu_torch.accel.wavefront import wavefront_plain
+
+            return wavefront_plain(tree, o, d, t_eps, active, stats)
+        from isaklm_raytracer_tpu_torch.accel.kd_traverse import kd_plain
+
+        return kd_plain(tree, vertices, o, d, t_eps, active, stats)
+    rays = prep_rays(o, d, active)
+    nodes = tree.nodes
+    if vertices is None:
+        tables = (1, tree.leaf_first, tree.chunk_next, tree.chunk_tri, tree.chunk_data,
+                  tree.leaf_width, None, None)
+    else:
+        tables = (0, None, None, None, None, 0, tree.tri_indices, vertices)
+    _check_contiguous("kd_intersect", nodes, rays, tree.bbox_min, tree.bbox_max,
+                      *(t for t in tables if isinstance(t, torch.Tensor)))
+
+    def ptr(t):
+        return t.data_ptr() if isinstance(t, torch.Tensor) else t
+
+    out_t, out_id = _outputs(rays)
+    out_stats = (torch.zeros((rays.shape[0], 3), dtype=torch.int32, device=rays.device)
+                 if stats else None)
+    _launch("kd_intersect", rays, nodes.data_ptr(), tree.bbox_min.data_ptr(),
+            tree.bbox_max.data_ptr(), *(ptr(t) for t in tables), tree.max_depth + 2,
+            rays.data_ptr(), rays.shape[0], float(t_eps), out_t.data_ptr(), out_id.data_ptr(),
+            None if out_stats is None else out_stats.data_ptr())
+    return (out_t, out_id, out_stats) if stats else (out_t, out_id)
+
+
+@torch.no_grad()
+def brute_intersect(vertices, o, d, t_eps: float = 1e-5, active=None, t_max=None):
+    """The brute-force kernel on CUDA tensors, ``accel.traverse.
+    nearest_hit_brute`` on CPU tensors: every ray against every triangle
+    of vertices (N, 3, 3). o, d: (R, 3). Returns detached (t (R,), idx (R,)
+    int32, hit (R,) bool) with ``nearest_hit_brute``'s contract: the
+    lowest id on ties, (+inf, -1, False) for a miss and an inactive ray;
+    ``t_max`` is accepted for interface parity and ignored."""
+    if not o.is_cuda:
+        from isaklm_raytracer_tpu_torch.accel.traverse import nearest_hit_brute
+
+        return nearest_hit_brute(o, d, vertices, t_eps, active=active, t_max=t_max)
+    rays = prep_rays(o, d, active)
+    _check_rays(rays, vertices)
+    if vertices.dim() != 3 or vertices.shape[1:] != (3, 3):
+        raise ValueError(f"vertices must be (N, 3, 3), got {tuple(vertices.shape)}")
+    _check_contiguous("brute_intersect", vertices, rays)
+    out_t, out_id = _outputs(rays)
+    _launch("brute_intersect", rays, vertices.data_ptr(), vertices.shape[0], rays.data_ptr(),
+            rays.shape[0], float(t_eps), out_t.data_ptr(), out_id.data_ptr())
+    return out_t, out_id, torch.isfinite(out_t)
 
 
 # --- first-block keys -----------------------------------------------------

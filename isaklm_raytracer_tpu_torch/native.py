@@ -1,8 +1,9 @@
-"""ctypes binding of the native (C++) OBJ parser.
+"""ctypes bindings of the native (C++) OBJ parser and KD-tree builder.
 
-Port of ``obj_parse_native`` of ``isaklm_raytracer_tpu/native.py``. The
-parser is the repo's ``native/obj_loader.cpp`` behind a plain C ABI, used
-as it is. At first use it is compiled with g++ into ``_build/`` inside
+Port of ``obj_parse_native`` and ``kd_build_native`` of
+``isaklm_raytracer_tpu/native.py``. They are the repo's
+``native/obj_loader.cpp`` and ``native/kd_builder.cpp`` behind a plain C
+ABI, used as they are. At first use each is compiled with g++ into ``_build/`` inside
 this package (listed in .gitignore), never into ``native/``, whose
 libraries belong to the JAX package. The library's file name hashes the
 source, the compiler and the flags, so a stale build is never loaded. The
@@ -12,7 +13,8 @@ loaded on another host of the same checkout.
 Unlike the JAX package, which prints and falls back to its Python parser,
 a failed build or load raises ``NativeBuildError`` with the compiler's
 message: a large scene never takes the slow path unasked. The Python
-parser runs only when the caller asks for it (``load_mesh(...,
+parser and the numpy KD builder run only when the caller asks for them
+(``load_mesh(..., use_native=False)``, ``build_kd_tree(...,
 use_native=False)``).
 """
 
@@ -31,7 +33,7 @@ NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
-_SOURCES = {"objload": "obj_loader.cpp"}
+_SOURCES = {"objload": "obj_loader.cpp", "kdbuild": "kd_builder.cpp"}
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 
@@ -79,6 +81,59 @@ def _load(name: str) -> ctypes.CDLL:
             raise NativeBuildError(f"cannot load {path}: {e}") from e
         _LIBS[name] = lib
         return lib
+
+
+class _KDResult(ctypes.Structure):
+    _fields_ = [
+        ("child_a", ctypes.POINTER(ctypes.c_int32)),
+        ("child_b", ctypes.POINTER(ctypes.c_int32)),
+        ("axis", ctypes.POINTER(ctypes.c_int32)),
+        ("plane", ctypes.POINTER(ctypes.c_float)),
+        ("is_leaf", ctypes.POINTER(ctypes.c_uint8)),
+        ("n_nodes", ctypes.c_int64),
+        ("tri_indices", ctypes.POINTER(ctypes.c_int32)),
+        ("n_indices", ctypes.c_int64),
+        ("bbox_min", ctypes.c_float * 3),
+        ("bbox_max", ctypes.c_float * 3),
+    ]
+
+
+def kd_build_native(vertices: np.ndarray, max_depth: int, leaf_size: int) -> dict:
+    """Build the KD tree of (N, 3, 3) float32 triangle corners natively:
+    a dict of numpy arrays child_a, child_b, axis (K,) int32, plane (K,)
+    float32, is_leaf (K,) bool, tri_indices (I,) int32, bbox_min and
+    bbox_max (3,) float32, equal to ``accel.kdtree``'s numpy builder bit for
+    bit. Raises NativeBuildError when the builder cannot be built."""
+    lib = _load("kdbuild")
+    lib.kd_build.restype = ctypes.POINTER(_KDResult)
+    lib.kd_build.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.kd_free.argtypes = [ctypes.POINTER(_KDResult)]
+
+    vertices = np.ascontiguousarray(vertices, np.float32)
+    res = lib.kd_build(vertices.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                       len(vertices), max_depth, leaf_size)
+    try:
+        r = res.contents
+        k, i = r.n_nodes, r.n_indices
+
+        def arr(ptr, n):
+            return np.ctypeslib.as_array(ptr, (n,)).copy()
+
+        out = {
+            "child_a": arr(r.child_a, k),
+            "child_b": arr(r.child_b, k),
+            "axis": arr(r.axis, k),
+            "plane": arr(r.plane, k),
+            "is_leaf": arr(r.is_leaf, k).astype(bool),
+            "tri_indices": arr(r.tri_indices, i) if i else np.zeros((0,), np.int32),
+            "bbox_min": np.asarray(r.bbox_min[:], np.float32),
+            "bbox_max": np.asarray(r.bbox_max[:], np.float32),
+        }
+    finally:
+        lib.kd_free(res)
+    return out
 
 
 class _ObjResult(ctypes.Structure):

@@ -191,15 +191,21 @@ def create_scene_from_files(
     meshes: list[tuple],
     prepare: bool = True,
     device="cuda",
+    kd_depth: int | None = None,
+    kd_leaf: int | None = None,
 ) -> Scene:
     """Load a list of (obj_path, mat_path, Transformation, smooth_normals)
     into one Scene (reference create_scene, create_scene.cuh:18-73 +
     create_models.cuh:17-43).
 
     The scene is assembled with host numpy leaves by
-    ``scene.types.build_scene``; with ``prepare`` (the default) it then
-    goes through ``accel.prepare_scene(scene, device)``: the card unless
-    the caller passes "cpu", raising without one. Meshes are parsed by the
+    ``scene.types.build_scene``; with ``prepare`` (the default; the JAX
+    package's ``build_kd``) it then goes through ``accel.prepare_scene``:
+    the card unless the caller passes "cpu", raising without one. Given
+    ``kd_depth`` or ``kd_leaf``, the prepared scene also carries a KD tree
+    of that depth and leaf size (the other at its default, 19 or 7);
+    without them it carries none, ``prepare_scene``'s default, since the
+    port's renders take the cluster tables. Meshes are parsed by the
     native parser (``load_mesh``'s default)."""
     registry = TextureRegistry()
     materials: dict[str, dict] = {"": dict(DEFAULT_MATERIAL)}
@@ -222,7 +228,10 @@ def create_scene_from_files(
     if prepare:
         from isaklm_raytracer_tpu_torch.accel import prepare_scene
 
-        scene = prepare_scene(scene, device)
+        kd = kd_depth is not None or kd_leaf is not None
+        scene = prepare_scene(scene, device, build_kd=kd,
+                              max_depth=19 if kd_depth is None else kd_depth,
+                              leaf_size=7 if kd_leaf is None else kd_leaf)
     return scene
 
 

@@ -3,7 +3,8 @@
 Port of ``isaklm_raytracer_tpu/scene/types.py``: ``flax.struct`` pytrees
 become plain dataclasses. Materials live in a compact ``MaterialTable`` and
 triangles carry a material index; textures share one flat atlas buffer;
-the per-pixel accumulators are the ``GBuffer``.
+the KD tree is the flat ``KDTreeArrays``; the per-pixel accumulators are
+the ``GBuffer``.
 
 ``build_scene`` assembles a scene from HOST numpy arrays; the leaves stay
 numpy until ``accel.prepare_scene`` moves the finished scene to a device
@@ -13,6 +14,7 @@ once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -96,13 +98,56 @@ class TextureAtlas:
         })
 
 
+def pack_kd_nodes(child_a, child_b, axis, is_leaf, plane) -> torch.Tensor:
+    """(K, 4) int32 rows [child_a, child_b, axis | leaf << 2, plane's bits]:
+    one 16-byte load a node for the KD walk kernel (csrc/kd_intersect.cu)."""
+    flags = axis.to(torch.int32) | (is_leaf.to(torch.int32) << 2)
+    return torch.stack([child_a.to(torch.int32), child_b.to(torch.int32), flags,
+                        plane.to(torch.float32).view(torch.int32)], dim=1).contiguous()
+
+
+@dataclasses.dataclass
+class KDTreeArrays:
+    """Flattened KD tree (reference KD_Tree/KD_Tree_Node, scene.cuh:84-112).
+
+    The unioned node struct becomes parallel arrays: for inner nodes
+    (child_a, child_b) are child indices; for leaves they are
+    (index_offset, triangle_count). DFS order, root = 0
+    (create_kd_tree.cuh:267-328). ``accel.kdtree.build_kd_tree`` returns
+    host numpy leaves; ``to`` moves them.
+    """
+
+    child_a: torch.Tensor  # (K,) int32: child_index1 | index_offset
+    child_b: torch.Tensor  # (K,) int32: child_index2 | triangle_count
+    axis: torch.Tensor  # (K,) int32 in {0,1,2}
+    plane: torch.Tensor  # (K,) float32
+    is_leaf: torch.Tensor  # (K,) bool
+    tri_indices: torch.Tensor  # (I,) int32 into triangle arrays
+    bbox_min: torch.Tensor  # (3,) float32 (root bbox, +/- 0.01 pad)
+    bbox_max: torch.Tensor  # (3,) float32
+    max_depth: int = 19
+
+    def to(self, device) -> "KDTreeArrays":
+        return dataclasses.replace(self, **{
+            f.name: _to(getattr(self, f.name), device)
+            for f in dataclasses.fields(self) if f.name != "max_depth"
+        })
+
+    @functools.cached_property
+    def nodes(self) -> torch.Tensor:
+        """The node rows of ``pack_kd_nodes``, packed once per tree."""
+        return pack_kd_nodes(self.child_a, self.child_b, self.axis, self.is_leaf, self.plane)
+
+
 @dataclasses.dataclass
 class Scene:
     """Full scene (reference Scene, scene.cuh:114-121).
 
     vertices/normals (N, 3, 3) f32; uvs (N, 3, 2) f32; mat_id (N,) int32;
-    light_indices (L,) int32. ``cbvh`` (accel.cluster.ClusterBVH) and
-    ``shade_table`` (T, 32) are set by accel.prepare_scene, which also
+    light_indices (L,) int32. ``cbvh`` (accel.cluster.ClusterBVH),
+    ``shade_table`` (T, 32), ``kd`` (KDTreeArrays) and ``wkd``
+    (accel.wavefront.WavefrontKD, only when its ``build_kd`` asks) are set by
+    accel.prepare_scene, which also
     renumbers the triangles so that cluster c holds ids [c*128, (c+1)*128).
     """
 
@@ -113,6 +158,10 @@ class Scene:
     light_indices: torch.Tensor
     materials: MaterialTable
     textures: TextureAtlas
+    kd: Optional[KDTreeArrays] = None
+    # accel.wavefront.WavefrontKD; typed object to avoid a scene<->accel
+    # import cycle, as the JAX package does
+    wkd: Optional[object] = None
     cbvh: Optional[object] = None
     shade_table: Optional[torch.Tensor] = None
     has_lights: bool = True

@@ -119,16 +119,28 @@ def test_tail_mode_render_matches_masked_steps(cornell):
 
 
 def test_trace_fn_without_cluster_tables_is_cpu_only():
-    """An unprepared scene gets the brute oracle on the CPU; on CUDA the pick
-    raises instead of tracing outside the kernel."""
+    """An unprepared scene (no cluster tables, no KD tree) gets the brute
+    force on every device: ``brute_intersect``, the brute-force kernel on
+    CUDA tensors and ``nearest_hit_brute`` on CPU ones. (Before the brute
+    kernel, this pick raised on CUDA and the scene rendered on the CPU
+    only.)"""
+    from isaklm_raytracer_tpu_torch.kernels.intersect import brute_intersect
+
     raw = procedural.cornell_box()
     cfg = RenderConfig(width=8, height=8)
-    cpu = SimpleNamespace(cbvh=None, device=torch.device("cpu"),
-                          vertices=torch.as_tensor(raw.vertices))
-    assert make_trace_fn(cpu, cfg).func is nearest_hit_brute
-    cuda = SimpleNamespace(cbvh=None, device=torch.device("cuda", 0), vertices=None)
-    with pytest.raises(ValueError, match="prepare_scene"):
-        make_trace_fn(cuda, cfg)
+    verts = torch.as_tensor(raw.vertices)
+    cpu = SimpleNamespace(cbvh=None, wkd=None, kd=None, device=torch.device("cpu"),
+                          vertices=verts)
+    trace = make_trace_fn(cpu, cfg)
+    assert trace.func is brute_intersect
+    o = torch.zeros((4, 3))
+    d = torch.nn.functional.normalize(torch.tensor(
+        [[0.0, 0.0, 1.0], [0.3, 0.1, 1.0], [0.0, -1.0, 0.2], [1.0, 1.0, 1.0]]), dim=1)
+    got, want = trace(o, d), nearest_hit_brute(o, d, verts)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and got[2].any()
+    cuda = SimpleNamespace(cbvh=None, wkd=None, kd=None, device=torch.device("cuda", 0),
+                           vertices=None)
+    assert make_trace_fn(cuda, cfg).func is brute_intersect
 
 
 def test_ray_chunking_does_not_change_the_image(cornell):
@@ -160,10 +172,75 @@ def test_cli_renders_png(tmp_path):
     assert img.shape == (32, 32, 3) and img.mean() > 5
 
 
-@pytest.mark.parametrize("flags", [["--no-kd"]])
-def test_cli_rejects_unported_flags(flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main([*flags, "--width", "8", "--height", "8"])
+def test_cli_no_kd_renders_through_the_brute_force(tmp_path, capsys):
+    """--no-kd skips prepare_scene, as the JAX CLI: no cluster or KD tables,
+    every ray through the brute force (nearest_hit_brute on the CPU)."""
+    out = str(tmp_path / "nokd.png")
+    scenes = []
+    real = cli.load_scene
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "load_scene", lambda *a: scenes.append(real(*a)) or scenes[-1])
+        assert cli.main(["--scene", "demo", "--no-kd", "--device", "cpu", "--width", "16",
+                         "--height", "16", "--max-bounces", "3", "--min-samples", "1",
+                         "--max-samples", "2", "--out", out]) == 0
+    (scene,) = scenes
+    assert scene.cbvh is None and scene.kd is None and scene.wkd is None
+    assert "intersector: brute" in capsys.readouterr().err
+    img = _read_png(out)
+    assert img.shape == (16, 16, 3) and img.mean() > 5
+
+
+def test_cli_kd_flags_build_no_tree(tmp_path, capsys):
+    """--kd-depth 8 --kd-leaf 4 are accepted and reach the RenderConfig, as
+    in the JAX CLI, but build no KD tree and change no pixel: the render
+    takes the cluster tables."""
+    import isaklm_raytracer_tpu_torch.integrator.render as render_module
+
+    argv = ["--scene", "cornell", "--device", "cpu", "--width", "8", "--height", "8",
+            "--max-bounces", "2", "--min-samples", "1", "--max-samples", "1"]
+    configs, scenes, pngs = [], [], []
+    real_render, real_load = render_module.render, cli.load_scene
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(render_module, "render",
+                   lambda s, c, config, **kw: configs.append(config) or real_render(
+                       s, c, config, **kw))
+        mp.setattr(cli, "load_scene", lambda *a: scenes.append(real_load(*a)) or scenes[-1])
+        for name, flags in (("kd", ["--kd-depth", "8", "--kd-leaf", "4"]), ("default", [])):
+            out = str(tmp_path / f"{name}.png")
+            assert cli.main([*argv, *flags, "--out", out]) == 0
+            pngs.append(_read_png(out))
+    assert (configs[0].kd_tree_depth, configs[0].kd_leaf_size) == (8, 4)
+    assert (configs[-1].kd_tree_depth, configs[-1].kd_leaf_size) == (19, 7)
+    assert all(s.kd is None and s.wkd is None and s.cbvh is not None for s in scenes)
+    assert "intersector: flat" in capsys.readouterr().err
+    np.testing.assert_array_equal(pngs[0], pngs[1])
+
+
+def test_create_scene_from_files_kd_arguments(tmp_path):
+    """create_scene_from_files(kd_depth=..., kd_leaf=...) builds the tree
+    with them; without them, or with prepare=False (the JAX package's
+    build_kd=False), it builds none."""
+    from isaklm_raytracer_tpu_torch.accel import build_kd_tree
+    from isaklm_raytracer_tpu_torch.scene.export import save_obj
+    from isaklm_raytracer_tpu_torch.scene.obj import Transformation, create_scene_from_files
+
+    raw = procedural.cornell_box()
+    save_obj(str(tmp_path / "c.obj"), raw.vertices, raw.normals,
+             np.zeros(raw.vertices.shape[0], np.int32), ["white"])
+    (tmp_path / "c.mat").write_text("material white\nalbedo 0.7 0.7 0.7\n")
+    mesh = [(str(tmp_path / "c.obj"), str(tmp_path / "c.mat"),
+             Transformation(np.zeros(3, np.float32), np.eye(3, dtype=np.float32)), False)]
+    scene = create_scene_from_files(mesh, device="cpu", kd_depth=6, kd_leaf=3)
+    assert scene.kd.max_depth == 6
+    want = build_kd_tree(scene.vertices.numpy(), 6, 3)
+    assert torch.equal(scene.kd.child_a, torch.from_numpy(want.child_a))
+    assert torch.equal(scene.kd.child_b, torch.from_numpy(want.child_b))
+    assert create_scene_from_files(mesh, prepare=False).kd is None
+    assert create_scene_from_files(mesh, device="cpu").kd is None
+    leaf = create_scene_from_files(mesh, device="cpu", kd_leaf=3).kd
+    assert leaf.max_depth == 19
+    assert torch.equal(leaf.tri_indices, torch.from_numpy(
+        build_kd_tree(scene.vertices.numpy(), 19, 3).tri_indices))
 
 
 @pytest.mark.parametrize("feature", ["devices 2 cpu", "devices 4 no card", "multihost no env"])

@@ -52,11 +52,12 @@ def test_procedural_scene_identical(name):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_prepare_scene_identical(name):
-    """Renumbering order, tri_const, clu_bbox, shade_table, light_indices:
-    bit for bit."""
+    """Renumbering order, tri_const, clu_bbox, shade_table, light_indices
+    and, under the JAX package's default build_kd=None, the KD tree and its
+    chunk rows: bit for bit."""
     jax_fn, port_fn = SCENES[name]
     want = interop.scene_to_numpy(jprepare(jax_fn()))
-    got = interop.scene_to_numpy(prepare_scene(port_fn(), "cpu"))
+    got = interop.scene_to_numpy(prepare_scene(port_fn(), "cpu", build_kd=None))
     _assert_tree_equal(got, want)
     assert got["cbvh"]["num_triangles"] == want["cbvh"]["num_triangles"]
 
