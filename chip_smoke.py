@@ -51,9 +51,9 @@ raising on failure:
    timed in turns on those rays; the kernel alone on the 20k hero's
    camera, bounce and NEE wavefronts at 512x512 (Morton order), each held
    to the plain walk, with its sums; the main path's row: ``render`` of
-   the 20k hero at 512x512x8 in one pass, two timed samples after a
-   warm-up (the queue kernel alone launched) and one profiled sample with
-   the queue kernel's device time and share;
+   the 20k hero at 512x512x8 in one pass, 4 samples (the queue kernel
+   alone ran), then two timed samples after a warm-up and one profiled
+   sample with the queue kernel's device time and share;
 6. kernel blk: the blocked intersector on the full 2M-triangle hero scene
    with camera rays of the bench camera, bounce rays that start on the
    surfaces those hit, and NEE rays toward the lights with t_max windows.
@@ -110,15 +110,20 @@ raising on failure:
    by one miss them by as much) and against the port on the CPU. The
    hero_small_32 render goes through the queue kernel alone;
 13. main path: the CLI renders the demo at 512x512 with 8 bounces and the
-   default Cornell box at 512x512 (the flat kernel's path), the demo again
-   under ISAKLM_INTERSECTOR=flat_mxu, then the hero scene at 640x360 with 6
-   bounces (the blocked kernel's path) and again under
+   default Cornell box at 512x512 with 8 bounces (the flat kernel's path),
+   the demo again under ISAKLM_INTERSECTOR=flat_mxu, then the hero scene
+   at 640x360 with 6 bounces (the blocked kernel's path) and again under
    ISAKLM_INTERSECTOR=hbm, and ``render`` draws two samples of the hero
    with MXU blocks under ISAKLM_INTERSECTOR=blk_mxu and under the default
    rule. For each path the launch counts are zeroed just before and read
-   just after: its kernel must have launched, no other intersector, and no
-   plain version may have run on CUDA; each override's image must equal
-   the default intersector's bit for bit;
+   just after, and the path runs under torch.profiler, whose CUPTI records
+   count the kernels the card ran, a CUDA graph's replays included
+   (``device_launches``): they must equal the wrappers' eager launches
+   plus what the replays issued; the path's kernel must have run, no
+   other intersector, and no plain version may have run on CUDA; each
+   override's image must equal the default intersector's bit for bit.
+   Every later path that renders through ``render`` or the CLI is counted
+   the same way;
 14. assets: the user's path through files, each file written under a
    temporary directory: (a) the full 2M-triangle hero exported with the
    port's save_obj/save_mat and rendered again through a one-entry JSON
@@ -159,7 +164,8 @@ raising on failure:
    (blk) at 640x360x6 with 2, in one pass, each G-buffer bit-equal to the
    single-process ``render`` on the card, each rank launching the path's
    kernel, with each rank's s/sample of two full steps (both ranks at
-   once) beside one process's; the tail mode at the demo's width from a
+   once; a rank's steps are eager) beside one process's (two replays of
+   ``render``'s graph, after its eager call and its capture); the tail mode at the demo's width from a
    95%-converged G-buffer (tail steps counted on each rank), bit-equal;
    ``sharded_value_and_grad_fn`` of the demo on a (1, 2) mesh with the
    decorrelated gradient against the single-process hand-built estimator
@@ -208,15 +214,36 @@ raising on failure:
    ``load_scene`` wrapped) under the aggregate gate of the flat path's PNG.
    The kernels line takes the KD walk's launches from one render through
    it, and each kernel's max_abs_err over its kernel-vs-plain comparisons;
-19. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
+19. graphs: the step factories of ``integrator/render.py``, which capture
+   a step in a CUDA graph and replay it, on the demo (flat), the 20k hero
+   (queue) and the 2M-triangle hero (blk) at full width, in one pass:
+   ``make_step_fn`` over 4 steps (eager, capture, replays) against the
+   eager ``render_step`` loop, with the adaptive gate off and on: the
+   G-buffers' SHA-256 equal and the kernels the card ran equal (counted by
+   torch.profiler), of the path's kernel alone; ``make_compact_step_fn`` against ``compact_step``
+   on the demo; the demo rendered adaptively to convergence
+   through ``render`` against the eager loop of ``render_step``,
+   ``candidates`` and ``tail_step`` it stands for, bit for bit, through at
+   least two buckets of the ladder, with the graphs it captured and the
+   wall seconds of both in turns (the first ``render`` with its captures);
+   eager against replayed s/sample of full steps, demo and hero, at
+   ray_chunk 0 and 16384, in turns, with each graph's capture and
+   instantiation seconds and its pool's memory; one profiled replayed
+   sample of each in one pass: the device's busy share within the trace,
+   and the path's kernel records equal to what the capture recorded; ``entry()``'s
+   ``fn`` captured in a graph and replayed with two keys against ``fn`` run
+   eagerly, bit for bit; ``dryrun_multichip(1)`` over NCCL and
+   ``dryrun_multichip(2, "cuda:0")``, two ranks on this card over gloo;
+20. perf: seconds per sample and rays/s (pixels x bounces x 2) of full
    steps, demo 512x512x8 and hero 640x360x6, at the CLI's ray_chunk (16384,
-   one timed sample after a warm-up) and in one pass (0, two), in turns,
-   and one torch.profiler sample at each:
-   CUDA kernels per sample, summed device kernel time and the
-   intersector's share; then in one pass each override beside its default
+   one timed sample) and in one pass (0, two), in turns, each after two
+   warm-up steps (the eager call and the capture: ``render`` replays its
+   steps' graphs), and one torch.profiler sample at each:
+   CUDA records per sample, summed device kernel time, the busy share
+   within the trace's device span and the intersector's share; then in one pass each override beside its default
    (demo: flat, flat_mxu; hero: blk, blk_mxu, hbm), in turns, with one
    profiled sample each;
-20. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
+21. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
    the material albedo) through the entry points: demo 512x512x8 and hero
    640x360x6 at ray_chunk 0 (two timed samples each) and 16384 (one), the
    hero again in one pass under
@@ -240,8 +267,10 @@ when there is no CUDA card or the port is missing.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
+import gc
 import importlib.util
 import io
 import json
@@ -251,6 +280,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 import zlib
 from pathlib import Path
 
@@ -947,7 +977,7 @@ def fwd_and_fwd_bwd(label, scene, camera, config, counts, card, samples: int = 2
     warm-up, rays/s by the bench's count, the peak device memory of
     fwd+bwd, and the launches of each kernel in the fwd+bwd samples.
     Returns those."""
-    from isaklm_raytracer_tpu_torch.integrator.render import render_sample
+    from isaklm_raytracer_tpu_torch.integrator.render import GraphStep, render_sample
     from isaklm_raytracer_tpu_torch.math import rng as prng
 
     albedo = scene.materials.albedo
@@ -969,14 +999,16 @@ def fwd_and_fwd_bwd(label, scene, camera, config, counts, card, samples: int = 2
         fwd(i)
     torch.cuda.synchronize()
     fwd_s = (time.perf_counter() - t0) / samples
-    counts.reset()
+    zero_counts(counts)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     grads = [fwd_bwd(i) for i in range(1, samples + 1)]
     torch.cuda.synchronize()
     bwd_s = (time.perf_counter() - t0) / samples
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}
+    if GraphStep.recorded or GraphStep.replayed:
+        raise RuntimeError(f"grad {label}: a step went through a CUDA graph")
+    launches = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}  # all eager
     plain = counts.plain_cuda()
     rays = config.num_pixels * config.max_bounces * 2
     log(f"grad {label} {config.width}x{config.height}x{config.max_bounces} ray_chunk "
@@ -1070,7 +1102,7 @@ def grad_checks_on_card(device, counts):
     cornell = procedural.cornell_box(include_blockers=False)
     scene = prepare_scene(cornell, device)
     camera = Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2, device=device)
-    counts.reset()
+    zero_counts(counts)
     auto, fd = check_grad_vs_fd(cornell_loss(scene, camera), scene.materials.albedo,
                                 h=2e-3, rtol=0.05, atol=2e-4)
     log(f"grad vs FD on the card, Cornell albedo {auto.shape}: max |auto - fd| "
@@ -1109,27 +1141,23 @@ def grad_checks_on_card(device, counts):
     torch.testing.assert_close(grads[0], grads[1], rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL)
 
 
-def sample_seconds(render, scene, camera, config, counts, samples: int = 2):
-    """Wall seconds per full step after one warm-up step, and the
-    intersector kernels' launches per step."""
-    gb = render(scene, camera, config, num_samples=1, seed=0)
+def sample_seconds(render, scene, camera, config, samples: int = 2) -> float:
+    """Wall seconds per full step after two warm-up steps (``render``'s step
+    runs eagerly at its first call and captures its CUDA graph at the
+    second, so the timed steps are replays)."""
+    gb = render(scene, camera, config, num_samples=2, seed=0)
     torch.cuda.synchronize()
-    before = intersector_launches(counts)
     t0 = time.perf_counter()
     gb = render(scene, camera, config, num_samples=samples, seed=0, gbuffer=gb,
-                sample_offset=1)
+                sample_offset=2)
     torch.cuda.synchronize()
     seconds = (time.perf_counter() - t0) / samples
     if not torch.isfinite(gb.frame).all():
         raise RuntimeError("non-finite radiance in the timed render")
-    return seconds, (intersector_launches(counts) - before) / samples
+    return seconds
 
 
 INTERSECTORS = ("flat", "flat_mxu", "queue", "hbm", "blk", "blk_mxu", "kd", "brute")
-
-
-def intersector_launches(counts) -> int:
-    return sum(getattr(counts, f"{k}_kernel") for k in INTERSECTORS)
 
 
 @contextlib.contextmanager
@@ -1143,70 +1171,158 @@ def intersector_env(name):
         os.environ.pop("ISAKLM_INTERSECTOR", None)
 
 
-def check_only(counts, kernel: str, label: str) -> int:
-    """The launches of ``kernel`` since the counts were zeroed; raises unless
-    it launched, no other intersector did and no plain version ran on
-    CUDA."""
-    launches = getattr(counts, f"{kernel}_kernel")
-    others = {k: getattr(counts, f"{k}_kernel") for k in INTERSECTORS if k != kernel}
-    log(f"main path {label}: {kernel}_kernel launches {launches}, other intersectors "
-        f"{others}, plain intersector calls on CUDA {counts.plain_cuda()}")
-    if launches == 0 or any(others.values()) or counts.plain_cuda():
-        raise RuntimeError(f"the {label} path did not go through its kernel alone")
-    return launches
+def zero_counts(counts) -> None:
+    """Every launch count to 0: the wrappers' and GraphStep's tallies of the
+    launches captures recorded and replays issued."""
+    from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
+
+    counts.reset()
+    GraphStep.reset_tallies()
 
 
 def kernel_symbol(name: str) -> str:
-    """A part of the name torch.profiler gives intersector ``name``'s CUDA
+    """A part of the name torch.profiler gives kernel ``name``'s CUDA
     kernel: flat and flat_mxu are the template ``flat_kernel`` over their
-    layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``."""
-    return {"flat": "TileLayout", "flat_mxu": "PairLayout"}.get(name, f"{name}_intersect_kernel")
+    layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``
+    or ``first_block_keys_kernel``."""
+    return {"flat": "TileLayout", "flat_mxu": "PairLayout",
+            "first_blocks": "first_block_keys_kernel"}.get(name, f"{name}_intersect_kernel")
+
+
+# Idle seconds at both ends of a torch.profiler window: kineto keeps only
+# the records whose device times, mapped to the host's clock, fall inside
+# the window, and the mapping is off by up to a few tenths of a
+# millisecond on the card, so without the margin the kernels of a step
+# that ends just before the window closes were lost (a whole graph replay
+# in 5 of 20 blocks of four steps; none of 20 with the margin).
+PROFILE_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def cuda_profile():
+    """torch.profiler over the block, CUDA activity only, with
+    PROFILE_PAD_S of idle time before the block and after its last
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def device_records(prof):
+    """The CUDA records of a torch.profiler run (kernels, copies, fills):
+    [(name, start ns, duration ns)], read from kineto's results directly."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+@contextlib.contextmanager
+def device_launches(counts):
+    """The kernels the card ran in the block, measured: the counts are
+    zeroed, the block runs under torch.profiler, whose CUPTI records hold
+    every kernel the card ran, those of a CUDA graph's replays among them;
+    on exit the yielded dict holds the records of each kernel of
+    ``counts.KERNELS`` (by ``kernel_symbol``). Raises unless each equals
+    what the wrappers launched eagerly plus what the replays issued
+    (``COUNTS - GraphStep.recorded + GraphStep.replayed``): so a replay ran
+    the kernels its capture recorded."""
+    from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
+
+    zero_counts(counts)
+    ran = {}
+    with cuda_profile() as prof:
+        yield ran
+    from torch.autograd import DeviceType
+
+    names = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                                if e.device_type() == DeviceType.CUDA)
+    for k in counts.KERNELS:
+        ran[k] = sum(n for name, n in names.items() if kernel_symbol(k) in name)
+    attr = {k: f"{k}_kernel" for k in counts.KERNELS}
+    want = {k: getattr(counts, attr[k]) - GraphStep.recorded[attr[k]]
+            + GraphStep.replayed[attr[k]] for k in counts.KERNELS}
+    if ran != want:
+        raise RuntimeError(f"the kernels the card ran {ran} differ from the eager launches "
+                           f"plus the replays' {want}")
+
+
+def check_only(counts, kernel: str, label: str, ran=None):
+    """The launches of ``kernel`` since the counts were zeroed: (the
+    kernels the card ran, the wrappers' count). ``ran`` is
+    ``device_launches``'s measurement; without it the run must have
+    replayed no graph, and the wrappers' counts are what ran. Raises unless
+    ``kernel`` ran, no other intersector did and no plain version ran on
+    CUDA."""
+    from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
+
+    if ran is None:
+        if GraphStep.recorded or GraphStep.replayed:
+            raise RuntimeError(f"{label}: the run went through CUDA graphs unmeasured")
+        ran = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}
+    wrapped = getattr(counts, f"{kernel}_kernel")
+    others = {k: ran[k] for k in INTERSECTORS if k != kernel}
+    log(f"main path {label}: {kernel}_kernel ran {ran[kernel]} times on the card ({wrapped} "
+        f"launched by its wrapper, eagerly or into a graph), other intersectors {others}, "
+        f"plain intersector calls on CUDA {counts.plain_cuda()}")
+    if ran[kernel] == 0 or any(others.values()) or counts.plain_cuda():
+        raise RuntimeError(f"the {label} path did not go through its kernel alone")
+    return ran[kernel], wrapped
+
+
+def trace_share(records):
+    """(CUDA records, kernel seconds, device span seconds) of one trace: the
+    span runs from its first CUDA record's start to its last one's end, so
+    kernel seconds / span is the device's busy share within the trace."""
+    start = min(t for _, t, _ in records)
+    end = max(t + d for _, t, d in records)
+    return len(records), sum(d for _, _, d in records) / 1e9, (end - start) / 1e9
 
 
 def profile_sample(render, scene, camera, config, kernel_name):
-    """torch.profiler over one full step: (CUDA kernels, their summed device
-    seconds, launches of ``kernel_name``, its device seconds)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    """torch.profiler over one full step: (CUDA records, their summed device
+    seconds, the device span of the trace, launches of ``kernel_name``, its
+    device seconds)."""
+    with cuda_profile() as prof:
         render(scene, camera, config, num_samples=1, seed=0)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    records = device_records(prof)
+    if not records:
         raise RuntimeError("the profiler recorded no CUDA kernel")
-    mine = [e for e in kernels if kernel_name in e.name]
+    mine = [d for name, _, d in records if kernel_name in name]
     if not mine:
         raise RuntimeError(f"no kernel named like {kernel_name} in the profile")
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    mine_us = sum(e.time_range.elapsed_us() for e in mine)
-    return len(kernels), busy_us / 1e6, len(mine), mine_us / 1e6
+    n, busy_s, span_s = trace_share(records)
+    return n, busy_s, span_s, len(mine), sum(mine) / 1e9
 
 
 def perf(name, render, scene, camera, width, height, bounces, counts, kernel_name, card):
     """Seconds per full step at ray_chunk 16384 and 0, in turns (one timed
     step at 16384, two in one pass, each after a warm-up), then one
-    profiled step at each."""
+    profiled step at each: its kernels, their device time and the device's
+    busy share within the trace."""
     from isaklm_raytracer_tpu_torch.config import RenderConfig
 
     chunk_default = RenderConfig().ray_chunk
     per_chunk = {}
     for chunk in (chunk_default, 0, 0, chunk_default):
         config = RenderConfig(width=width, height=height, max_bounces=bounces, ray_chunk=chunk)
-        s, launches = sample_seconds(render, scene, camera, config, counts,
-                                     samples=1 if chunk else 2)
+        s = sample_seconds(render, scene, camera, config, samples=1 if chunk else 2)
         per_chunk.setdefault(chunk, []).append(s)
         rays = config.num_pixels * config.max_bounces * 2
         log(f"{name} {width}x{height}x{bounces} ray_chunk {chunk}: {s:.4f} s/sample, "
-            f"{rays / s / 1e6:.3f} M rays/s (pixels x bounces x 2), "
-            f"{launches:g} intersector launches/sample on {card}")
+            f"{rays / s / 1e6:.3f} M rays/s (pixels x bounces x 2) on {card}")
     for chunk in (chunk_default, 0):
         config = RenderConfig(width=width, height=height, max_bounces=bounces, ray_chunk=chunk)
-        n, busy_s, mine_n, mine_s = profile_sample(render, scene, camera, config, kernel_name)
-        s = min(per_chunk[chunk])
-        log(f"profile {name} ray_chunk {chunk}: {n} CUDA kernels/sample, device kernel time "
-            f"{busy_s:.4f} s = {busy_s / s:.1%} of the unprofiled {s:.4f} s/sample; "
-            f"{kernel_name} {mine_n} launches, {mine_s * 1e3:.2f} ms = "
+        n, busy_s, span_s, mine_n, mine_s = profile_sample(render, scene, camera, config,
+                                                           kernel_name)
+        log(f"profile {name} ray_chunk {chunk}, one replayed sample: {n} CUDA records, device "
+            f"kernel time {busy_s:.4f} s in a device span of {span_s:.4f} s (busy "
+            f"{busy_s / span_s:.1%}); {kernel_name} {mine_n} launches, {mine_s * 1e3:.2f} ms = "
             f"{mine_s / busy_s:.1%} of device kernel time, on {card}")
     return per_chunk
 
@@ -1222,7 +1338,7 @@ def perf_overrides(label, scene, camera, width, height, bounces, names, counts, 
     per = {}
     for name in names + names[::-1]:
         with intersector_env(name):
-            s, launches = sample_seconds(render, scene, camera, config, counts)
+            s = sample_seconds(render, scene, camera, config)
         per.setdefault(name, []).append(s)
     rays = config.num_pixels * config.max_bounces * 2
     log(f"perf overrides {label} {width}x{height}x{bounces} ray_chunk 0, s/sample in turns: "
@@ -1230,13 +1346,12 @@ def perf_overrides(label, scene, camera, width, height, bounces, names, counts, 
                     for n, t in per.items()) + f" on {card}")
     for name in names:
         with intersector_env(name):
-            n, busy_s, mine_n, mine_s = profile_sample(render, scene, camera, config,
-                                                       kernel_symbol(name))
-        s = min(per[name])
-        log(f"profile {label} under {name} ray_chunk 0: {n} CUDA kernels/sample, device kernel "
-            f"time {busy_s:.4f} s = {busy_s / s:.1%} of the unprofiled {s:.4f} s/sample; "
-            f"{name}_intersect {mine_n} launches, {mine_s * 1e3:.2f} ms = "
-            f"{mine_s / busy_s:.1%} of device kernel time, on {card}")
+            n, busy_s, span_s, mine_n, mine_s = profile_sample(render, scene, camera, config,
+                                                               kernel_symbol(name))
+        log(f"profile {label} under {name} ray_chunk 0, one replayed sample: {n} CUDA records, "
+            f"device kernel time {busy_s:.4f} s in a device span of {span_s:.4f} s (busy "
+            f"{busy_s / span_s:.1%}); {name}_intersect {mine_n} launches, "
+            f"{mine_s * 1e3:.2f} ms = {mine_s / busy_s:.1%} of device kernel time, on {card}")
     return per
 
 
@@ -1285,7 +1400,7 @@ def fixed_cost(scene, counts, card):
     shared_bytes = ki.walk_shared_bytes(shared)
     err = exact("null kernel vs plain", ki.null_intersect(rays, shared),
                 ki.null_intersect_plain(rays))
-    counts.reset()  # the probe's own launches from here on
+    zero_counts(counts)  # the probe's own launches from here on
     blocks = n // ki.BLK_PACKET
     results = {}
     for label, fn in (
@@ -1334,24 +1449,32 @@ def read_png(path):
 
 def cli_path(name, counts, runs, kernel, cli, override=None):
     """One main path through the CLI, under ISAKLM_INTERSECTOR=override
-    (None: the auto rule): counts zeroed just before, read just after (see
-    ``check_only``). Returns the launches and {label: PNG image}."""
-    counts.reset()
+    (None: the auto rule): the kernels the card ran, measured from counts
+    zeroed just before (``device_launches``, ``check_only``), and the CUDA
+    graphs each run captured. Returns (the kernel's launches on the card,
+    its wrapper's count) and {label: PNG image}."""
+    from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
+
     images = {}
-    for label, argv in runs:
-        out = os.path.join(OUT_DIR, f"chip_smoke_{label}.png")
-        shape = (int(argv[argv.index("--height") + 1]), int(argv[argv.index("--width") + 1]), 3)
-        t0 = time.perf_counter()
-        with intersector_env(override):
-            if cli.main([*argv, "--out", out]) != 0:
-                raise RuntimeError(f"CLI {label} failed")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        img = images[label] = read_png(out)
-        log(f"cli {label}: {wall:.2f} s wall, png {img.shape}, mean {img.mean():.2f}")
-        if img.shape != shape or img.mean() < 1.0:
-            raise RuntimeError(f"CLI {label}: bad image {img.shape} mean {img.mean()}")
-    return check_only(counts, kernel, name), images
+    with device_launches(counts) as ran:
+        for label, argv in runs:
+            out = os.path.join(OUT_DIR, f"chip_smoke_{label}.png")
+            shape = (int(argv[argv.index("--height") + 1]),
+                     int(argv[argv.index("--width") + 1]), 3)
+            captures = GraphStep.captures
+            t0 = time.perf_counter()
+            with intersector_env(override):
+                if cli.main([*argv, "--out", out]) != 0:
+                    raise RuntimeError(f"CLI {label} failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            img = images[label] = read_png(out)
+            log(f"cli {label}: {wall:.2f} s wall under torch.profiler "
+                f"({GraphStep.captures - captures} CUDA graphs captured), png {img.shape}, "
+                f"mean {img.mean():.2f}")
+            if img.shape != shape or img.mean() < 1.0:
+                raise RuntimeError(f"CLI {label}: bad image {img.shape} mean {img.mean()}")
+    return check_only(counts, kernel, name, ran), images
 
 
 def same_image(label, got, want) -> None:
@@ -1486,7 +1609,7 @@ def phase_assets(cli, counts, demo_argv, hero_argv, demo_png, hero_png, tmp) -> 
         return real_parse(path)
 
     native.obj_parse_native = counted_parse
-    counts.reset()
+    zero_counts(counts)
     try:
         img, err = run_cli("hero_obj", cli, with_scene(hero_argv, manifest),
                            os.path.join(tmp, "hero_obj.png"))
@@ -1517,12 +1640,12 @@ def phase_assets(cli, counts, demo_argv, hero_argv, demo_png, hero_png, tmp) -> 
     log(f"assets demo: atlas of {loaded.textures.buffer.shape[0]} texels from {png} equal to "
         "the procedural checker's")
     manifest = write_manifest(tmp, "demo", [{"obj": obj, "mat": mat, "offset": offset.tolist()}])
-    counts.reset()
     # in one pass: every ray's result is its own, so the image is the one
     # the main path drew in chunks of 16384 rays
-    img, _ = run_cli("demo_obj", cli, [*with_scene(demo_argv, manifest), "--ray-chunk", "0"],
-                     os.path.join(tmp, "demo_obj.png"))
-    check_only(counts, "flat", "demo through OBJ + .mat + PNG")
+    with device_launches(counts) as ran:
+        img, _ = run_cli("demo_obj", cli, [*with_scene(demo_argv, manifest), "--ray-chunk", "0"],
+                         os.path.join(tmp, "demo_obj.png"))
+    check_only(counts, "flat", "demo through OBJ + .mat + PNG", ran)
     aggregate_gate("assets demo_obj", img, demo_png)
     card = Path(tmp) / "card_test"
     card.mkdir()
@@ -1542,13 +1665,13 @@ def phase_assets(cli, counts, demo_argv, hero_argv, demo_png, hero_png, tmp) -> 
         {"obj": c_obj, "mat": mat, "offset": [0.4, 1.5, 0.5], "yaw": 0.5, "scale": 1.5},
     ])
     ck = os.path.join(tmp, "two_meshes.npz")
-    counts.reset()
-    img, err = run_cli("two_meshes", cli, [
-        "--scene", manifest, "--width", "512", "--height", "512", "--max-bounces", "8",
-        "--min-samples", "1", "--max-samples", "2", "--ray-chunk", "0",
-        "--camera", "0", "2", "-6", "0", "0", "--checkpoint", ck,
-    ], os.path.join(tmp, "two_meshes.png"))
-    check_only(counts, "queue", "two-mesh manifest")
+    with device_launches(counts) as ran:
+        img, err = run_cli("two_meshes", cli, [
+            "--scene", manifest, "--width", "512", "--height", "512", "--max-bounces", "8",
+            "--min-samples", "1", "--max-samples", "2", "--ray-chunk", "0",
+            "--camera", "0", "2", "-6", "0", "0", "--checkpoint", ck,
+        ], os.path.join(tmp, "two_meshes.png"))
+    check_only(counts, "queue", "two-mesh manifest", ran)
     want = h20.num_triangles + box.num_triangles
     gb = load_checkpoint(ck)[0]
     finite = bool(torch.isfinite(gb.frame).all())
@@ -1564,7 +1687,6 @@ def phase_resume(cli, counts, demo_argv, tmp) -> None:
     from isaklm_raytracer_tpu_torch.io.checkpoint import load_checkpoint
 
     argv = [*demo_argv, "--ray-chunk", "0"]
-    counts.reset()
     straight = {}
     for mode, flags in (("no_adaptive", ["--no-adaptive"]), ("adaptive", [])):
         cks = [os.path.join(tmp, f"resume_{mode}_{k}.npz") for k in ("straight", "split")]
@@ -1616,7 +1738,6 @@ def phase_resume(cli, counts, demo_argv, tmp) -> None:
     if calls["n"] != 5 or "injected device fault" not in err or not np.array_equal(
             img, straight["no_adaptive"]):
         raise RuntimeError("resume retry: the CLI did not recover to the straight run's image")
-    check_only(counts, "flat", "resume and retry of the demo")
 
 
 def phase_interactive(demo, counts, device) -> None:
@@ -1629,7 +1750,6 @@ def phase_interactive(demo, counts, device) -> None:
 
     config = RenderConfig(width=512, height=512, max_bounces=8, ray_chunk=0)
     camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
-    counts.reset()
     t0 = time.perf_counter()
     session = InteractiveSession(demo, camera, config, adaptive=False)
     session.step()
@@ -1658,7 +1778,6 @@ def phase_interactive(demo, counts, device) -> None:
     if session.sample_count != 4 or "\u2580" not in text or "sample 4/4" not in text \
             or not np.isfinite(final).all():
         raise RuntimeError("interactive: the headless preview did not draw its frames")
-    check_only(counts, "flat", "interactive session on the demo")
 
 
 # The sharded phase's paths: label, kernel, (width, height, bounces), adaptive
@@ -1758,8 +1877,8 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
     sync = torch.cuda.synchronize
     counts = ki.COUNTS
 
-    def launched(kernel, label):
-        return check_only(counts, kernel, f"rank {rank} {label}")
+    def launched(kernel, label):  # a rank's steps run eagerly
+        return check_only(counts, kernel, f"rank {rank} {label}")[0]
 
     tile = sharding.make_render_mesh(world, 1, device=device)
     streams = sharding.make_render_mesh(1, world, device=device)
@@ -1769,7 +1888,7 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
         camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
         config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
         dist.barrier()
-        counts.reset()
+        zero_counts(counts)
         t0 = time.perf_counter()
         gb = sharding.render_sharded(scene, camera, config, samples, tile, adaptive=True)
         sync()
@@ -1799,7 +1918,7 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
         return real_tail(*a, **kw)
 
     sharding._sharded_tail_step = counting_tail
-    counts.reset()
+    zero_counts(counts)
     try:
         gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, tile, seed=7,
                                      adaptive=True, gbuffer=gb0)
@@ -1813,7 +1932,7 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
     target = torch.from_numpy(spec["target"]).to(device)
     params = demo.materials.replace(albedo=demo.materials.albedo * 0.6)
     vg = sharding.sharded_value_and_grad_fn(demo, demo_config, streams, decorrelate=True)
-    counts.reset()
+    zero_counts(counts)
     dist.barrier()
     t0 = time.perf_counter()
     loss, grads = vg(params, demo_camera, target, SHARDED_KEY)
@@ -1843,7 +1962,7 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
 
     # the CLI under this group, checkpointed
     png = os.path.join(spec["tmp"], f"sharded_cli_r{rank}.png")
-    counts.reset()
+    zero_counts(counts)
     rc = cli.main([*spec["cli_argv"], "--checkpoint",
                    os.path.join(spec["tmp"], "sharded_cli.npz"), "--out", png])
     with open(png, "rb") as f:
@@ -1872,12 +1991,14 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
     for label, kernel, (w, h, b), samples, eye, pitch in paths:
         camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
         config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
-        counts.reset()
-        gb = render(scenes[label], camera, config, samples, adaptive=True)
-        launched(kernel, f"single-process render of {label}")
+        with device_launches(counts) as ran:
+            gb = render(scenes[label], camera, config, samples, adaptive=True)
+        launched(kernel, f"single-process render of {label}", ran)
+        # the full step's eager call and its capture, then two timed replays
+        render(scenes[label], camera, config, 2, sample_offset=samples)
         sync()
         t0 = time.perf_counter()
-        render(scenes[label], camera, config, 2, sample_offset=samples)
+        render(scenes[label], camera, config, 2, sample_offset=samples + 2)
         sync()
         refs[label] = (gbuffer_arrays(gb), (time.perf_counter() - t0) / 2)
         if label == "demo":
@@ -1931,7 +2052,7 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
             f"launches {r[0]['launches']}/{r[1]['launches']} (rank 0/1), "
             f"{r[0]['wall']:.3f}/{r[1]['wall']:.3f} s with the first call; full steps "
             f"{r[0]['s_per_sample']:.4f}/{r[1]['s_per_sample']:.4f} s/sample a rank, both "
-            f"ranks at once, against {one_s:.4f} for one process")
+            f"ranks at once (eager steps), against {one_s:.4f} for one process (replays)")
     t = [out["tail"] for out in ranks]
     same("tail", t[0]["arrays"], tail_ref)
     log(f"sharded tail mode, demo from a 95%-converged G-buffer, (2, 1) mesh: "
@@ -1981,9 +2102,9 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
                             world_size=1, rank=0, device_id=device)
     try:
         mesh = sharding.make_render_mesh(1, 1, device=device)
-        counts.reset()
+        zero_counts(counts)
         gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, mesh, adaptive=True)
-        launches = launched("flat", "render_sharded (1, 1) over NCCL")
+        launches = launched("flat", "render_sharded (1, 1) over NCCL")[0]
         same("NCCL (1, 1)", gbuffer_arrays(sharding.unshard_gbuffer(gb, demo_config, mesh)),
              refs["demo"][0])
         loss, grads = sharding.sharded_value_and_grad_fn(demo, demo_config, mesh)(
@@ -2288,6 +2409,7 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
     # where the two formulas part); then the --no-kd CLI
     w, h, b = KD_SIZE
     config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
+    kd_launches = None
     for label in ("demo", "hero20k"):
         scene = scenes[label]
         eye, pitch = KD_EYES[label]
@@ -2297,24 +2419,22 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
                  "brute": scene.replace(cbvh=None, wkd=None, kd=None)}
         images, per = {}, {}
         for name in (*paths, *reversed(paths)):
-            counts.reset()
-            t0 = time.perf_counter()
-            gb = render(paths[name], camera, config, num_samples=2, seed=0)
-            torch.cuda.synchronize()
-            per.setdefault(name, []).append((time.perf_counter() - t0) / 2)
+            with device_launches(counts) as ran:
+                t0 = time.perf_counter()
+                gb = render(paths[name], camera, config, num_samples=2, seed=0)
+                torch.cuda.synchronize()
+                per.setdefault(name, []).append((time.perf_counter() - t0) / 2)
             images[name] = resolve_image(gb, config).cpu().numpy()
             if name != cluster:
-                launches = getattr(counts, f"{name}_kernel")
-                others = intersector_launches(counts) - launches
-                log(f"kd render {label} through {name}: {name}_kernel launches {launches} in 2 "
-                    f"samples ({launches / 2:g} a sample), other intersectors {others}, plain "
-                    f"calls on CUDA {counts.plain_cuda()}")
-                if launches != 2 * 2 * b or others or counts.plain_cuda():
-                    raise RuntimeError(f"kd render {label}: not through the {name} kernel alone")
-                if name == "kd":  # the kernels line's: one render, counts reset just before
+                launches = check_only(counts, name, f"kd render {label} through {name}, 2 "
+                                      "samples", ran)
+                if launches[0] != 2 * 2 * b:
+                    raise RuntimeError(f"kd render {label}: {launches[0]} {name} kernels ran "
+                                       f"in 2 samples, not {2 * 2 * b}")
+                if name == "kd" and kd_launches is None:  # the kernels line's: the first
                     kd_launches = launches
-        log(f"kd render {label} {w}x{h}x{b}, s/sample in turns (2 samples each, the first "
-            "pass with its warm-up): " + "; ".join(
+        log(f"kd render {label} {w}x{h}x{b}, s/sample in turns under torch.profiler (2 samples "
+            "each, the first pass with its warm-up): " + "; ".join(
                 f"{n} {s[0]:.4f}/{s[1]:.4f}" for n, s in per.items()))
         for name in ("kd", "brute"):
             a, c = images[name], images[cluster]
@@ -2340,7 +2460,7 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
         lambda v, o, d, t_eps, active=None, t_max=None: nearest_hit_brute(o, d, v, t_eps,
                                                                           active=active))
     try:
-        counts.reset()
+        zero_counts(counts)
         plain = run_cli("demo --no-kd, nearest_hit_brute in place of the kernel", cli, argv,
                         os.path.join(OUT_DIR, "chip_smoke_demo_no_kd_plain.png"))[0]
     finally:
@@ -2367,6 +2487,297 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
         f"kernel-vs-plain comparison; brute: {brute_err:.3e} and {brute_ids}")
     results["kd"] = {"max_abs_err": kd_err, "launches": kd_launches, **row}
     results["brute"] = {"max_abs_err": brute_err, "launches": brute_launches, **brute_row}
+
+
+# The graphs phase's paths: label, kernel, (width, height, bounces), camera
+# eye, pitch (the main path's presets, full width)
+GRAPH_PATHS = (
+    ("demo", "flat", (512, 512, 8), BENCH_EYE, BENCH_PITCH),
+    ("hero20k", "queue", (512, 512, 8), GOLDEN_EYE, 0.0),
+    ("hero", "blk", (HERO_W, HERO_H, HERO_BOUNCES), BENCH_EYE, BENCH_PITCH),
+)
+GRAPH_STEPS = 4  # steps of each eager-against-replay comparison
+
+
+def clear_step_caches() -> None:
+    """Drop every cached step factory, so that the next call of each step
+    runs eagerly and captures afresh, and with them their graphs' pools."""
+    from isaklm_raytracer_tpu_torch.integrator import render as R
+
+    for factory in (R.make_step_fn, R.make_compact_step_fn, R.make_tail_step_fn,
+                    R.make_candidates_fn, R.make_active_count_fn):
+        factory.cache_clear()
+
+
+def graph_record(graph) -> str:
+    return (f"capture {graph.capture_s:.3f} s, instantiation {graph.instantiate_s:.3f} s, "
+            f"graph pool {graph.pool_bytes / 2**20:.1f} MiB")
+
+
+def steps_against_replays(label, kernel, scene, camera, config, adaptive, counts) -> dict:
+    """GRAPH_STEPS steps of ``render_step`` and of ``make_step_fn`` (eager,
+    capture, then replays) from zero G-buffers, each loop under
+    ``device_launches``: both SHA-256s must be equal, and the kernels the
+    card ran the same in both, of ``kernel`` alone; the graph's capture
+    recorded one eager step's launches."""
+    from isaklm_raytracer_tpu_torch.integrator.render import make_step_fn, render_step
+    from isaklm_raytracer_tpu_torch.math import rng
+    from isaklm_raytracer_tpu_torch.scene.types import GBuffer
+
+    step = make_step_fn(config)
+    out = {}
+    for how in ("eager", "graph"):
+        gb = GBuffer.create(config.num_pixels, scene.device)
+        with device_launches(counts) as ran:
+            for i in range(GRAPH_STEPS):
+                words = rng.sample_key_words(0, i)
+                if how == "eager":
+                    gb = render_step(scene, camera, gb, words, config, adaptive)
+                else:
+                    gb = step(scene, camera, gb, words, adaptive)
+        launches = check_only(counts, kernel, f"graphs {label} adaptive={adaptive} {how}", ran)
+        out[how] = (sha(gb.frame, gb.sq_luminance, gb.count), launches)
+    graph = step.graphs.last
+    recorded = graph.launches.get(f"{kernel}_kernel", 0)
+    same = out["eager"][0] == out["graph"][0]
+    log(f"graphs {label} adaptive={adaptive}: {GRAPH_STEPS} steps, G-buffer SHA-256 eager "
+        f"{out['eager'][0]}, make_step_fn {out['graph'][0]} "
+        f"({'equal' if same else 'DIFFERENT'}); {kernel} kernels the card ran (wrapper "
+        f"launches) eager {out['eager'][1]}, graph (eager, capture, replays) "
+        f"{out['graph'][1]}; the capture recorded {recorded}, replayed {graph.replays} times; "
+        f"{graph_record(graph)}")
+    if not same or out["graph"][1][0] != out["eager"][1][0] \
+            or recorded * GRAPH_STEPS != out["eager"][1][0]:
+        raise RuntimeError(f"graphs {label}: replayed steps differ from the eager steps")
+    return out
+
+
+def compact_against_replays(label, scene, camera, config) -> None:
+    """``make_compact_step_fn`` (eager, capture, replay) against
+    ``compact_step`` on the G-buffer of two full steps, three keys: each
+    result's SHA-256 equal."""
+    from isaklm_raytracer_tpu_torch.integrator import render as R
+    from isaklm_raytracer_tpu_torch.math import rng
+    from isaklm_raytracer_tpu_torch.scene.types import GBuffer
+
+    gb = GBuffer.create(config.num_pixels, scene.device)
+    for i in range(2):
+        gb = R.render_step(scene, camera, gb, rng.sample_key_words(0, i), config, False)
+    n = int(R.make_active_count_fn(config)(gb))
+    bucket = R.compact_bucket(n, config.num_pixels,
+                              min(config.min_wavefront, config.num_pixels))
+    step = R.make_compact_step_fn(config, bucket)
+    got, want = [], []
+    for i in range(2, 5):
+        words = rng.sample_key_words(0, i)
+        got.append(sha(*vars(step(scene, camera, gb, words)).values()))
+        want.append(sha(*vars(R.compact_step(scene, camera, gb, words, config,
+                                             bucket)).values()))
+    log(f"graphs {label} make_compact_step_fn: {n} active pixels into a bucket of {bucket}, "
+        f"3 steps (eager, capture, replay) {got}, compact_step {want} "
+        f"({'equal' if got == want else 'DIFFERENT'}); {graph_record(step.graphs.last)}")
+    if got != want:
+        raise RuntimeError(f"graphs {label}: the replayed compact step differs from eager")
+
+
+def eager_and_replay_seconds(label, scene, camera, config, samples: int):
+    """s/sample of full steps, eager (``render_step``) and replayed
+    (``make_step_fn``, after its eager call and its capture), in turns:
+    eager, replay, replay, eager. Returns ({how: [s, s]}, the graph)."""
+    from isaklm_raytracer_tpu_torch.integrator.render import make_step_fn, render_step
+    from isaklm_raytracer_tpu_torch.math import rng
+    from isaklm_raytracer_tpu_torch.scene.types import GBuffer
+
+    step = make_step_fn(config)
+    runs = {"eager": lambda gb, w: render_step(scene, camera, gb, w, config, False),
+            "replay": lambda gb, w: step(scene, camera, gb, w, False)}
+    per = {}
+    for how in ("eager", "replay", "replay", "eager"):
+        gb = GBuffer.create(config.num_pixels, scene.device)
+        warm = 2 if how == "replay" and step.graphs.last is None else 1
+        for i in range(warm):
+            gb = runs[how](gb, rng.sample_key_words(0, i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(samples):
+            gb = runs[how](gb, rng.sample_key_words(0, warm + i))
+        torch.cuda.synchronize()
+        per.setdefault(how, []).append((time.perf_counter() - t0) / samples)
+        if not torch.isfinite(gb.frame).all():
+            raise RuntimeError(f"graphs {label}: non-finite radiance in the timed steps")
+    graph = step.graphs.last
+    log(f"graphs {label} ray_chunk {config.ray_chunk}: s/sample in turns, eager "
+        f"{per['eager'][0]:.4f}/{per['eager'][1]:.4f}, replayed {per['replay'][0]:.4f}/"
+        f"{per['replay'][1]:.4f} ({min(per['eager']) / min(per['replay']):.2f}x); "
+        f"{graph_record(graph)}")
+    return per, graph
+
+
+def profile_replay(label, kernel, scene, camera, config) -> float:
+    """torch.profiler over one replayed step: its CUDA records, the kernel
+    time within the device span of the trace (the busy share) and within
+    the profiled step's wall; the records of ``kernel`` must equal the
+    launches the graph's capture recorded."""
+    from isaklm_raytracer_tpu_torch.integrator.render import make_step_fn
+    from isaklm_raytracer_tpu_torch.math import rng
+    from isaklm_raytracer_tpu_torch.scene.types import GBuffer
+
+    step = make_step_fn(config)
+    gb = GBuffer.create(config.num_pixels, scene.device)
+    with cuda_profile() as prof:
+        t0 = time.perf_counter()
+        step(scene, camera, gb, rng.sample_key_words(0, 9), False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    graph = step.graphs.last
+    records = device_records(prof)
+    if not records or graph.replays == 0:
+        raise RuntimeError(f"graphs {label}: no replay, or no kernel of it in the profile")
+    n, busy_s, span_s = trace_share(records)
+    mine = sum(kernel_symbol(kernel) in name for name, _, _ in records)
+    recorded = graph.launches.get(f"{kernel}_kernel", 0)
+    log(f"profile graphs {label} ray_chunk {config.ray_chunk}, one replayed step: {n} CUDA "
+        f"records, device kernel time {busy_s:.4f} s in a device span of {span_s:.4f} s (busy "
+        f"{busy_s / span_s:.1%}; {busy_s / wall:.1%} of the profiled step's {wall:.4f} s wall); "
+        f"{kernel} kernels {mine}, the capture recorded {recorded}")
+    if mine != recorded or recorded == 0:
+        raise RuntimeError(f"graphs {label}: the replay ran {mine} {kernel} kernels, its "
+                           f"capture recorded {recorded}")
+    return busy_s / span_s
+
+
+def converge_through_render(scene, camera, config, counts):
+    """``render`` to convergence (adaptive) against the eager loop of
+    ``render_step``/``candidates``/``tail_step`` it stands for, in turns
+    (eager, render with every cache cleared, render again, eager): the
+    G-buffers' SHA-256 equal, the buckets of the ladder it went through
+    (at least two) and the graphs it captured."""
+    from isaklm_raytracer_tpu_torch.integrator import render as R
+    from isaklm_raytracer_tpu_torch.math import rng
+    from isaklm_raytracer_tpu_torch.scene.types import GBuffer
+
+    floor = min(config.min_wavefront, config.num_pixels)
+
+    def eager():
+        gb = GBuffer.create(config.num_pixels, scene.device)
+        cand, bucket, buckets = None, config.num_pixels, []
+        for i in range(config.max_samples):
+            words = rng.sample_key_words(0, i)
+            if cand is None:
+                n = int(R.needs_sample(gb, config).sum())
+                if n == 0:
+                    break
+                bucket = R.compact_bucket(n, config.num_pixels, floor)
+                if bucket < config.num_pixels:
+                    cand, _ = R.candidates(gb, config, bucket)
+            if cand is not None:
+                buckets.append(bucket)
+                gb, cand, n = R.tail_step(scene, camera, gb, cand, words, config)
+                if int(n) == 0:
+                    break
+                nb = R.compact_bucket(int(n), config.num_pixels, floor)
+                if nb < bucket:
+                    cand, bucket = cand[:nb], nb
+                continue
+            gb = R.render_step(scene, camera, gb, words, config, adaptive=True)
+        return gb, sorted(set(buckets), reverse=True)
+
+    def graphs():
+        return R.render(scene, camera, config, config.max_samples, adaptive=True), None
+
+    clear_step_caches()
+    shas, walls, captures = {}, {}, []
+    for how, fn in (("eager", eager), ("render", graphs), ("render", graphs),
+                    ("eager", eager)):
+        zero_counts(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gb, buckets = fn()
+        torch.cuda.synchronize()
+        walls.setdefault(how, []).append(time.perf_counter() - t0)
+        shas.setdefault(how, set()).add(sha(gb.frame, gb.sq_luminance, gb.count))
+        if buckets is not None:
+            ladder = buckets
+        else:
+            steps = [R.make_step_fn(config).graphs]
+            steps += [R.make_tail_step_fn(config, b).graphs for b in ladder]
+            captures.append(sum(g.graph is not None for graphs_ in steps
+                                for _, g in graphs_.entries.values()))
+    same = len(shas["eager"]) == 1 and shas["eager"] == shas["render"]
+    log(f"graphs demo to convergence ({config.width}x{config.height}x{config.max_bounces}, "
+        f"min {config.min_samples} max {config.max_samples} spp, tolerance "
+        f"{config.max_tolerance}): render's G-buffer SHA-256 {sorted(shas['render'])}, the "
+        f"eager loop's {sorted(shas['eager'])} ({'equal' if same else 'DIFFERENT'}); tail "
+        f"buckets {ladder}; graphs captured {captures[0]} (then {captures[1]} in all); wall "
+        f"s in turns: eager {walls['eager'][0]:.3f}, render (captures included) "
+        f"{walls['render'][0]:.3f}, render (replays only) {walls['render'][1]:.3f}, eager "
+        f"{walls['eager'][1]:.3f}")
+    if not same or len(ladder) < 2:
+        raise RuntimeError("graphs: render to convergence differs from the eager loop, or "
+                           "went through fewer than two buckets")
+
+
+def phase_graphs(counts, device, scenes) -> None:
+    """Phase graphs (the module docstring, 19)."""
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.entry import dryrun_multichip, entry
+    from isaklm_raytracer_tpu_torch.math import rng
+
+    clear_step_caches()
+    cameras = {}
+    for label, kernel, (w, h, b), eye, pitch in GRAPH_PATHS:
+        cameras[label] = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
+        for adaptive in (False, True):
+            config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0, min_samples=2)
+            steps_against_replays(label, kernel, scenes[label], cameras[label], config,
+                                  adaptive, counts)
+        clear_step_caches()
+
+    adaptive = RenderConfig(width=512, height=512, max_bounces=8, ray_chunk=0, min_samples=2,
+                            max_samples=32, max_tolerance=0.25)
+    compact_against_replays("demo", scenes["demo"], cameras["demo"], adaptive)
+    converge_through_render(scenes["demo"], cameras["demo"], adaptive, counts)
+    clear_step_caches()
+
+    chunk_default = RenderConfig().ray_chunk
+    for label in ("demo", "hero"):
+        _, kernel, (w, h, b), _, _ = next(p for p in GRAPH_PATHS if p[0] == label)
+        for chunk in (0, chunk_default):
+            config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=chunk)
+            eager_and_replay_seconds(label, scenes[label], cameras[label], config,
+                                     samples=1 if chunk else 3)
+            if not chunk:  # at 16384 the profiler's own cost a record stretches the replay
+                profile_replay(label, kernel, scenes[label], cameras[label], config)
+            clear_step_caches()
+
+    # entry(): fn captured and replayed against fn run eagerly
+    fn, (camera, key) = entry(device)
+    keys = [rng.key_tensor(words, device) for words in ((0, 0), rng.sample_key_words(0, 5))]
+    want = [sha(fn(camera, k)) for k in keys]
+    static_key = key.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(camera, static_key)
+    got = []
+    for k in keys:
+        static_key.copy_(k)
+        graph.replay()
+        got.append(sha(out))
+    log(f"graphs entry(): fn eager {want}, captured and replayed {got} "
+        f"({'equal' if got == want else 'DIFFERENT'})")
+    if got != want:
+        raise RuntimeError("graphs: entry()'s fn replayed differs from fn run eagerly")
+    del graph, out
+
+    # dryrun_multichip over NCCL on this card, and two ranks on it over gloo
+    for n, dev in ((1, "cuda"), (2, "cuda:0")):
+        t0 = time.perf_counter()
+        res = dryrun_multichip(n, dev)
+        log(f"graphs dryrun_multichip({n}, {dev!r}): mesh {res['mesh']}, loss "
+            f"{res['loss']:.6f}, frame {res['frame'].shape} finite, in "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2625,17 +3036,19 @@ def main() -> int:
         # the main path: render of the 20k hero at 512x512x8 in one pass
         camera20k = Camera.create(GOLDEN_EYE, fov=np.pi / 2, device=device)
         config = RenderConfig(width=512, height=512, max_bounces=8, ray_chunk=0)
-        counts.reset()
-        sec, per_sample = sample_seconds(render, hero20k, camera20k, config, counts)
-        queue_launches = check_only(counts, "queue", "render of hero20k 512x512x8 ray_chunk 0")
-        n, busy_s, mine_n, mine_s = profile_sample(render, hero20k, camera20k, config,
-                                                   kernel_symbol("queue"))
+        with device_launches(counts) as ran:
+            render(hero20k, camera20k, config, num_samples=4, seed=0)
+        queue_launches = check_only(counts, "queue", "render of hero20k 512x512x8 ray_chunk 0 "
+                                    "(4 samples)", ran)
+        sec = sample_seconds(render, hero20k, camera20k, config)
+        n, busy_s, span_s, mine_n, mine_s = profile_sample(render, hero20k, camera20k, config,
+                                                           kernel_symbol("queue"))
         rays_n = config.num_pixels * config.max_bounces * 2
         log(f"main path queue, render of hero20k 512x512x8 ray_chunk 0: {sec:.4f} s/sample "
-            f"(two after a warm-up; {rays_n / sec / 1e6:.3f} M rays/s), {per_sample:g} queue "
-            f"launches a sample; profile: {n} CUDA kernels/sample, device kernel time "
-            f"{busy_s:.4f} s = {busy_s / sec:.1%} of the s/sample; queue_intersect {mine_n} "
-            f"launches, {mine_s * 1e3:.2f} ms = {mine_s / busy_s:.1%} of device kernel time")
+            f"(two after a warm-up; {rays_n / sec / 1e6:.3f} M rays/s); one profiled sample: "
+            f"{n} CUDA records, device kernel time {busy_s:.4f} s in a device span of "
+            f"{span_s:.4f} s (busy {busy_s / span_s:.1%}); queue_intersect {mine_n} launches, "
+            f"{mine_s * 1e3:.2f} ms = {mine_s / busy_s:.1%} of device kernel time")
 
     with Phase("kernel blk"):
         t0 = time.perf_counter()
@@ -2738,7 +3151,7 @@ def main() -> int:
         k_err, k_ms, k_plain_ms, argsort_ms, k_bound = check_first_blocks(hero, sets, rng, device)
         # the keys' device time in one profiled hero sample under block order
         os.environ["ISAKLM_BLK_SORT"] = "block"
-        n, busy_s, mine_n, mine_s = profile_sample(
+        n, busy_s, _, mine_n, mine_s = profile_sample(
             render, hero, Camera.create(BENCH_EYE, pitch=BENCH_PITCH, fov=np.pi / 2,
                                         device=device),
             RenderConfig(width=HERO_W, height=HERO_H, max_bounces=HERO_BOUNCES, ray_chunk=0),
@@ -2747,7 +3160,7 @@ def main() -> int:
         log(f"profile hero {HERO_W}x{HERO_H}x{HERO_BOUNCES} ray_chunk 0 under "
             f"ISAKLM_BLK_SORT=block: first_block_keys {mine_n} launches, {mine_s * 1e3:.4f} ms "
             f"a sample = {mine_s / busy_s:.2%} of {busy_s * 1e3:.2f} ms of device kernel time "
-            f"({n} CUDA kernels)")
+            f"({n} CUDA records)")
         results["first_blocks"] = {
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain_ms, **k_bound,
             "shape": f"{HERO_W * HERO_H} camera rays x {cbvh.blk_bbox_t.shape[1]} block columns "
@@ -2788,11 +3201,12 @@ def main() -> int:
             images = []  # the card's, then the port's on the CPU
             for dev in (device, torch.device("cpu")):
                 scene = prepare_scene(scene_fn(), dev)
-                counts.reset()
-                gb = render(scene, cam.to(dev), config, num_samples=spp, seed=11)
+                meter = device_launches(counts) if dev is device else contextlib.nullcontext()
+                with meter as ran:
+                    gb = render(scene, cam.to(dev), config, num_samples=spp, seed=11)
                 images.append(resolve_image(gb, config).cpu().numpy())
                 if dev is device and name == "hero_small_32":
-                    check_only(counts, "queue", "queue (render of hero_small_32)")
+                    check_only(counts, "queue", "queue (render of hero_small_32)", ran)
             got = images[0]
             with np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz")) as f:
                 want = f["image"]
@@ -2816,8 +3230,10 @@ def main() -> int:
                      "--max-samples", "1", "--camera", "0", "1.2", "-1.8", "0", "0.15"]
         flat_launches, flat_png = cli_path("flat", counts, (
             ("demo", demo_argv),
+            # the CLI's default 24 bounces cut to 8: the profiler that
+            # counts the kernels run holds every kernel record of the run
             ("cornell", ["--scene", "cornell", "--width", "512", "--height", "512",
-                         "--min-samples", "1", "--max-samples", "2"]),
+                         "--max-bounces", "8", "--min-samples", "1", "--max-samples", "2"]),
         ), "flat", cli)
         flat_mxu_launches, png = cli_path("flat_mxu", counts, (("demo_flat_mxu", demo_argv),),
                                           "flat_mxu", cli, override="flat_mxu")
@@ -2832,14 +3248,15 @@ def main() -> int:
         config = RenderConfig(width=HERO_W, height=HERO_H, max_bounces=HERO_BOUNCES, ray_chunk=0)
         images = {}
         for name, kernel in (("blk_mxu", "blk_mxu"), (None, "blk")):
-            counts.reset()
-            t0 = time.perf_counter()
-            with intersector_env(name):
-                gb = render(hero_mxu, camera, config, num_samples=2, seed=0)
-            torch.cuda.synchronize()
-            log(f"render hero with MXU blocks under {name or 'the auto rule'}: 2 samples in "
-                f"{time.perf_counter() - t0:.2f} s")
-            launches = check_only(counts, kernel, f"render of the hero under {name or 'auto'}")
+            with device_launches(counts) as ran:
+                t0 = time.perf_counter()
+                with intersector_env(name):
+                    gb = render(hero_mxu, camera, config, num_samples=2, seed=0)
+                torch.cuda.synchronize()
+                log(f"render hero with MXU blocks under {name or 'the auto rule'}: 2 samples in "
+                    f"{time.perf_counter() - t0:.2f} s under torch.profiler")
+            launches = check_only(counts, kernel, f"render of the hero under {name or 'auto'}",
+                                  ran)
             images[name] = resolve_image(gb, config).cpu().numpy()
             if name is not None:
                 blk_mxu_launches = launches
@@ -2851,15 +3268,22 @@ def main() -> int:
             phase_assets(cli, counts, demo_argv, hero_argv, flat_png["demo"], blk_png["hero"],
                          tmp)
         with Phase("resume"):
-            phase_resume(cli, counts, demo_argv, tmp)
+            with device_launches(counts) as ran:
+                phase_resume(cli, counts, demo_argv, tmp)
+            check_only(counts, "flat", "resume and retry of the demo", ran)
         with Phase("interactive"):
-            phase_interactive(demo, counts, device)
+            with device_launches(counts) as ran:
+                phase_interactive(demo, counts, device)
+            check_only(counts, "flat", "interactive session on the demo", ran)
         with Phase("sharded"):
             phase_sharded(cli, counts, {"demo": demo, "hero20k": hero20k, "hero": hero}, device,
                           tmp)
 
     with Phase("kd"):
         phase_kd(cli, counts, device, demo_argv, results)
+
+    with Phase("graphs"):
+        phase_graphs(counts, device, {"demo": demo, "hero20k": hero20k, "hero": hero})
 
     with Phase("perf"):
         camera = Camera.create((0.0, 1.2, -1.8), pitch=0.15, fov=np.pi / 2, device=device)
@@ -2871,11 +3295,17 @@ def main() -> int:
         perf_overrides("demo", demo, camera, 512, 512, 8, ["flat", "flat_mxu"], counts, card)
         perf_overrides("hero", hero_mxu, camera, HERO_W, HERO_H, HERO_BOUNCES,
                        ["blk", "blk_mxu", "hbm"], counts, card)
+        hero_mxu_ref = weakref.ref(hero_mxu)
         del hero_mxu, mcb
 
     with Phase("grad"):
         # bench.py's fwd+bwd (loss = mean(render_sample), leaf = albedo)
         # through the entry points, counts zeroed just before each run
+        gc.collect()
+        log(f"grad: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated and "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved before the runs (the demo's "
+            f"and the hero's graphs cached); the hero with MXU blocks "
+            f"{'freed with its graphs' if hero_mxu_ref() is None else 'still alive'}")
         for label, scene, (w, h, b), chunks, sort in (
             ("demo", demo, (512, 512, 8), (0, defaults.ray_chunk), "morton"),
             ("hero", hero, (HERO_W, HERO_H, HERO_BOUNCES), (0, defaults.ray_chunk), "morton"),
@@ -2890,8 +3320,8 @@ def main() -> int:
                 if out["launches"][kernel] == 0:
                     raise RuntimeError(f"grad {label}: the {kernel} kernel did not launch")
                 if sort == "block":
-                    first_blocks_launches = out["launches"]["first_blocks"]
-                    if first_blocks_launches == 0:
+                    first_blocks_launches = (out["launches"]["first_blocks"],) * 2  # eager
+                    if first_blocks_launches[0] == 0:
                         raise RuntimeError("block ordering did not launch first_block_keys")
         os.environ["ISAKLM_BLK_SORT"] = "morton"
         profile_fwd_bwd(hero, camera, RenderConfig(width=HERO_W, height=HERO_H,
@@ -2902,7 +3332,7 @@ def main() -> int:
     launches = {"flat": flat_launches, "queue": queue_launches, "blk": blk_launches,
                 "first_blocks": first_blocks_launches, "hbm": hbm_launches,
                 "flat_mxu": flat_mxu_launches, "blk_mxu": blk_mxu_launches,
-                "null": null_launches, "kd": results["kd"]["launches"],
+                "null": (null_launches,) * 2, "kd": results["kd"]["launches"],
                 "brute": results["brute"]["launches"]}
     # the CUDA kernel of each entry and the TPU kernel it replaces
     pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
@@ -2921,15 +3351,21 @@ def main() -> int:
         "brute": ("brute_intersect", "isaklm_raytracer_tpu/accel/traverse.py:73"),
     }
     for k, r in results.items():
-        log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches from "
-            f"its main-path run; max_abs_err over every kernel-vs-plain comparison; bound "
-            f"{r['ops']:.4g} operations, {r['bytes']:.4g} bytes")
+        log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches: the "
+            f"kernels the card ran in its main-path run, measured by torch.profiler where the "
+            f"run replays CUDA graphs ({launches[k][0]}), wrapper_launches: its wrapper's count "
+            f"there, eager launches and those recorded into a graph ({launches[k][1]}); "
+            f"max_abs_err over every kernel-vs-plain comparison; bound {r['ops']:.4g} "
+            f"operations, {r['bytes']:.4g} bytes")
+        if launches[k][1] == 0:
+            raise RuntimeError(f"{kernels[k][0]}: its wrapper launched nothing on its main path")
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"isaklm_raytracer_tpu_torch/csrc/{name}.cu",
         "replaces": replaces,
-        "launches": launches[k],
+        "launches": launches[k][0],
+        "wrapper_launches": launches[k][1],
         "max_abs_err": results[k]["max_abs_err"],
         "ms": results[k]["ms"],
         "plain_ms": results[k]["plain_ms"],

@@ -8,6 +8,7 @@ from isaklm_raytracer_tpu_torch.accel.cluster import (
     ClusterBVH,
     build_cluster_bvh,
     cluster_order,
+    morton_order,
     padded_clusters,
     with_blocks,
     with_mxu_blocks,
@@ -150,6 +151,7 @@ __all__ = [
     "build_wavefront_kd",
     "cluster_order",
     "hit_attributes",
+    "morton_order",
     "move_scene",
     "nearest_hit_brute",
     "nearest_hit_kd",

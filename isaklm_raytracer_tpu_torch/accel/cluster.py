@@ -103,6 +103,34 @@ class ClusterBVH:
         })
 
 
+def _morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """Interleave 10-bit integer coordinates into a 30-bit Morton code."""
+
+    def spread(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return spread(x) | (spread(y) << 1) | (spread(z) << 2)
+
+
+def morton_order(vertices: np.ndarray) -> np.ndarray:
+    """Morton-sort permutation of the triangles by quantised centroid
+    (cluster.py:119-131): ``order`` (T,) int64 such that vertices[order] is
+    Morton-ordered, 10 bits an axis over the centroids' box, ties stable.
+    ``prepare_scene`` orders by ``cluster_order``; this order is valid for
+    the cluster tables too."""
+    vertices = np.asarray(vertices, np.float32)
+    centroids = vertices.mean(axis=1)
+    lo = centroids.min(axis=0)
+    span = np.maximum(centroids.max(axis=0) - lo, 1e-12)
+    q = np.clip(((centroids - lo) / span) * 1023.0, 0, 1023).astype(np.uint32)
+    return np.argsort(_morton3(q[:, 0], q[:, 1], q[:, 2]), kind="stable")
+
+
 def cluster_order(vertices: np.ndarray) -> np.ndarray:
     """Spatial median-split permutation (cluster.py:134-168).
 

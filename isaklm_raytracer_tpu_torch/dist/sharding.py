@@ -216,7 +216,7 @@ def _sharded_tail_step(scene, camera, gb, cand, key_words, config, mesh, trace_f
     key_words, reduce = _stream(mesh, key_words)
     gb, cand, n = tail_step(scene, camera, gb, cand, key_words, config, trace_fn,
                             pixel_ids=ids, reduce=reduce)
-    return gb, cand, _max_over_ranks(n, mesh)
+    return gb, cand, _max_over_ranks(int(n), mesh)
 
 
 def gbuffer_progress(gbuffer: GBuffer, config: RenderConfig, mesh: RenderMesh):

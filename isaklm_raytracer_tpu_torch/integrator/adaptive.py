@@ -31,11 +31,13 @@ def needs_sample(gbuffer: GBuffer, config: RenderConfig) -> torch.Tensor:
     variance = (total_sq - total_lum * total_lum / safe_n) / (safe_n - 1.0)
     variance = torch.clamp_min(variance, 0.0)
 
+    # torch.full fills on the device; a torch.tensor of a host value would
+    # copy it there and wait, which a CUDA graph capture refuses
     z = torch.special.erfinv(
-        torch.tensor(1.0 - config.max_tolerance, dtype=torch.float32, device=nf.device)
+        torch.full((), 1.0 - config.max_tolerance, dtype=torch.float32, device=nf.device)
     )
     half_width = (
-        torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=nf.device)
+        torch.full((), math.sqrt(2.0), dtype=torch.float32, device=nf.device)
         * z
         * torch.sqrt(variance / safe_n)
     )

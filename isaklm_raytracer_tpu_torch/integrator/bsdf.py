@@ -27,8 +27,9 @@ class ScatterSample:
     inside_medium: torch.Tensor  # (R,) bool, post-event
 
 
-def _where(mask, a, b):
-    return torch.where(mask, a, torch.as_tensor(b, dtype=a.dtype, device=a.device))
+def _where(mask, a, b: float):
+    # a Python scalar goes to the kernel by value: no copy to the device
+    return torch.where(mask, a, b)
 
 
 def scatter(

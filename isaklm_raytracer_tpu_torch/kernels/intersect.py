@@ -139,6 +139,10 @@ class LaunchCounts:
         """Plain-version calls on CUDA tensors, all kernels together."""
         return sum(getattr(self, f"{kernel}_plain_cuda") for kernel in self.KERNELS)
 
+    def snapshot(self) -> dict:
+        """Every count by its attribute name."""
+        return dict(vars(self))
+
 
 COUNTS = LaunchCounts()
 

@@ -9,6 +9,8 @@ was computed in.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from isaklm_raytracer_tpu_torch.math import transforms
@@ -28,8 +30,15 @@ ACES_OUTPUT = (
 LUMINANCE_WEIGHTS = (0.2126, 0.7152, 0.0722)
 
 
+@functools.cache
+def _const_on(values, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+    """``values`` as a float32 tensor on ``like``'s device, made once a
+    device: a CUDA graph capture refuses the copy from the host."""
+    return _const_on(values, like.device)
 
 
 def gamma_correction(x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,12 @@ Torch on the CPU cannot add or shift ``uint32`` tensors, so the 32-bit words
 live in ``int64`` tensors (or Python ints) and every add and shift is masked
 with ``& 0xFFFFFFFF``. The same code therefore runs on Python ints (the
 per-sample key words, computed on the host) and on tensors (per-ray words).
+
+The per-sample key words may also be a (2,) int64 tensor on the rays'
+device (``key_tensor``). Python ints would be baked into a captured CUDA
+graph as constants, so every replay would draw the same sample; the tensor
+is a graph input, as the JAX package passes its key into a jitted step.
+Both forms give the same bits.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32, 20 rounds (Random123).
 
     Arguments are 32-bit words held in Python ints or int64 tensors with
-    values in [0, 2**32). Returns two words of the same kind.
+    values in [0, 2**32); the key words ``k0``, ``k1`` may be the 0-dim
+    elements of a ``key_tensor``. Returns two words of the same kind.
     """
     ks0 = k0
     ks1 = k1
@@ -72,6 +79,24 @@ def sample_key_words(seed: int, index: int) -> tuple[int, int]:
     return fold_in((0, seed), index)
 
 
+def key_tensor(key_words, device=None) -> torch.Tensor:
+    """The (2,) int64 tensor form of per-sample key words on ``device``
+    (default: the CPU), each word masked to 32 bits."""
+    if isinstance(key_words, torch.Tensor):
+        return (key_words.to(device=device, dtype=torch.int64) & _MASK).reshape(2)
+    k0, k1 = (int(k) & _MASK for k in key_words)
+    return torch.tensor([k0, k1], dtype=torch.int64, device=device)
+
+
+def _key_pair(key_words):
+    """(k0, k1): Python ints of a pair of ints, 0-dim int64 tensors of a
+    (2,) tensor (no host read: the words stay where they are)."""
+    if isinstance(key_words, torch.Tensor):
+        words = key_words.to(torch.int64) & _MASK
+        return words[0], words[1]
+    return tuple(int(k) & _MASK for k in key_words)
+
+
 def _to_unit(bits: torch.Tensor) -> torch.Tensor:
     # 24 high bits -> [0, 1): exact in float32, never returns 1.0.
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
@@ -80,7 +105,8 @@ def _to_unit(bits: torch.Tensor) -> torch.Tensor:
 def uniforms(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.Tensor:
     """n uniform [0,1) variates per ray: (n, R) float32.
 
-    key_words: the (k0, k1) per-sample key words (``sample_key_words``).
+    key_words: the (k0, k1) per-sample key words (``sample_key_words``), or
+      their (2,) int64 tensor on ``pixel_ids``' device (``key_tensor``).
     pixel_ids: (R,) GLOBAL pixel/ray ids, the counter word.
     stream: bounce index or CAMERA_STREAM.
     """
@@ -91,7 +117,7 @@ def uniforms(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.T
         )
     if not 0 <= stream <= CAMERA_STREAM:
         raise ValueError(f"stream {stream} outside [0, {CAMERA_STREAM}]")
-    k0, k1 = (int(k) & _MASK for k in key_words)
+    k0, k1 = _key_pair(key_words)
     w0 = pixel_ids.to(torch.int64) & _MASK
     base = stream * _DIMS_PER_STREAM
     rows = []

@@ -42,8 +42,11 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
 def rotation_matrix(yaw: float, pitch: float = 0.0, roll: float = 0.0,
                     device=None) -> torch.Tensor:
     """Rz(roll) @ Ry(yaw) @ Rx(pitch), reference math_library.cuh:384-408."""
+    # torch.full fills a host value on the device without a copy from the
+    # host, which a CUDA graph capture refuses
     yaw, pitch, roll = (
-        torch.as_tensor(a, dtype=torch.float32, device=device)
+        a.to(dtype=torch.float32, device=device) if isinstance(a, torch.Tensor)
+        else torch.full((), a, dtype=torch.float32, device=device)
         for a in (yaw, pitch, roll)
     )
     cy, sy = torch.cos(yaw), torch.sin(yaw)
@@ -67,3 +70,28 @@ def rotation_matrix(yaw: float, pitch: float = 0.0, roll: float = 0.0,
     ])
     return rz @ ry @ rx
 
+
+
+def scale_matrix(scale, device=None) -> torch.Tensor:
+    """Uniform scale (math_library.cuh:410-420): eye(3) * scale, float32."""
+    if isinstance(scale, torch.Tensor):
+        scale = scale.to(dtype=torch.float32, device=device)
+        device = scale.device
+    return torch.eye(3, dtype=torch.float32, device=device) * scale
+
+
+def invert(m: torch.Tensor) -> torch.Tensor:
+    """3x3 inverse (math_library.cuh:357-382), by LU in float32 as the JAX
+    package's ``jnp.linalg.inv``: not bit-equal to it (another
+    factorization's rounding)."""
+    return torch.linalg.inv(torch.as_tensor(m, dtype=torch.float32))
+
+
+def orthonormal_frame(normal: torch.Tensor, edge: torch.Tensor):
+    """Shading frame at hit points (trace_ray.cuh:161-162): tangent =
+    normalize(cross(edge, normal)), bitangent = normalize(cross(normal,
+    tangent)). ``normal`` (..., 3) must be normalized; ``edge`` is any
+    vector not parallel to it."""
+    tangent = normalize(cross(edge, normal))
+    bitangent = normalize(cross(normal, tangent))
+    return tangent, bitangent

@@ -66,6 +66,29 @@ def test_transforms():
         )
 
 
+def test_scale_invert_and_orthonormal_frame():
+    """scale_matrix exact; orthonormal_frame within ATOL; invert within
+    rtol 1e-4 of the inverse's largest entry: both take an LU in float32,
+    with another pivoting's rounding, so they are not bit-equal."""
+    r = np.random.default_rng(6)
+    for s in (0.5, 2.0, -3.25):
+        np.testing.assert_array_equal(pt.scale_matrix(s).numpy(),
+                                      np.asarray(jt.scale_matrix(s)))
+    np.testing.assert_array_equal(pt.scale_matrix(torch.tensor(1.5)).numpy(),
+                                  np.asarray(jt.scale_matrix(1.5)))
+    for _ in range(16):
+        m = (r.normal(size=(3, 3)) + 2.0 * np.eye(3)).astype(np.float32)
+        got, want = pt.invert(torch.from_numpy(m)).numpy(), np.asarray(jt.invert(m))
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+        np.testing.assert_allclose(got @ m, np.eye(3), atol=1e-5)
+    n, t, _ = _frame(r)
+    edge = r.normal(size=(N, 3)).astype(np.float32)
+    for got, want in zip(pt.orthonormal_frame(torch.from_numpy(n), torch.from_numpy(edge)),
+                         jt.orthonormal_frame(jnp.asarray(n), jnp.asarray(edge))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
 def test_hemisphere_and_ggx_warps():
     r = np.random.default_rng(3)
     u1, u2 = r.random((2, N)).astype(np.float32)

@@ -76,6 +76,20 @@ def test_cluster_tables_random_soup():
     assert got.real_clusters == 7 and got.num_clusters == 64
 
 
+def test_morton_order_matches():
+    from isaklm_raytracer_tpu.accel.cluster import morton_order as jmorton
+
+    from isaklm_raytracer_tpu_torch.accel import morton_order
+
+    r = np.random.default_rng(8)
+    verts = (r.uniform(-2, 2, (1001, 1, 3)) + r.uniform(-0.4, 0.4, (1001, 3, 3))).astype(np.float32)
+    verts[500:520] = verts[0]  # equal centroids: the stable order keeps their indices
+    order = morton_order(verts)
+    assert order.dtype == np.int64
+    np.testing.assert_array_equal(order, np.asarray(jmorton(verts)))
+    np.testing.assert_array_equal(np.sort(order), np.arange(1001))
+
+
 def test_sample_texture_matches():
     r = np.random.default_rng(4)
     leaves = interop.scene_to_numpy(procedural.material_demo_scene())
