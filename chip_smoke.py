@@ -10,9 +10,9 @@ raising on failure:
 
 1. card: name, power limit and maximum SM clock as nvidia-smi reports
    them, and the SM count;
-2. build: compiles the ten kernels of ``csrc/`` (six intersectors, the
-   first-block keys, the null kernel, the KD walk and the brute force) with
-   nvcc, one process per
+2. build: compiles the eleven kernels of ``csrc/`` (six intersectors, the
+   first-block keys, the null kernel, the KD walk, the brute force and the
+   sampler) with nvcc, one process per
    source, all started together, and prints each one's ptxas register and
    spill lines;
 3. kernel flat: the flat intersector against its plain PyTorch version
@@ -253,12 +253,36 @@ raising on failure:
    finite and nonzero; one torch.profiler sample of the hero's forward
    and backward; grad-vs-FD on the card through the flat kernel (Cornell
    albedo, the silhouette-free camera view) with tests/test_estimator.py's
-   tolerances, and the card's gradient against the port's on the CPU.
+   tolerances, and the card's gradient against the port's on the CPU;
+22. sampler: the Threefry-2x32 sampler kernel (csrc/threefry_uniforms.cu,
+   ``rng.uniforms`` on CUDA ids) against its plain version
+   (``rng.uniforms_plain``) by SHA-256 at the main path's shapes: the
+   demo's 262,144 and the hero's 230,400 int32 pixel ids, a demo tail
+   bucket of 131,072 with its clamped ids, and 262,144 int64 ids across
+   2**32; streams 0-7 at n = 9 and the camera's at n = 4, keys as ints and
+   as a key tensor; the card test of tests/test_torch_rng.py (edge ids,
+   every n, a draw captured in a CUDA graph and replayed with new keys);
+   the SASS opcodes of the kernel's instantiations beside the ALU slots
+   its bound counts; kernel and plain timed in turns (demo n = 9 and 4,
+   hero n = 9) by CUDA events around the replay of a CUDA graph of 20
+   calls (the device's time; the kernels line takes it), the kernel's own
+   duration in one replay by torch.profiler, beside the bound; the demo
+   n = 9 draw also by calls one after another (the host's cost); the demo and the hero rendered in one pass, 3 samples each
+   (eager, capture, replay), with ``rng.uniforms`` patched to the plain
+   version: the G-buffer's SHA-256 equal to the kernel's.
+
+Every path that check_only holds (main path, assets, resume, interactive,
+sharded, kd, graphs) must also have launched the sampler kernel and no
+plain sampler on CUDA; ``device_launches`` holds the sampler's profiler
+records to its eager plus replayed launches like every kernel's, and the
+kernels line's sampler row counts its launches over the main path's runs.
 
 Every kernel's ``bound_ms`` is the larger of its bytes over the HBM rate
-and its issue slots over the card's FP32 lanes (see the note on issue slots below),
-counted from the run's own inputs and, where the work depends on the data,
-from the kernel's own per-ray counts.
+and its issue slots over the card's FP32 lanes (see the note on issue
+slots below), the sampler's over the lanes of its slowest pipe (ALU, all
+pipes together, or XU; see SAMPLER_PAIR_ALU), counted from the run's own
+inputs and, where the work depends on the data, from the kernel's own
+per-ray counts.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -275,6 +299,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -344,6 +369,26 @@ CARD_VS_CPU_RTOL, CARD_VS_CPU_ATOL = 1e-4, 1e-6
 # the validity test); KEY_SLOTS, that and the first-block key's two
 # comparisons against its running pair.
 HBM_BYTES_PER_S, FP32_LANES_PER_SM = 3.35e12, 128
+# The sampler (csrc/threefry_uniforms.cu) issues 32-bit integer work,
+# counted by the pipe of an SM of compute capability 9.0 that issues it
+# (lanes an SM a clock from the CUDA C++ Programming Guide's table of
+# arithmetic throughput):
+#   ALU, 64 lanes: the shifts and logic no other pipe issues, per counter
+#     pair 20 funnel-shift rotations and 20 xors (SAMPLER_PAIR_ALU), and a
+#     shift a word written;
+#   all pipes together, 128 lanes (one warp instruction a clock on each of
+#     the four sub-partitions, ALU and FMA pipes alike): those, the adds
+#     (SAMPLER_PAIR_ADDS: 20 rounds', the second word's five key
+#     injections, the first word's last one, whose other four fold into a
+#     round's three-input add, and the counter's), and a word's conversion
+#     and product by 2**-24; nvcc may send an add to the FMA pipe (IMAD);
+#   XU, 16 lanes (XU_LANES_PER_SM): a word's conversion to float.
+# Where n is odd the last pair's second word is dropped, and with it its
+# last rotation, xor and key injection. Work done once a ray (the first
+# word's first add, the key schedule) is not counted. The bound takes the
+# slowest pipe; phase sampler logs the SASS opcodes beside this count.
+INT32_LANES_PER_SM, XU_LANES_PER_SM = 64, 16
+SAMPLER_PAIR_ALU, SAMPLER_PAIR_ADDS = 40, 27
 TRI_HIT_SLOTS, PLANE_SLOTS, WINDOW_SLOTS, EDGE_SLOTS = 51, 10, 12, 30
 SLAB_SLOTS, KEY_SLOTS = 32, 34
 LANE_SLOTS_PER_S = 0.0  # SMs x FP32_LANES_PER_SM x clocks.max.sm, once read
@@ -406,10 +451,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2):
     return start.elapsed_time(stop) / reps, out
 
 
-def bound(slots: float, nbytes: float) -> dict:
-    """bound_ms = max(issue slots / the card's FP32 lane rate, bytes / HBM
-    rate), and which."""
-    t_ops, t_bytes = slots / LANE_SLOTS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(slots: float, nbytes: float, lanes_per_sm: int = FP32_LANES_PER_SM) -> dict:
+    """bound_ms = max(issue slots / the card's lane rate, bytes / HBM rate),
+    and which; the lanes are the FP32 lanes unless ``lanes_per_sm`` says
+    otherwise (the sampler's slowest pipe: ``sampler_bound``)."""
+    lane_rate = LANE_SLOTS_PER_S * lanes_per_sm / FP32_LANES_PER_SM
+    t_ops, t_bytes = slots / lane_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": slots, "bytes": nbytes}
@@ -1183,43 +1230,28 @@ def zero_counts(counts) -> None:
 def kernel_symbol(name: str) -> str:
     """A part of the name torch.profiler gives kernel ``name``'s CUDA
     kernel: flat and flat_mxu are the template ``flat_kernel`` over their
-    layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``
-    or ``first_block_keys_kernel``."""
+    layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``,
+    ``first_block_keys_kernel`` or the sampler's ``threefry_uniforms_kernel``."""
     return {"flat": "TileLayout", "flat_mxu": "PairLayout",
-            "first_blocks": "first_block_keys_kernel"}.get(name, f"{name}_intersect_kernel")
+            "first_blocks": "first_block_keys_kernel",
+            "sampler": "threefry_uniforms_kernel"}.get(name, f"{name}_intersect_kernel")
 
 
-# Idle seconds at both ends of a torch.profiler window: kineto keeps only
-# the records whose device times, mapped to the host's clock, fall inside
-# the window, and the mapping is off by up to a few tenths of a
-# millisecond on the card, so without the margin the kernels of a step
-# that ends just before the window closes were lost (a whole graph replay
-# in 5 of 20 blocks of four steps; none of 20 with the margin).
-PROFILE_PAD_S = 0.05
-
-
-@contextlib.contextmanager
 def cuda_profile():
-    """torch.profiler over the block, CUDA activity only, with
-    PROFILE_PAD_S of idle time before the block and after its last
-    kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over a block with idle pads and filler kernels ahead
+    of it (``tools/profiling.py``, which says why); logs the fillers it
+    dropped and raises if it kept none."""
+    from isaklm_raytracer_tpu_torch.tools import profiling
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAD_S)
-        yield prof
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)
+    return profiling.cuda_profile(log)
 
 
 def device_records(prof):
-    """The CUDA records of a torch.profiler run (kernels, copies, fills):
-    [(name, start ns, duration ns)], read from kineto's results directly."""
-    from torch.autograd import DeviceType
+    """The CUDA records of a ``cuda_profile`` window but its fillers:
+    [(name, start ns, duration ns)]."""
+    from isaklm_raytracer_tpu_torch.tools import profiling
 
-    return [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
+    return profiling.device_records(prof)
 
 
 @contextlib.contextmanager
@@ -1238,10 +1270,7 @@ def device_launches(counts):
     ran = {}
     with cuda_profile() as prof:
         yield ran
-    from torch.autograd import DeviceType
-
-    names = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
-                                if e.device_type() == DeviceType.CUDA)
+    names = collections.Counter(name for name, _, _ in device_records(prof))
     for k in counts.KERNELS:
         ran[k] = sum(n for name, n in names.items() if kernel_symbol(k) in name)
     attr = {k: f"{k}_kernel" for k in counts.KERNELS}
@@ -1252,13 +1281,20 @@ def device_launches(counts):
                            f"plus the replays' {want}")
 
 
+# (label, sampler kernels the card ran, the sampler wrapper's launches) of
+# every path that check_only held
+SAMPLER_RUNS = []
+
+
 def check_only(counts, kernel: str, label: str, ran=None):
     """The launches of ``kernel`` since the counts were zeroed: (the
     kernels the card ran, the wrappers' count). ``ran`` is
     ``device_launches``'s measurement; without it the run must have
     replayed no graph, and the wrappers' counts are what ran. Raises unless
     ``kernel`` ran, no other intersector did and no plain version ran on
-    CUDA."""
+    CUDA; then unless the sampler kernel ran too (every render draws its
+    variates there; its plain version is among the plain calls counted),
+    whose launches go to SAMPLER_RUNS."""
     from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
 
     if ran is None:
@@ -1269,9 +1305,16 @@ def check_only(counts, kernel: str, label: str, ran=None):
     others = {k: ran[k] for k in INTERSECTORS if k != kernel}
     log(f"main path {label}: {kernel}_kernel ran {ran[kernel]} times on the card ({wrapped} "
         f"launched by its wrapper, eagerly or into a graph), other intersectors {others}, "
-        f"plain intersector calls on CUDA {counts.plain_cuda()}")
+        f"plain versions' calls on CUDA (the sampler's among them) {counts.plain_cuda()}")
     if ran[kernel] == 0 or any(others.values()) or counts.plain_cuda():
         raise RuntimeError(f"the {label} path did not go through its kernel alone")
+    log(f"main path {label}: the sampler kernel ran {ran['sampler']} times on the card "
+        f"({counts.sampler_kernel} launched by its wrapper), the plain sampler on CUDA "
+        f"{counts.sampler_plain_cuda} times")
+    if ran["sampler"] == 0 or counts.sampler_plain_cuda:
+        raise RuntimeError(f"the {label} path did not draw its variates through the sampler "
+                           "kernel alone")
+    SAMPLER_RUNS.append((label, ran["sampler"], counts.sampler_kernel))
     return ran[kernel], wrapped
 
 
@@ -1297,6 +1340,10 @@ def profile_sample(render, scene, camera, config, kernel_name):
     if not mine:
         raise RuntimeError(f"no kernel named like {kernel_name} in the profile")
     n, busy_s, span_s = trace_share(records)
+    drawn = [d for name, _, d in records if kernel_symbol("sampler") in name]
+    log(f"  the profiled sample's sampler kernels: {len(drawn)} launches, "
+        f"{sum(drawn) / 1e6:.4f} ms = {sum(drawn) / 1e9 / busy_s:.2%} of its {busy_s * 1e3:.2f} ms "
+        f"of device kernel time ({n} CUDA records)")
     return n, busy_s, span_s, len(mine), sum(mine) / 1e9
 
 
@@ -2536,7 +2583,7 @@ def steps_against_replays(label, kernel, scene, camera, config, adaptive, counts
                 else:
                     gb = step(scene, camera, gb, words, adaptive)
         launches = check_only(counts, kernel, f"graphs {label} adaptive={adaptive} {how}", ran)
-        out[how] = (sha(gb.frame, gb.sq_luminance, gb.count), launches)
+        out[how] = (sha(gb.frame, gb.sq_luminance, gb.count), launches, ran["sampler"])
     graph = step.graphs.last
     recorded = graph.launches.get(f"{kernel}_kernel", 0)
     same = out["eager"][0] == out["graph"][0]
@@ -2545,9 +2592,10 @@ def steps_against_replays(label, kernel, scene, camera, config, adaptive, counts
         f"({'equal' if same else 'DIFFERENT'}); {kernel} kernels the card ran (wrapper "
         f"launches) eager {out['eager'][1]}, graph (eager, capture, replays) "
         f"{out['graph'][1]}; the capture recorded {recorded}, replayed {graph.replays} times; "
+        f"sampler kernels the card ran eager {out['eager'][2]}, graph {out['graph'][2]}; "
         f"{graph_record(graph)}")
     if not same or out["graph"][1][0] != out["eager"][1][0] \
-            or recorded * GRAPH_STEPS != out["eager"][1][0]:
+            or recorded * GRAPH_STEPS != out["eager"][1][0] or out["graph"][2] != out["eager"][2]:
         raise RuntimeError(f"graphs {label}: replayed steps differ from the eager steps")
     return out
 
@@ -2636,13 +2684,20 @@ def profile_replay(label, kernel, scene, camera, config) -> float:
     n, busy_s, span_s = trace_share(records)
     mine = sum(kernel_symbol(kernel) in name for name, _, _ in records)
     recorded = graph.launches.get(f"{kernel}_kernel", 0)
+    drawn = [d for name, _, d in records if kernel_symbol("sampler") in name]
+    drawn_recorded = graph.launches.get("sampler_kernel", 0)
     log(f"profile graphs {label} ray_chunk {config.ray_chunk}, one replayed step: {n} CUDA "
         f"records, device kernel time {busy_s:.4f} s in a device span of {span_s:.4f} s (busy "
         f"{busy_s / span_s:.1%}; {busy_s / wall:.1%} of the profiled step's {wall:.4f} s wall); "
-        f"{kernel} kernels {mine}, the capture recorded {recorded}")
+        f"{kernel} kernels {mine}, the capture recorded {recorded}; sampler kernels "
+        f"{len(drawn)} ({sum(drawn) / 1e6:.4f} ms = {sum(drawn) / 1e9 / busy_s:.2%} of the "
+        f"kernel time), the capture recorded {drawn_recorded}")
     if mine != recorded or recorded == 0:
         raise RuntimeError(f"graphs {label}: the replay ran {mine} {kernel} kernels, its "
                            f"capture recorded {recorded}")
+    if len(drawn) != drawn_recorded or drawn_recorded == 0:
+        raise RuntimeError(f"graphs {label}: the replay ran {len(drawn)} sampler kernels, its "
+                           f"capture recorded {drawn_recorded}")
     return busy_s / span_s
 
 
@@ -2778,6 +2833,225 @@ def phase_graphs(counts, device, scenes) -> None:
         log(f"graphs dryrun_multichip({n}, {dev!r}): mesh {res['mesh']}, loss "
             f"{res['loss']:.6f}, frame {res['frame'].shape} finite, in "
             f"{time.perf_counter() - t0:.1f} s")
+
+
+# the renders phase sampler draws with either sampler: scene, (width,
+# height, bounces)
+SAMPLER_RENDERS = (("demo", (512, 512, 8)), ("hero", (HERO_W, HERO_H, HERO_BOUNCES)))
+
+
+def sampler_draws(device, rng):
+    """The sampler's ids at the main path's shapes: {label: ids}: the
+    demo's 262,144 and the hero's 230,400 int32 pixel ids (``render_sample``'s
+    arange), a demo tail bucket of 131,072 with its ids clamped as
+    ``tail_step`` passes them (the active pixels ascending, then zeros),
+    and int64 ids (a sharded rank's may be) across the counter word's wrap
+    at 2**32."""
+    from isaklm_raytracer_tpu_torch.integrator.render import _first_ids
+
+    bucket = 131_072
+    active = torch.from_numpy(rng.random(512 * 512) < 0.3).to(device)
+    first, n_active = _first_ids(active, bucket)
+    cand = torch.where(torch.arange(bucket, device=device) < n_active, first, -1)
+    return {
+        "demo 262144 int32": torch.arange(512 * 512, dtype=torch.int32, device=device),
+        f"hero {HERO_W * HERO_H} int32": torch.arange(HERO_W * HERO_H, dtype=torch.int32,
+                                                     device=device),
+        f"demo tail bucket {bucket} int32 (clamped)": torch.clamp_min(cand, 0),
+        "262144 int64 from 2**32 - 1000": torch.arange(512 * 512, dtype=torch.int64,
+                                                       device=device) + (2**32 - 1000),
+    }
+
+
+def sampler_bound(num_rays: int, n: int, id_bytes: int) -> dict:
+    """The sampler's bound: its slots on each pipe (SAMPLER_PAIR_ALU) over
+    that pipe's lanes, the slowest pipe against the bytes (the output
+    written, the ids and the key read). The result holds each pipe's
+    slots a ray and microseconds under "pipes"."""
+    pairs, dropped = -(-n // 2), n % 2
+    alu = pairs * SAMPLER_PAIR_ALU + n - 2 * dropped
+    issue = alu + pairs * SAMPLER_PAIR_ADDS - dropped + 2 * n
+    pipes = {"ALU": (alu, INT32_LANES_PER_SM), "all": (issue, FP32_LANES_PER_SM),
+             "XU": (n, XU_LANES_PER_SM)}
+    us = {k: slots * num_rays / (LANE_SLOTS_PER_S * lanes / FP32_LANES_PER_SM) * 1e6
+          for k, (slots, lanes) in pipes.items()}
+    slowest = max(us, key=us.get)
+    slots, lanes = pipes[slowest]
+    b = bound(slots * num_rays, n * num_rays * 4 + num_rays * id_bytes + 16, lanes)
+    b["pipes"] = {k: {"slots_a_ray": pipes[k][0], "lanes_per_sm": pipes[k][1], "us": us[k]}
+                  for k in pipes}
+    b["pipe"] = slowest
+    return b
+
+
+def sass_opcodes(library) -> dict:
+    """{kernel symbol: Counter of SASS opcodes (without modifiers)} of a
+    built library, from ``cuobjdump -sass``; {} without cuobjdump."""
+    from isaklm_raytracer_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    dump = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    out, current = {}, None
+    for line in dump.splitlines():
+        if "Function : " in line:
+            current = out.setdefault(line.split("Function : ")[1].strip(), collections.Counter())
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if op and current is not None:
+            current[op.group(1).split(".")[0]] += 1
+    return out
+
+
+def log_sampler_sass() -> None:
+    """Logs the SASS opcodes of the sampler kernel's instantiations beside
+    the ALU slots a ray that its bound counts (n = 9 and 4 unroll, so
+    their static counts are a ray's)."""
+    from isaklm_raytracer_tpu_torch.kernels import build
+
+    functions = sass_opcodes(build.library_path("threefry_uniforms.cu"))
+    if not functions:
+        log("sampler SASS: no cuobjdump beside nvcc")
+        return
+    for name, ops in sorted(functions.items()):
+        n = re.search(r"ILi(\d+)E", name)
+        n = int(n.group(1)) if n else 0
+        counted = sampler_bound(1, n, 4)["pipes"] if n else None
+        top = ", ".join(f"{op} {c}" for op, c in ops.most_common())
+        log(f"sampler SASS of threefry_uniforms_kernel<{n}>: {sum(ops.values())} instructions: "
+            f"{top}" + (f"; the bound counts {counted['ALU']['slots_a_ray']} ALU slots a ray "
+                        f"(SHF + LOP3 here {ops['SHF'] + ops['LOP3']}) and "
+                        f"{counted['all']['slots_a_ray']} in all" if counted else ""))
+
+
+def sampler_device_ms(kernel_fn, plain_fn, reps: int = 20) -> tuple:
+    """Device ms a call of the sampler kernel and of its plain version: each
+    captured ``reps`` times into a CUDA graph, which is replayed between
+    CUDA events (a call one after another is bound by the host's launch
+    rate, not by the kernel). In turns plain, kernel, kernel, plain; the
+    two outputs must be equal. Then one replay of the kernel's graph under
+    torch.profiler: the kernel's own duration, without the gaps between
+    graph nodes. Returns the means of the two turns (ms) and the
+    profiler's mean kernel duration (ms)."""
+    graphs, outs = {}, {}
+    for name, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+        fn()
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(reps):
+                outs[name] = fn()
+    times = {}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms, _ = cuda_ms(graphs[name].replay, reps=3, warmup=1)
+        times.setdefault(name, []).append(ms / reps)
+    if not torch.equal(outs["kernel"], outs["plain"]):
+        raise RuntimeError("sampler: the captured kernel's draw differs from the plain version's")
+    with cuda_profile() as prof:
+        graphs["kernel"].replay()
+    own = [d for name, _, d in device_records(prof) if kernel_symbol("sampler") in name]
+    if len(own) != reps:
+        raise RuntimeError(f"sampler: the profiler saw {len(own)} kernels of a replay of {reps}")
+    own_ms = sum(own) / len(own) / 1e6
+    log("time threefry_uniforms device, from CUDA graphs of "
+        f"{reps} calls: kernel {times['kernel'][0] * 1e3:.3f}/{times['kernel'][1] * 1e3:.3f} us, "
+        f"plain {times['plain'][0]:.4f}/{times['plain'][1]:.4f} ms, outputs equal; the "
+        f"kernel's own duration (torch.profiler, one replay) {own_ms * 1e3:.3f} us, "
+        f"{min(own) / 1e3:.3f}-{max(own) / 1e3:.3f}")
+    del graphs
+    return sum(times["kernel"]) / 2, sum(times["plain"]) / 2, own_ms
+
+
+def phase_sampler(counts, device, scenes, results) -> None:
+    """Phase sampler (the module docstring, 22)."""
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.integrator.render import render
+    from isaklm_raytracer_tpu_torch.math import rng
+
+    draws = sampler_draws(device, np.random.default_rng(22))
+    draws_per_sample = [(b, 9) for b in range(8)] + [(rng.CAMERA_STREAM, 4)]
+    for label, ids in draws.items():
+        digests = []
+        for i in (0, 1):
+            words = rng.sample_key_words(0, i)
+            for key in (words, rng.key_tensor(words, device)):
+                for stream, n in draws_per_sample:
+                    zero_counts(counts)
+                    got = rng.uniforms(key, ids, stream, n)
+                    if counts.sampler_kernel != 1 or counts.sampler_plain_cuda:
+                        raise RuntimeError(f"sampler {label}: uniforms did not launch the kernel")
+                    want = rng.uniforms_plain(key, ids, stream, n)
+                    if got.shape != (n, ids.shape[0]) or sha(got) != sha(want) \
+                            or not torch.equal(got, want):
+                        raise RuntimeError(f"sampler {label} stream {stream} n {n}: kernel != "
+                                           "plain version")
+                    digests.append(sha(got))
+        log(f"sampler {label}: kernel == uniforms_plain by SHA-256 for samples 0 and 1, keys "
+            f"as ints and as a key tensor, streams 0-7 at n = 9 and {rng.CAMERA_STREAM} at n "
+            f"= 4 ({len(digests)} draws; first {digests[0]}, last {digests[-1]})")
+    card_test("test_torch_rng", "test_cuda_sampler_kernel_equals_plain")
+
+    log_sampler_sass()
+    key_t = rng.key_tensor(rng.sample_key_words(0, 3), device)
+    demo = draws["demo 262144 int32"]
+    k_ms, _, _ = time_in_turns(
+        "threefry_uniforms demo 262144 int32 stream 3 n 9, calls one after another (the "
+        "host's launch rate bounds the kernel's)",
+        lambda: (rng.uniforms(key_t, demo, 3, 9),), lambda: (rng.uniforms_plain(key_t, demo, 3, 9),))
+    timed = {}
+    for label, stream, n in (("demo 262144 int32", 3, 9),
+                             ("demo 262144 int32", rng.CAMERA_STREAM, 4),
+                             (f"hero {HERO_W * HERO_H} int32", 3, 9)):
+        ids = draws[label]
+        k_dev, p_dev, own = sampler_device_ms(lambda: rng.uniforms(key_t, ids, stream, n),
+                                              lambda: rng.uniforms_plain(key_t, ids, stream, n))
+        b = sampler_bound(ids.shape[0], n, ids.element_size())
+        pipes = ", ".join(f"{k} {v['slots_a_ray']} slots a ray on {v['lanes_per_sm']} lanes an "
+                          f"SM {v['us']:.3f} us" for k, v in b["pipes"].items())
+        log(f"bound threefry_uniforms {label} n {n}: {b['bound_ms'] * 1e3:.3f} us "
+            f"({b['bound_by']}; {pipes}; {b['bytes']:.4g} bytes "
+            f"{b['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us); the kernel's device time "
+            f"{k_dev * 1e3:.3f} us = {b['bound_ms'] / k_dev:.1%} of the bound's rate, its own "
+            f"duration {own * 1e3:.3f} us = {b['bound_ms'] / own:.1%}; the plain version's "
+            f"{p_dev:.4f} ms")
+        timed[(label, n)] = (k_dev, p_dev, b)
+    log(f"threefry_uniforms demo n 9: {k_ms * 1e3:.3f} us a call one after another against "
+        f"{timed[('demo 262144 int32', 9)][0] * 1e3:.3f} us of device time")
+    k_ms, p_ms, b = timed[("demo 262144 int32", 9)]
+    results["sampler"] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **b,
+                          "shape": "262144 int32 ids x 9 variates (the demo's bounce draw)"}
+
+    # one-pass renders with the plain sampler in the kernel's place: the
+    # same G-buffer (eager call, capture and a replay of each)
+    camera = Camera.create(BENCH_EYE, pitch=BENCH_PITCH, fov=np.pi / 2, device=device)
+    for label, (w, h, bounces) in SAMPLER_RENDERS:
+        config = RenderConfig(width=w, height=h, max_bounces=bounces, ray_chunk=0)
+        digests = {}
+        for how in ("kernel", "plain"):
+            clear_step_caches()
+            zero_counts(counts)
+            real = rng.uniforms
+            if how == "plain":
+                rng.uniforms = rng.uniforms_plain
+            try:
+                gb = render(scenes[label], camera, config, num_samples=3, seed=0, adaptive=False)
+                torch.cuda.synchronize()
+            finally:
+                rng.uniforms = real
+            digests[how] = sha(gb.frame, gb.sq_luminance, gb.count)
+            drawn = (counts.sampler_kernel, counts.sampler_plain_cuda)
+            if (how == "kernel") != (drawn[0] > 0 and drawn[1] == 0) or sum(drawn) == 0:
+                raise RuntimeError(f"sampler render {label} ({how}): sampler kernel launches "
+                                   f"and plain calls {drawn}")
+            log(f"sampler render {label} {w}x{h}x{bounces} ray_chunk 0, 3 samples (eager, capture, "
+                f"replay) through the {how} sampler: G-buffer SHA-256 {digests[how]}; sampler "
+                f"kernel launches {drawn[0]}, plain calls on CUDA {drawn[1]}")
+        if digests["kernel"] != digests["plain"]:
+            raise RuntimeError(f"sampler render {label}: the plain sampler's G-buffer differs")
+    clear_step_caches()
 
 
 def main() -> int:
@@ -3221,6 +3495,7 @@ def main() -> int:
                 raise RuntimeError(f"golden {name} drifted beyond its tolerance")
 
     with Phase("main path"):
+        main_path_runs = len(SAMPLER_RUNS)
         os.makedirs(OUT_DIR, exist_ok=True)
         demo_argv = ["--scene", "demo", "--width", "512", "--height", "512",
                      "--max-bounces", "8", "--min-samples", "4", "--max-samples", "8",
@@ -3262,6 +3537,12 @@ def main() -> int:
                 blk_mxu_launches = launches
         same_image("render of the hero under ISAKLM_INTERSECTOR=blk_mxu", images["blk_mxu"],
                    images[None])
+        # the sampler runs on every path: its launches over the main path's runs
+        sampler_launches = tuple(sum(run[i] for run in SAMPLER_RUNS[main_path_runs:])
+                                 for i in (1, 2))
+        log(f"main path: the sampler kernel ran {sampler_launches[0]} times on the card over its "
+            f"{len(SAMPLER_RUNS) - main_path_runs} paths ({sampler_launches[1]} launched by its "
+            "wrapper)")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         with Phase("assets"):
@@ -3328,12 +3609,15 @@ def main() -> int:
                                                    max_bounces=HERO_BOUNCES, ray_chunk=0), card)
         grad_checks_on_card(device, counts)
 
+    with Phase("sampler"):
+        phase_sampler(counts, device, {"demo": demo, "hero": hero}, results)
+
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall in all")
     launches = {"flat": flat_launches, "queue": queue_launches, "blk": blk_launches,
                 "first_blocks": first_blocks_launches, "hbm": hbm_launches,
                 "flat_mxu": flat_mxu_launches, "blk_mxu": blk_mxu_launches,
                 "null": (null_launches,) * 2, "kd": results["kd"]["launches"],
-                "brute": results["brute"]["launches"]}
+                "brute": results["brute"]["launches"], "sampler": sampler_launches}
     # the CUDA kernel of each entry and the TPU kernel it replaces
     pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
     kernels = {
@@ -3349,6 +3633,7 @@ def main() -> int:
         # no Pallas kernel: the jnp functions they compute
         "kd": ("kd_intersect", "isaklm_raytracer_tpu/accel/wavefront.py:165"),
         "brute": ("brute_intersect", "isaklm_raytracer_tpu/accel/traverse.py:73"),
+        "sampler": ("threefry_uniforms", "isaklm_raytracer_tpu/math/rng.py:72"),
     }
     for k, r in results.items():
         log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches: the "
@@ -3371,7 +3656,9 @@ def main() -> int:
         "plain_ms": results[k]["plain_ms"],
         "bound_ms": results[k]["bound_ms"],
         "bound_by": results[k]["bound_by"],
-        "library_ms": None,  # no PyTorch call computes a nearest hit or a block key
+        # no PyTorch call computes a nearest hit, a block key or Threefry-2x32
+        # (torch's generators are Philox)
+        "library_ms": None,
     } for k, (name, replaces) in kernels.items()]}), name_card=False)
     log(card)
     log(json.dumps({"ok": True, "device": {

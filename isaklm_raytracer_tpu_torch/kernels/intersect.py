@@ -73,6 +73,10 @@ On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches its kernel or raises; a failed build raises too. ``COUNTS``
 records kernel launches and plain calls on CUDA tensors, so a run can show
 which one it went through.
+
+``SOURCES`` also lists the sampler's kernel (``csrc/threefry_uniforms.cu``,
+wrapped by ``kernels/sampler.py`` for ``math.rng.uniforms``), which shares
+this module's build, launch route and ``COUNTS`` (``sampler``).
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ VMEM_TABLE_LIMIT = 6 * 1024 * 1024
 SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu",
            "first_block_keys.cu", "hbm_intersect.cu", "flat_mxu_intersect.cu",
            "blk_mxu_intersect.cu", "null_intersect.cu", "kd_intersect.cu",
-           "brute_intersect.cu")
+           "brute_intersect.cu", "threefry_uniforms.cu")
 # The JAX package's packet sizes: the ordering sorts a call's rays only when
 # there are more of them than one packet (DEFAULT_PACKET for every
 # intersector but blk, which the render path calls with BLK_PACKET).
@@ -125,7 +129,7 @@ class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
     KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null",
-               "kd", "brute")
+               "kd", "brute", "sampler")
 
     def __init__(self) -> None:
         self.reset()
@@ -146,7 +150,7 @@ class LaunchCounts:
 
 COUNTS = LaunchCounts()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # argtypes of each C entry point; every one starts with the device index and
 # ends with the stream
 _ENTRY_ARGS = {
@@ -176,6 +180,9 @@ _ENTRY_ARGS = {
     "kd_intersect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _F, _P, _P, _P],
     # vertices, num_tris, rays, num_rays, t_eps, out_t, out_id
     "brute_intersect": [_P, _I, _P, _I, _F, _P, _P],
+    # ids, id_bytes, num_rays, key (or null), k0, k1, w1_base, n, out
+    # (kernels/sampler.py)
+    "threefry_uniforms": [_P, _I, _I, _P, _U, _U, _U, _I, _P],
 }
 # the COUNTS attribute prefix of each entry point
 _COUNTER = {
@@ -189,6 +196,7 @@ _COUNTER = {
     "null_intersect": "null",
     "kd_intersect": "kd",
     "brute_intersect": "brute",
+    "threefry_uniforms": "sampler",
 }
 
 
@@ -202,7 +210,8 @@ def _kernel_fn(name: str):
 
 
 def _launch(name: str, rays: torch.Tensor, *args) -> None:
-    """Launch kernel ``name`` on the current stream of ``rays``' card."""
+    """Launch kernel ``name`` on the current stream of ``rays``' card (any
+    tensor of the launch: the sampler passes its ids)."""
     device = rays.device.index if rays.device.index is not None else torch.cuda.current_device()
     err = _kernel_fn(name)(
         device, *args, torch.cuda.current_stream(rays.device).cuda_stream

@@ -14,6 +14,11 @@ device (``key_tensor``). Python ints would be baked into a captured CUDA
 graph as constants, so every replay would draw the same sample; the tensor
 is a graph input, as the JAX package passes its key into a jitted step.
 Both forms give the same bits.
+
+``uniforms`` launches the sampler's CUDA kernel (``kernels/sampler.py``,
+``csrc/threefry_uniforms.cu``) on CUDA ids and runs ``uniforms_plain``,
+the same function one tensor op at a time, on CPU ids; the two give the
+same bits. The kernel's module is imported only for CUDA ids.
 """
 
 from __future__ import annotations
@@ -88,7 +93,7 @@ def key_tensor(key_words, device=None) -> torch.Tensor:
     return torch.tensor([k0, k1], dtype=torch.int64, device=device)
 
 
-def _key_pair(key_words):
+def key_pair(key_words):
     """(k0, k1): Python ints of a pair of ints, 0-dim int64 tensors of a
     (2,) tensor (no host read: the words stay where they are)."""
     if isinstance(key_words, torch.Tensor):
@@ -102,14 +107,12 @@ def _to_unit(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def uniforms(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.Tensor:
-    """n uniform [0,1) variates per ray: (n, R) float32.
-
-    key_words: the (k0, k1) per-sample key words (``sample_key_words``), or
-      their (2,) int64 tensor on ``pixel_ids``' device (``key_tensor``).
-    pixel_ids: (R,) GLOBAL pixel/ray ids, the counter word.
-    stream: bounce index or CAMERA_STREAM.
-    """
+def check_counter(stream: int, n: int) -> None:
+    """Raise unless ``n`` variates of ``stream`` fit the stream's counter
+    words (the JAX package's checks; n < 1 fails there when the empty
+    list of rows is stacked)."""
+    if n < 1:
+        raise ValueError(f"uniforms(n={n}): at least one variate")
     if n > 2 * _DIMS_PER_STREAM:
         raise ValueError(
             f"uniforms(n={n}) exceeds the stream's {2 * _DIMS_PER_STREAM} "
@@ -117,9 +120,25 @@ def uniforms(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.T
         )
     if not 0 <= stream <= CAMERA_STREAM:
         raise ValueError(f"stream {stream} outside [0, {CAMERA_STREAM}]")
-    k0, k1 = _key_pair(key_words)
+
+
+def counter_base(stream: int) -> int:
+    """The second counter word of the stream's first pair of variates."""
+    return stream * _DIMS_PER_STREAM
+
+
+def uniforms_plain(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """``uniforms`` one tensor op at a time, on any device: the sampler
+    kernel's plain version, bit-exact with the JAX package's ``uniforms``.
+    Counts its calls on CUDA ids (``kernels.intersect.COUNTS``)."""
+    check_counter(stream, n)
+    if pixel_ids.is_cuda:
+        from isaklm_raytracer_tpu_torch.kernels.intersect import COUNTS
+
+        COUNTS.sampler_plain_cuda += 1
+    k0, k1 = key_pair(key_words)
     w0 = pixel_ids.to(torch.int64) & _MASK
-    base = stream * _DIMS_PER_STREAM
+    base = counter_base(stream)
     rows = []
     for p in range(-(-n // 2)):
         w1 = torch.full_like(w0, base + p)
@@ -127,3 +146,21 @@ def uniforms(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.T
         rows.append(_to_unit(a))
         rows.append(_to_unit(b))
     return torch.stack(rows[:n])
+
+
+def uniforms(key_words, pixel_ids: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """n uniform [0,1) variates per ray: (n, R) float32.
+
+    key_words: the (k0, k1) per-sample key words (``sample_key_words``), or
+      their (2,) int64 tensor on ``pixel_ids``' device (``key_tensor``).
+    pixel_ids: (R,) GLOBAL pixel/ray ids, the counter word.
+    stream: bounce index or CAMERA_STREAM.
+
+    On CUDA ids the sampler kernel (``kernels.sampler.threefry_uniforms``),
+    on CPU ids ``uniforms_plain``; both check the stream and n.
+    """
+    if pixel_ids.is_cuda:
+        from isaklm_raytracer_tpu_torch.kernels.sampler import threefry_uniforms
+
+        return threefry_uniforms(key_words, pixel_ids, stream, n)
+    return uniforms_plain(key_words, pixel_ids, stream, n)
