@@ -10,9 +10,9 @@ raising on failure:
 
 1. card: name, power limit and maximum SM clock as nvidia-smi reports
    them, and the SM count;
-2. build: compiles the eleven kernels of ``csrc/`` (six intersectors, the
-   first-block keys, the null kernel, the KD walk, the brute force and the
-   sampler) with nvcc, one process per
+2. build: compiles the twelve kernels of ``csrc/`` (six intersectors, the
+   first-block keys, the null kernel, the KD walk and its triangle table,
+   the brute force and the sampler) with nvcc, one process per
    source, all started together, and prints each one's ptxas register and
    spill lines;
 3. kernel flat: the flat intersector against its plain PyTorch version
@@ -212,6 +212,21 @@ raising on failure:
    order, so its samples differ by noise); the same run with the moved
    scene's lights put in ``prepare_scene``'s order (the CLI's
    ``load_scene`` wrapped) under the aggregate gate of the flat path's PNG.
+   The phase also builds each scene's triangle tables (the
+   records of csrc/tri_consts.cu, once a tree: ``WavefrontKD.tri_table``,
+   ``KDTreeArrays.tri_table``) and logs their bytes and seconds (time to
+   the first sample), each equal to ``tri_consts_plain`` bit for bit, the
+   table kernel timed in turns with it on the 20k hero's corners;
+   holds every wavefront's SHA-256 of (t, id, hit) to the parent's
+   (PARENT_KD_DIGESTS, those of the first KD kernels); runs the card tests of
+   tests/test_torch_tri_consts.py (the table, the walk at depths 21, 32
+   and 64 with full and overflowed stacks, the brute force at ragged
+   tile and block counts, empty masks and ties); logs the SASS opcodes of
+   the walk's and the brute force's inner loops (``cuobjdump -sass``);
+   renders through the walk with a fresh copy of its chunk rows, so that
+   the run builds the table (its launches are the kernels line's); and
+   holds the replayed KD and brute steps of the demo and the 20k hero to
+   eager ones by SHA-256 (``steps_against_replays``).
    The kernels line takes the KD walk's launches from one render through
    it, and each kernel's max_abs_err over its kernel-vs-plain comparisons;
 19. graphs: the step factories of ``integrator/render.py``, which capture
@@ -293,6 +308,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import gc
 import importlib.util
@@ -363,7 +379,10 @@ CARD_VS_CPU_RTOL, CARD_VS_CPU_ATOL = 1e-4, 1e-6
 # A bound charges the stages, not the full test: the plane stage on each
 # real slot tested, the window and edge stages on the pairs that reach
 # them (``flat_slots``; for the walks, each cluster test against the best
-# at its start). TRI_HIT_SLOTS gives the full test's bound beside it.
+# at its start; for the brute force, which divides on every pair, the
+# plane and window stages on every pair and the edge stage where the plane
+# distance can win, ``brute_stage_counts``). TRI_HIT_SLOTS gives the full
+# test's bound beside it.
 # Per (ray, box): SLAB_SLOTS, the slab test (six subtractions, six
 # products, six NaN tests, ten min/max, two comparisons, the clamp at 0 and
 # the validity test); KEY_SLOTS, that and the first-block key's two
@@ -526,6 +545,31 @@ def brute(o, d, vertices, rays_per_call: int = 256):
     parts = [nearest_hit_brute(o[s:s + rays_per_call], d[s:s + rays_per_call], vertices)
              for s in range(0, o.shape[0], rays_per_call)]
     return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def brute_stage_counts(o, d, vertices, t_eps: float = 1e-5, rays_per_call: int = 16384):
+    """Per ray, the brute-force kernel's (pairs, pairs reaching the
+    division, pairs reaching the edge test), for ``flat_slots``: every
+    pair forms its plane distance s with the division (the plane and window
+    stages), and only a pair whose s >= t_eps and s < the nearest hit
+    before it in id order goes on to the barycentrics (the edge stage)."""
+    from isaklm_raytracer_tpu_torch.accel.wavefront import tri_hits
+    from isaklm_raytracer_tpu_torch.math import transforms
+
+    p1 = vertices[:, 0]
+    e1, e2 = vertices[:, 1] - p1, vertices[:, 2] - p1
+    n = transforms.normalize(transforms.cross(e1, e2))
+    counts = []
+    for s0 in range(0, o.shape[0], rays_per_call):
+        oc, dc = o[s0:s0 + rays_per_call, None], d[s0:s0 + rays_per_call, None]
+        s = (transforms.dot(n, p1) - transforms.dot(oc, n)) / transforms.dot(dc, n)
+        t = tri_hits(oc, dc, p1, e1, e2, t_eps)
+        best = torch.cat([torch.full_like(t[:, :1], float("inf")),
+                          torch.cummin(t, dim=1).values[:, :-1]], dim=1)
+        edge = ((s >= t_eps) & (s < best)).sum(dim=1)
+        every = torch.full_like(edge, vertices.shape[0])
+        counts.append(torch.stack([every, every, edge], dim=1))
+    return torch.cat(counts)
 
 
 def oracle_gate(label, t_k, i_k, h_k, oracle, act, t_max, bench_gate) -> int:
@@ -1231,10 +1275,12 @@ def kernel_symbol(name: str) -> str:
     """A part of the name torch.profiler gives kernel ``name``'s CUDA
     kernel: flat and flat_mxu are the template ``flat_kernel`` over their
     layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``,
-    ``first_block_keys_kernel`` or the sampler's ``threefry_uniforms_kernel``."""
+    ``first_block_keys_kernel``, the sampler's ``threefry_uniforms_kernel``
+    or the KD walk's table kernel ``tri_consts_kernel``."""
     return {"flat": "TileLayout", "flat_mxu": "PairLayout",
             "first_blocks": "first_block_keys_kernel",
-            "sampler": "threefry_uniforms_kernel"}.get(name, f"{name}_intersect_kernel")
+            "sampler": "threefry_uniforms_kernel",
+            "tri_consts": "tri_consts_kernel"}.get(name, f"{name}_intersect_kernel")
 
 
 def cuda_profile():
@@ -2183,22 +2229,52 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
 #     and exit selects 4;
 #   KD_ROOT_SLOTS, the root box's slab test once a ray: six subtractions and
 #     six divisions 66, ten min/max and the comparison 11;
-#   each triangle test of a walk or of the brute force: TRI_HIT_SLOTS, the
-#     cluster test's (the normal and Cramer terms a KD test forms from the
-#     triangle's corners count as free: the bound is what the least work
-#     could take).
+#   each triangle test of a walk: TRI_HIT_SLOTS, the cluster test's (the
+#     normal and Cramer terms a KD test forms from the triangle's corners
+#     count as free: the bound is what the least work could take); the
+#     brute force's by its stages (``brute_stage_counts``).
 KD_NODE_SLOTS, KD_ROOT_SLOTS = 24, 77
 KD_SIZE = (512, 512, 8)  # the phase's wavefronts and renders: width, height, bounces
 KD_ORACLE_RAYS = 4096
+# a triangle of the table kernel: the bytes it must move (its corners in,
+# the 80-byte record out) and its issue slots (make_tri: the
+# cross product 9, the squared norm 5, its floor, square root and
+# reciprocal 3, the scaled normal 3, n.p1 5, three dot products 15, the
+# determinant 3 and its reciprocal 1)
+TRI_TABLE_BYTES, TRI_CONSTS_SLOTS = 9 * 4 + 80, 44
+# the SHA-256 of (t, id, hit) of every wavefront of this phase, as the
+# first KD walk and brute-force kernels gave them (PERF.md section 6): a
+# redesigned kernel must give them again. (scene, rays, layout or None for
+# the brute force)
+PARENT_KD_DIGESTS = {
+    ("demo", "camera"): "1afd75ca99701d64", ("demo", "bounce"): "9f741f526fdd1fd5",
+    ("demo", "nee"): "4344628a379f2017", ("demo", "random, 70% active"): "3fbc2455bb7e310b",
+    ("hero20k", "camera"): "b30ff32f47886fbc", ("hero20k", "bounce"): "fb89faf790a5b8a7",
+    ("hero20k", "nee"): "67ef4f0d530e3ddf",
+    ("hero20k", "random, 70% active"): "571b2c6f5d0f885e",
+    ("hero300k", "camera"): "c8b02101f7a4e7f0", ("hero300k", "bounce"): "07bb38887d7c620f",
+    ("hero300k", "nee"): "3e0e5c550afb4c4e",
+    ("hero300k", "random, 70% active"): "a8ea869e6a3267cc",
+    ("cornell", "camera"): "a17112c560172844", ("cornell", "bounce"): "b585071210d51564",
+    ("cornell", "nee"): "cdca04e2b5db260e",
+}
+
+
+def same_digest(label, scene, kind, digest) -> None:
+    """Raise unless ``digest`` is the parent's for (scene, kind)."""
+    want = PARENT_KD_DIGESTS[(scene, kind)]
+    if digest != want:
+        raise RuntimeError(f"{label}: SHA-256 {digest}, the parent's {want}")
 
 
 def kd_tables_bytes(tree, vertices=None) -> int:
-    """The bytes of a walk's tables: the packed nodes and the chunk rows, or
-    the tree's lists and the vertices."""
+    """The bytes of the tables a walk reads: the packed nodes, the chunk
+    rows' links and ids or the tree's lists, and the triangle records
+    (``tri_table``, built here if it was not)."""
     if vertices is None:
-        leaves = (tree.leaf_first, tree.chunk_next, tree.chunk_tri, tree.chunk_data)
+        leaves = (tree.leaf_first, tree.chunk_next, tree.chunk_tri, tree.tri_table)
     else:
-        leaves = (tree.tri_indices, vertices)
+        leaves = (tree.tri_indices, tree.tri_table(vertices))
     return tree.nodes.numel() * 4 + sum(t.numel() * t.element_size() for t in leaves)
 
 
@@ -2331,6 +2407,7 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
         log(f"kd {label}: prepare_scene(build_kd=True) {time.perf_counter() - t0:.2f} s "
             f"(cluster tables, KD tree and chunk rows, moved); cluster path "
             f"{intersector_name(scene.cbvh)}")
+    tri_row = phase_kd_tables(scenes)
     for label, scene in scenes.items():
         verts = scene.vertices.cpu().numpy()
         t0 = time.perf_counter()
@@ -2377,9 +2454,11 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
                 if not all(torch.equal(g, w) for g, w in zip(got, want)):
                     raise RuntimeError(f"kd {label} {kind} ({layout}): kernel != plain version "
                                        f"(max |dt| {err:.3e}, {ids} ids differ)")
+                digest = sha(got[0], got[1], got[1] >= 0)
+                same_digest(f"kd {label} {kind} ({layout})", label, kind, digest)
                 log(f"kd {label} {kind} ({layout}): {o.shape[0]} rays, kernel == plain version "
-                    f"in (t, id, stats); sha256 (t, id, hit) {sha(got[0], got[1], got[1] >= 0)}; "
-                    f"steps/rows/tests {got[2].sum(dim=0).tolist()}")
+                    f"in (t, id, stats); sha256 (t, id, hit) {digest}, the parent's; sha256 "
+                    f"stats {sha(got[2])}; steps/rows/tests {got[2].sum(dim=0).tolist()}")
         # two exact structures: the walk against the cluster kernel on every
         # ray, on the surfaces and lifted; the brute oracle on the rays where
         # they disagree, and on a sample
@@ -2419,6 +2498,13 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
                     f"{b['ops']:.4g} issue slots, {b['bytes']:.4g} bytes)")
     card_test("test_torch_kdtree", "test_cuda_kd_kernel_matches_plain_version", "wavefront")
     card_test("test_torch_kdtree", "test_cuda_kd_kernel_matches_plain_version", "kd")
+    for scene in ("cornell", "demo", "straddler", "soup", "degenerate"):
+        card_test("test_torch_tri_consts", "test_cuda_tri_consts_kernel_matches_plain_version",
+                  scene)
+    for inner, max_depth in ((20, 19), (40, 30), (63, 62), (70, 62)):
+        card_test("test_torch_tri_consts", "test_cuda_kd_kernel_at_its_stack_depths", inner,
+                  max_depth)
+    log_walk_sass()
 
     # 4. the brute-force kernel against nearest_hit_brute
     cornell = prepare_scene(procedural.cornell_box(glossy=True), device)
@@ -2436,19 +2522,25 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
                 raise RuntimeError(f"brute {label} {kind}: kernel != nearest_hit_brute "
                                    f"(max |dt| {err:.3e}, {ids} ids differ)")
+            same_digest(f"brute {label} {kind}", label, kind, sha(*got))
             log(f"brute {label} {kind}: {o.shape[0]} rays x {v.shape[0]} triangles, kernel == "
-                f"nearest_hit_brute; sha256 (t, id, hit) {sha(*got)}")
+                f"nearest_hit_brute; sha256 (t, id, hit) {sha(*got)}, the parent's")
         if label == "demo":
             o, d, _ = sets["camera"]
             k_ms, p_ms, _ = time_in_turns(
                 f"brute_intersect demo camera wavefront, {o.shape[0]} rays x {v.shape[0]} "
                 "triangles", lambda: ki.brute_intersect(v, o, d)[:2],
                 lambda: brute(o, d, v, rays_per_call=16384)[:2], plain_reps=1, plain_warmup=0)
-            brute_row = {"ms": k_ms, "plain_ms": p_ms,
-                         **bound(o.shape[0] * v.shape[0] * TRI_HIT_SLOTS,
-                                 o.shape[0] * 40 + v.numel() * 4),
-                         "shape": f"{o.shape[0]} camera rays x {v.shape[0]} triangles (demo)"}
+            shape = f"{o.shape[0]} camera rays x {v.shape[0]} triangles (demo)"
+            pairs = brute_stage_counts(o, d, v)
+            nbytes = o.shape[0] * 40 + v.numel() * 4
+            b = bound(flat_slots(pairs), nbytes)
+            stage_log(f"brute {shape}", pairs, b,
+                      bound(o.shape[0] * v.shape[0] * TRI_HIT_SLOTS, nbytes))
+            brute_row = {"ms": k_ms, "plain_ms": p_ms, **b, "shape": shape}
     card_test("test_torch_kdtree", "test_cuda_brute_kernel_matches_nearest_hit_brute")
+    for num_tris in (1, 127, 128, 129, 1601):
+        card_test("test_torch_tri_consts", "test_cuda_brute_kernel_edges", num_tris)
 
     # 5. renders through the KD walk kernel and the brute-force kernel, in
     # turns with the cluster path, on the prepared scene (the same triangle
@@ -2456,13 +2548,16 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
     # where the two formulas part); then the --no-kd CLI
     w, h, b = KD_SIZE
     config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
-    kd_launches = None
+    kd_launches = tri_launches = None
     for label in ("demo", "hero20k"):
         scene = scenes[label]
         eye, pitch = KD_EYES[label]
         camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
         cluster = intersector_name(scene.cbvh)
-        paths = {cluster: scene, "kd": scene.replace(cbvh=None),
+        # the walk's path takes a fresh copy of the chunk rows, whose table
+        # its first (eager) step builds: the table kernel's main-path run
+        paths = {cluster: scene, "kd": scene.replace(cbvh=None,
+                                                     wkd=dataclasses.replace(scene.wkd)),
                  "brute": scene.replace(cbvh=None, wkd=None, kd=None)}
         images, per = {}, {}
         for name in (*paths, *reversed(paths)):
@@ -2480,9 +2575,21 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
                                        f"in 2 samples, not {2 * 2 * b}")
                 if name == "kd" and kd_launches is None:  # the kernels line's: the first
                     kd_launches = launches
+                    tri_launches = (ran["tri_consts"], counts.tri_consts_kernel)
+                    log(f"kd render {label} through kd: the triangle table kernel ran "
+                        f"{tri_launches[0]} times on the card ({tri_launches[1]} launched by "
+                        "its wrapper), building the fresh chunk rows' table")
+                    if tri_launches != (1, 1):
+                        raise RuntimeError("kd render: the walk's first step did not build "
+                                           "its triangle table once")
         log(f"kd render {label} {w}x{h}x{b}, s/sample in turns under torch.profiler (2 samples "
             "each, the first pass with its warm-up): " + "; ".join(
                 f"{n} {s[0]:.4f}/{s[1]:.4f}" for n, s in per.items()))
+        clear_step_caches()
+        for name in ("kd", "brute"):  # replayed steps against eager ones
+            steps_against_replays(f"kd {label} through {name}", name, paths[name], camera,
+                                  config, False, counts)
+        clear_step_caches()
         for name in ("kd", "brute"):
             a, c = images[name], images[cluster]
             log(f"kd render {label} through {name}: {int((a != c).any(axis=-1).sum())} of "
@@ -2534,6 +2641,105 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
         f"kernel-vs-plain comparison; brute: {brute_err:.3e} and {brute_ids}")
     results["kd"] = {"max_abs_err": kd_err, "launches": kd_launches, **row}
     results["brute"] = {"max_abs_err": brute_err, "launches": brute_launches, **brute_row}
+    results["tri_consts"] = {"launches": tri_launches, **tri_row}
+
+
+def phase_kd_tables(scenes) -> dict:
+    """The triangle tables of phase kd's scenes (csrc/tri_consts.cu, once
+    a tree): each built and timed (host clock around the build and a
+    synchronize: time to the first sample), its bytes, and equal to
+    ``tri_consts_plain`` of the scene's corners bit for bit; then the kernel
+    and its plain version in turns on the 20k hero's corners. Returns the
+    kernels line's row."""
+    from isaklm_raytracer_tpu_torch.accel.wavefront import tri_consts_plain
+    from isaklm_raytracer_tpu_torch.kernels import intersect as ki
+
+    for label, scene in scenes.items():
+        wkd, verts = scene.wkd, scene.vertices
+        want = tri_consts_plain(verts.reshape(-1, 9))
+        for layout, table_of in (("chunk rows", lambda: wkd.tri_table),
+                                 ("tree lists", lambda: scene.kd.tri_table(verts))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table = table_of()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if not torch.equal(table.view(torch.int32), want.view(torch.int32)):
+                raise RuntimeError(f"kd {label} triangle table ({layout}) != tri_consts_plain")
+            log(f"kd {label} triangle table ({layout}): {tuple(table.shape)} float32, "
+                f"{table.numel() * 4 / 2**20:.2f} MiB, built in {seconds * 1e3:.2f} ms (time to "
+                "the first sample), == tri_consts_plain of the scene's corners bit for bit")
+    src = scenes["hero20k"].vertices.reshape(-1, 9)
+    k_ms, p_ms, _ = time_in_turns(
+        f"tri_consts hero20k, {src.shape[0]} triangles",
+        lambda: (ki.tri_consts(src).view(torch.int32),),
+        lambda: (tri_consts_plain(src).view(torch.int32),))
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+            **bound(src.shape[0] * TRI_CONSTS_SLOTS, src.shape[0] * TRI_TABLE_BYTES),
+            "shape": f"{src.shape[0]} triangles (hero20k)"}
+
+
+def sass_loops(library) -> dict:
+    """{kernel symbol: [(first address, last address, Counter of opcodes)]}
+    of each loop of a built library's SASS: the instructions from a
+    backward branch's target to the branch (``cuobjdump -sass``); {}
+    without cuobjdump."""
+    from isaklm_raytracer_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    dump = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    listing, current = {}, None
+    for line in dump.splitlines():
+        if "Function : " in line:
+            current = listing.setdefault(line.split("Function : ")[1].strip(), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if m and current is not None:
+            target = re.search(r"0x([0-9a-f]+)", m.group(3)) if m.group(2).startswith("BRA") else None
+            current.append((int(m.group(1), 16), m.group(2).split(".")[0],
+                            int(target.group(1), 16) if target else None))
+    out = {}
+    for name, ins in listing.items():
+        loops = []
+        for addr, _, target in ins:
+            if target is not None and target <= addr:
+                ops = collections.Counter(op for a, op, _ in ins if target <= a <= addr)
+                loops.append((target, addr, ops))
+        out[name] = loops
+    return out
+
+
+def innermost(loops, opcode: str):
+    """The shortest loop of ``sass_loops``' list that holds ``opcode``."""
+    holding = [lp for lp in loops if lp[2][opcode]]
+    return min(holding, key=lambda lp: lp[1] - lp[0]) if holding else None
+
+
+def log_walk_sass() -> None:
+    """Logs the SASS opcodes of the KD walk's and the brute force's inner
+    loops: the walk's leaf loop (the innermost loop with the test's FMULs:
+    a chunk row's width-8 slots unrolled, or one slot of a list; its node
+    steps have none) and the brute force's loop over a staged tile (the
+    one that holds its LDS: five 16-byte shared loads a test)."""
+    from isaklm_raytracer_tpu_torch.kernels import build
+
+    for source, opcode, what in (("kd_intersect.cu", "FMUL", "leaf loop"),
+                                 ("brute_intersect.cu", "LDS", "tile loop")):
+        functions = sass_loops(build.library_path(source))
+        if not functions:
+            log(f"SASS of {source}: no cuobjdump beside nvcc")
+            return
+        for name, loops in sorted(functions.items()):
+            loop = innermost(loops, opcode)
+            if loop is None:
+                continue
+            ops = loop[2]
+            log(f"SASS {what} of {name}: {sum(ops.values())} instructions "
+                f"[{loop[0]:#x}, {loop[1]:#x}]: " + ", ".join(f"{op} {c}" for op, c in
+                                                           ops.most_common()))
 
 
 # The graphs phase's paths: label, kernel, (width, height, bounces), camera
@@ -3617,7 +3823,8 @@ def main() -> int:
                 "first_blocks": first_blocks_launches, "hbm": hbm_launches,
                 "flat_mxu": flat_mxu_launches, "blk_mxu": blk_mxu_launches,
                 "null": (null_launches,) * 2, "kd": results["kd"]["launches"],
-                "brute": results["brute"]["launches"], "sampler": sampler_launches}
+                "brute": results["brute"]["launches"], "sampler": sampler_launches,
+                "tri_consts": results["tri_consts"]["launches"]}
     # the CUDA kernel of each entry and the TPU kernel it replaces
     pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
     kernels = {
@@ -3634,6 +3841,8 @@ def main() -> int:
         "kd": ("kd_intersect", "isaklm_raytracer_tpu/accel/wavefront.py:165"),
         "brute": ("brute_intersect", "isaklm_raytracer_tpu/accel/traverse.py:73"),
         "sampler": ("threefry_uniforms", "isaklm_raytracer_tpu/math/rng.py:72"),
+        # the KD walk's triangle terms (_intersect_chunk), formed once a scene
+        "tri_consts": ("tri_consts", "isaklm_raytracer_tpu/accel/wavefront.py:121"),
     }
     for k, r in results.items():
         log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches: the "

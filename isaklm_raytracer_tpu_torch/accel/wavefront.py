@@ -8,10 +8,13 @@ Port of ``isaklm_raytracer_tpu/accel/wavefront.py``:
     of rows (chunk_next). Equal bit for bit to the JAX package's layout.
   - ``nearest_hit_wavefront`` walks it: on CUDA tensors through the KD walk
     kernel (``kernels.intersect.kd_intersect``, csrc/kd_intersect.cu, one
-    thread a ray), on CPU tensors through ``wavefront_plain``, the JAX
-    package's batched lockstep written out in PyTorch: every live ray
-    takes one step of one state machine (descend one inner node, arm a
-    leaf's scan, or scan one chunk row) per iteration.
+    thread a ray, reading ``WavefrontKD.tri_table``: each triangle's
+    constants, ``tri_consts_plain``'s records, built once on the card by
+    ``kernels.intersect.tri_consts``), on CPU tensors through
+    ``wavefront_plain``, the JAX package's batched lockstep written out in
+    PyTorch: every live ray takes one step of one state machine (descend
+    one inner node, arm a leaf's scan, or scan one chunk row) per
+    iteration.
 
 Semantics match trace_ray.cuh:244-318 as the JAX package re-derives them:
 near/far child by ray origin vs plane (origin on the plane disambiguated
@@ -30,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from isaklm_raytracer_tpu_torch.kernels.intersect import COUNTS, kd_intersect
+from isaklm_raytracer_tpu_torch.kernels.intersect import COUNTS, kd_intersect, tri_consts
 from isaklm_raytracer_tpu_torch.math import transforms
 from isaklm_raytracer_tpu_torch.scene.types import KDTreeArrays, _to, pack_kd_nodes
 
@@ -52,6 +55,7 @@ class WavefrontKD:
     chunk_next: torch.Tensor  # (C,) next row in chain, -1 = end
     chunk_tri: torch.Tensor  # (C, L) triangle ids, -1 pad
     chunk_data: torch.Tensor  # (C, L, 9) p1 | e1 | e2
+    corners: torch.Tensor  # (N, 9) p1 | p2 | p3 of each triangle, the source of tri_table
     bbox_min: torch.Tensor
     bbox_max: torch.Tensor
     max_depth: int = 19
@@ -67,6 +71,15 @@ class WavefrontKD:
     def nodes(self) -> torch.Tensor:
         """The node rows of ``scene.types.pack_kd_nodes``, packed once."""
         return pack_kd_nodes(self.child_a, self.child_b, self.axis, self.is_leaf, self.plane)
+
+    @functools.cached_property
+    def tri_table(self) -> torch.Tensor:
+        """(N, 20) float32 triangle records indexed by id (``tri_consts`` of
+        ``corners``), built once at first use: what the KD walk kernel
+        reads through chunk_tri. Its first use is eager, as a graph step's
+        first call is: the table kernel refuses to run inside a CUDA graph
+        capture."""
+        return tri_consts(torch.as_tensor(self.corners))
 
 
 def build_wavefront_kd(kd: KDTreeArrays, vertices: np.ndarray,
@@ -114,6 +127,7 @@ def build_wavefront_kd(kd: KDTreeArrays, vertices: np.ndarray,
         chunk_next=chunk_next.astype(np.int32),
         chunk_tri=chunk_tri,
         chunk_data=chunk_data,
+        corners=vertices.reshape(-1, 9),
         bbox_min=np.asarray(kd.bbox_min),
         bbox_max=np.asarray(kd.bbox_max),
         max_depth=kd.max_depth,
@@ -144,6 +158,36 @@ def tri_hits(o, d, p1, e1, e2, t_eps: float) -> torch.Tensor:
     a = 1.0 - b - c
     inside = (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0) & (c >= 0.0) & (c <= 1.0)
     return torch.where((ddn != 0.0) & (s >= t_eps) & inside, s, _INF)
+
+
+def tri_consts_plain(src) -> torch.Tensor:
+    """Plain PyTorch version of the triangle-constant table (any device):
+    (num, 20) float32 records of csrc/tri_test.cuh, one a row of the
+    corners src (num, 9), p1 | p2 | p3:
+
+        [nx ny nz n.p1] [p1 id] [e1 d00] [e2 d11] [d01 inv_den 0 0]
+
+    each term formed as ``tri_hits`` forms it, in its order (the edges
+    e1 = p2 - p1 and e2 = p3 - p1 as ``build_wavefront_kd`` forms the chunk
+    rows', the unit normal by 1 / sqrt, d00 = e1.e1, d01 = e1.e2, d11 =
+    e2.e2, inv_den = 1 / (d00 d11 - d01 d01)), so a test that reads them
+    equals ``tri_hits`` bit for bit. The id word holds the row's index as
+    int32 bits."""
+    if src.is_cuda:
+        COUNTS.tri_consts_plain_cuda += 1
+    p1 = src[:, 0:3]
+    e1, e2 = src[:, 3:6] - p1, src[:, 6:9] - p1
+    n = transforms.normalize(transforms.cross(e1, e2))
+    d00 = transforms.dot(e1, e1)
+    d01 = transforms.dot(e1, e2)
+    d11 = transforms.dot(e2, e2)
+    inv_den = 1.0 / (d00 * d11 - d01 * d01)
+    ids = torch.arange(src.shape[0], dtype=torch.int32, device=src.device)
+    zero = torch.zeros_like(d00)
+    return torch.stack([n[:, 0], n[:, 1], n[:, 2], transforms.dot(n, p1),
+                        p1[:, 0], p1[:, 1], p1[:, 2], ids.view(torch.float32),
+                        e1[:, 0], e1[:, 1], e1[:, 2], d00, e2[:, 0], e2[:, 1], e2[:, 2], d11,
+                        d01, inv_den, zero, zero], dim=1)
 
 
 def root_slab(bbox_min, bbox_max, o, d):

@@ -10,14 +10,26 @@
 // the JAX function. It equals the plain function
 // (accel/traverse.py nearest_hit_brute) bit for bit.
 //
-// What bounds it on the H100: issue slots, one triangle test a (ray,
-// triangle) pair; the triangles are read once a block. The design: each
-// block of kBruteThreads rays stages the scene kBruteTile triangles at a
-// time in shared memory, each thread forming one triangle's constants
-// (make_tri: the normal and the Cramer terms, once a block instead of once
-// a pair); every thread then tests its ray against the tile in id order,
-// the threads of a warp reading the same constants (a broadcast). A
-// strictly nearer candidate replaces the best, so the lowest id wins ties.
+// What bounds it on the H100: issue slots, the plane distance of every
+// (ray, triangle) pair and the rest of the test where that distance can
+// win; the triangles are read once a block. The design: each
+// block of kBruteThreads rays stages the scene up to kBruteTile triangles
+// at a time in dynamic shared memory, each thread forming some triangles'
+// constants (make_tri: the normal and the Cramer terms, once a block
+// instead of once a pair) into 80-byte records (tri_test.cuh); every thread
+// then reads each record in id order as five 16-byte loads, the same
+// address across the warp (a broadcast): five shared loads a test. A test
+// whose plane distance cannot win (not s >= t_eps, or not nearer than the
+// best) skips the barycentrics, whose outcome could not change the result.
+// A strictly nearer candidate replaces the best, so the lowest id wins
+// ties.
+//
+// A block whose rays are all inactive (late bounces) writes its misses and
+// stages nothing. One ray a thread: two or four (one record load serving
+// each) ran slower on the bounce and NEE wavefronts, 15 of a sample's 16
+// calls, in probe runs (PERF.md section 6); a tile of 128 records (10 KB)
+// keeps the SM's 16 blocks resident, so a call of mostly inactive rays
+// runs in one wave.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,13 +41,13 @@ namespace {
 using namespace isaklm;
 
 constexpr int kBruteThreads = 128;  // rays a block
-constexpr int kBruteTile = 128;     // triangles staged at a time, one a thread
+constexpr int kBruteTile = 128;     // triangles staged at a time
 
 __global__ void __launch_bounds__(kBruteThreads)
 brute_intersect_kernel(const float* __restrict__ vertices, int num_tris,
                        const float* __restrict__ rays, int num_rays, float t_eps,
                        float* __restrict__ out_t, int* __restrict__ out_id) {
-  __shared__ TriConsts tile[kBruteTile];
+  extern __shared__ float4 tile[];  // min(num_tris, kBruteTile) records
   const int r = blockIdx.x * kBruteThreads + threadIdx.x;
   float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
   bool active = false;
@@ -48,25 +60,30 @@ brute_intersect_kernel(const float* __restrict__ vertices, int num_tris,
   }
   float best_t = INFINITY;
   int best_i = -1;
-  for (int base = 0; base < num_tris; base += kBruteTile) {
-    const int i = base + threadIdx.x;
+  const bool block_active = __syncthreads_or(active);
+  for (int base = 0; block_active && base < num_tris; base += kBruteTile) {
+    const int count = min(kBruteTile, num_tris - base);
     __syncthreads();  // the previous tile is no longer read
-    if (i < num_tris) {
-      const float* p = vertices + 9 * static_cast<int64_t>(i);
+    for (int i = threadIdx.x; i < count; i += kBruteThreads) {
+      const float* p = vertices + 9 * static_cast<int64_t>(base + i);
       const float p1x = __ldg(p), p1y = __ldg(p + 1), p1z = __ldg(p + 2);
-      tile[threadIdx.x] = make_tri(p1x, p1y, p1z, __ldg(p + 3) - p1x, __ldg(p + 4) - p1y,
-                                   __ldg(p + 5) - p1z, __ldg(p + 6) - p1x,
-                                   __ldg(p + 7) - p1y, __ldg(p + 8) - p1z);
+      pack_tri(make_tri(p1x, p1y, p1z, __ldg(p + 3) - p1x, __ldg(p + 4) - p1y,
+                        __ldg(p + 5) - p1z, __ldg(p + 6) - p1x, __ldg(p + 7) - p1y,
+                        __ldg(p + 8) - p1z),
+               base + i, tile + kRecordWords * i);
     }
     __syncthreads();
-    if (active) {
-      const int count = min(kBruteTile, num_tris - base);
-      for (int k = 0; k < count; ++k) {
-        const float s = tri_t(tile[k], o[0], o[1], o[2], d[0], d[1], d[2], t_eps);
-        if (s < best_t) {
-          best_t = s;
-          best_i = base + k;
-        }
+    if (!active) continue;
+    for (int j = 0; j < count; ++j) {
+      const float4* rec = tile + kRecordWords * j;
+      const TriConsts c = unpack_tri(rec[0], rec[1], rec[2], rec[3], rec[4]);
+      float ddn;
+      float s = tri_plane(c, o[0], o[1], o[2], d[0], d[1], d[2], ddn);
+      if (!((s >= t_eps) & (s < best_t))) continue;  // it cannot win
+      s = tri_inside(c, o[0], o[1], o[2], d[0], d[1], d[2], ddn, s, t_eps);
+      if (s < best_t) {
+        best_t = s;
+        best_i = base + j;
       }
     }
   }
@@ -86,8 +103,9 @@ extern "C" int brute_intersect(int device, const float* vertices, int num_tris,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_rays > 0) {
-    const dim3 grid((num_rays + kBruteThreads - 1) / kBruteThreads);
-    brute_intersect_kernel<<<grid, kBruteThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int smem = static_cast<int>(sizeof(float4)) * kRecordWords * min(num_tris, kBruteTile);
+    brute_intersect_kernel<<<(num_rays + kBruteThreads - 1) / kBruteThreads, kBruteThreads,
+                             smem, static_cast<cudaStream_t>(stream)>>>(
         vertices, num_tris, rays, num_rays, t_eps, out_t, out_id);
   }
   return static_cast<int>(cudaGetLastError());

@@ -27,6 +27,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import os
 import time
 import weakref
@@ -414,15 +415,27 @@ class GraphStep:
     def _capture(self, fn, inputs) -> None:
         self.static_in = [x.clone() for x in inputs]
         torch.cuda.synchronize(self.device)
+        # torch.cuda.graph collects no garbage before a capture (unless the
+        # force_cudagraph_gc setting asks it to), and a collection inside one
+        # that destroys a dead cycle's CUDA graph (a dropped _Graphs: its weak
+        # references' callbacks hold it) invalidates the capture; so collect
+        # before it and none during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         before = COUNTS.snapshot()
         # kept after instantiation only so that its seconds are measured
         # apart from the capture's (PERF.md section 5)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            # torch.cuda.graph has emptied the allocator's cache by now
-            reserved = torch.cuda.memory_reserved(self.device)
-            out = tuple(fn(*self.static_in))
+        try:
+            with torch.cuda.graph(graph):
+                # torch.cuda.graph has emptied the allocator's cache by now
+                reserved = torch.cuda.memory_reserved(self.device)
+                out = tuple(fn(*self.static_in))
+        finally:
+            if collecting:
+                gc.enable()
         t1 = time.perf_counter()
         graph.instantiate()
         self.instantiate_s = time.perf_counter() - t1

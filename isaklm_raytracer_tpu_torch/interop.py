@@ -21,7 +21,8 @@ Scene dict layout (keys as the Scene fields):
     bbox_min, bbox_max, max_depth},
   wkd (may be None): {child_a, child_b, axis, plane, is_leaf, leaf_first,
     chunk_next, chunk_tri, chunk_data, bbox_min, bbox_max, max_depth,
-    leaf_width}.
+    leaf_width}; the port's WavefrontKD also keeps the scene's vertices as
+    its ``corners``.
 """
 
 from __future__ import annotations
@@ -118,8 +119,9 @@ def scene_from_numpy(leaves: dict, device="cuda") -> Scene:
         kd=None if kd is None else KDTreeArrays(
             **{k: _tensor(kd[k], device) for k in _KD}, max_depth=kd["max_depth"]),
         wkd=None if wkd is None else WavefrontKD(
-            **{k: _tensor(wkd[k], device) for k in _WKD}, max_depth=wkd["max_depth"],
-            leaf_width=wkd["leaf_width"]),
+            **{k: _tensor(wkd[k], device) for k in _WKD},
+            corners=_tensor(np.asarray(leaves["vertices"], np.float32).reshape(-1, 9), device),
+            max_depth=wkd["max_depth"], leaf_width=wkd["leaf_width"]),
         has_lights=bool(leaves["has_lights"]),
     )
 

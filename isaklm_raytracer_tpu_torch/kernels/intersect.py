@@ -45,7 +45,10 @@ for a miss, t_max ignored:
   ray, over the chunk rows of a ``WavefrontKD`` (``nearest_hit_wavefront``)
   or the tree's own triangle lists (``nearest_hit_kd``); the plain
   versions are ``accel.wavefront.wavefront_plain`` and
-  ``accel.kd_traverse.kd_plain``;
+  ``accel.kd_traverse.kd_plain``. It reads each triangle's constants from
+  a table of 80-byte records that ``tri_consts`` (``csrc/tri_consts.cu``,
+  plain version ``accel.wavefront.tri_consts_plain``) builds once a tree:
+  ``WavefrontKD.tri_table`` and ``KDTreeArrays.tri_table``;
 - ``brute_intersect`` (``csrc/brute_intersect.cu``): every ray against
   every triangle (``nearest_hit_brute``, which stays the plain version and
   the oracle).
@@ -97,7 +100,7 @@ VMEM_TABLE_LIMIT = 6 * 1024 * 1024
 SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu",
            "first_block_keys.cu", "hbm_intersect.cu", "flat_mxu_intersect.cu",
            "blk_mxu_intersect.cu", "null_intersect.cu", "kd_intersect.cu",
-           "brute_intersect.cu", "threefry_uniforms.cu")
+           "brute_intersect.cu", "threefry_uniforms.cu", "tri_consts.cu")
 # The JAX package's packet sizes: the ordering sorts a call's rays only when
 # there are more of them than one packet (DEFAULT_PACKET for every
 # intersector but blk, which the render path calls with BLK_PACKET).
@@ -123,13 +126,15 @@ _PAIR_CHUNK = 4096
 # Stack slots a thread of the KD walk kernel has (csrc/kd_intersect.cu
 # kKdStack): a tree's max_depth + 2 must fit.
 KD_STACK = 64
+# The words of a triangle's record (csrc/tri_test.cuh): five float4.
+TRI_RECORD = 20
 
 
 class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
     KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null",
-               "kd", "brute", "sampler")
+               "kd", "brute", "sampler", "tri_consts")
 
     def __init__(self) -> None:
         self.reset()
@@ -175,14 +180,16 @@ _ENTRY_ARGS = {
     # num_rays, shared_groups, out_t, out_id
     "null_intersect": [_I, _I, _P, _P],
     # nodes, bbox_min, bbox_max, chunks, leaf_first, chunk_next, chunk_tri,
-    # chunk_data, width, tri_indices, vertices, depth, rays, num_rays, t_eps,
-    # out_t, out_id, stats (or null)
-    "kd_intersect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _F, _P, _P, _P],
+    # tri_indices, table, width, depth, rays, num_rays, t_eps, out_t, out_id,
+    # stats (or null), next_ray
+    "kd_intersect": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _P, _P, _P, _P],
     # vertices, num_tris, rays, num_rays, t_eps, out_t, out_id
     "brute_intersect": [_P, _I, _P, _I, _F, _P, _P],
     # ids, id_bytes, num_rays, key (or null), k0, k1, w1_base, n, out
     # (kernels/sampler.py)
     "threefry_uniforms": [_P, _I, _I, _P, _U, _U, _U, _I, _P],
+    # corners, num, out
+    "tri_consts": [_P, _I, _P],
 }
 # the COUNTS attribute prefix of each entry point
 _COUNTER = {
@@ -197,6 +204,7 @@ _COUNTER = {
     "kd_intersect": "kd",
     "brute_intersect": "brute",
     "threefry_uniforms": "sampler",
+    "tri_consts": "tri_consts",
 }
 
 
@@ -1011,6 +1019,10 @@ def kd_intersect(tree, o, d, t_eps: float = 1e-5, active=None, vertices=None,
     float32, idx (R,) int32): +inf and -1 for a miss and an inactive ray;
     with ``stats`` also (R, 3) int32 inner-node steps, leaf rows and
     triangle tests per ray (csrc/kd_intersect.cu).
+
+    The kernel reads the tree's triangle table (``tri_table``), which the
+    first call on the card builds (``tri_consts``): outside a CUDA graph
+    capture, as a graph step's first, eager call is.
     """
     vertices = None if vertices is None else torch.as_tensor(vertices)
     _check_kd(tree, o, d, vertices)
@@ -1025,12 +1037,16 @@ def kd_intersect(tree, o, d, t_eps: float = 1e-5, active=None, vertices=None,
     rays = prep_rays(o, d, active)
     nodes = tree.nodes
     if vertices is None:
-        tables = (1, tree.leaf_first, tree.chunk_next, tree.chunk_tri, tree.chunk_data,
-                  tree.leaf_width, None, None)
+        table = tree.tri_table
+        tables = (1, tree.leaf_first, tree.chunk_next, tree.chunk_tri, None, table,
+                  tree.leaf_width)
     else:
-        tables = (0, None, None, None, None, 0, tree.tri_indices, vertices)
+        table = tree.tri_table(vertices)
+        tables = (0, None, None, None, tree.tri_indices, table, 0)
     _check_contiguous("kd_intersect", nodes, rays, tree.bbox_min, tree.bbox_max,
                       *(t for t in tables if isinstance(t, torch.Tensor)))
+    if table.data_ptr() % 16:
+        raise ValueError("kd_intersect: the triangle table must start on a 16-byte boundary")
 
     def ptr(t):
         return t.data_ptr() if isinstance(t, torch.Tensor) else t
@@ -1038,11 +1054,39 @@ def kd_intersect(tree, o, d, t_eps: float = 1e-5, active=None, vertices=None,
     out_t, out_id = _outputs(rays)
     out_stats = (torch.zeros((rays.shape[0], 3), dtype=torch.int32, device=rays.device)
                  if stats else None)
+    next_ray = torch.empty((1,), dtype=torch.int32, device=rays.device)
     _launch("kd_intersect", rays, nodes.data_ptr(), tree.bbox_min.data_ptr(),
             tree.bbox_max.data_ptr(), *(ptr(t) for t in tables), tree.max_depth + 2,
             rays.data_ptr(), rays.shape[0], float(t_eps), out_t.data_ptr(), out_id.data_ptr(),
-            None if out_stats is None else out_stats.data_ptr())
+            None if out_stats is None else out_stats.data_ptr(), next_ray.data_ptr())
     return (out_t, out_id, out_stats) if stats else (out_t, out_id)
+
+
+@torch.no_grad()
+def tri_consts(src: torch.Tensor) -> torch.Tensor:
+    """The triangle-constant table kernel on CUDA tensors, ``accel.wavefront.
+    tri_consts_plain`` on CPU tensors: (num, 20) float32 records of the KD
+    walk kernel (csrc/tri_test.cuh), one a row of ``src``.
+
+    src (num, 9) float32: each triangle's corners p1 | p2 | p3; word 7
+    holds the row's index. The table is built once a tree, so on the card
+    it refuses to run inside a CUDA graph capture: a graph would own the
+    table's memory.
+    """
+    if src.dim() != 2 or src.shape[1] != 9 or src.dtype != torch.float32:
+        raise ValueError(f"tri_consts: src must be (num, 9) float32, got {tuple(src.shape)} "
+                         f"{src.dtype}")
+    if not src.is_cuda:
+        from isaklm_raytracer_tpu_torch.accel.wavefront import tri_consts_plain
+
+        return tri_consts_plain(src)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("tri_consts: the KD walk's triangle table is built once, outside "
+                           "a CUDA graph capture (a graph step's first call runs eagerly)")
+    _check_contiguous("tri_consts", src)
+    out = torch.empty((src.shape[0], TRI_RECORD), dtype=torch.float32, device=src.device)
+    _launch("tri_consts", src, src.data_ptr(), src.shape[0], out.data_ptr())
+    return out
 
 
 @torch.no_grad()

@@ -138,6 +138,19 @@ class KDTreeArrays:
         """The node rows of ``pack_kd_nodes``, packed once per tree."""
         return pack_kd_nodes(self.child_a, self.child_b, self.axis, self.is_leaf, self.plane)
 
+    def tri_table(self, vertices: torch.Tensor) -> torch.Tensor:
+        """(N, 20) float32 triangle records of ``vertices`` (N, 3, 3),
+        indexed by triangle id (``kernels.intersect.tri_consts``): what the
+        KD walk kernel reads over this tree's lists. Built at the first call
+        with these vertices, then kept with the tree."""
+        cached = self.__dict__.get("_tri_table")
+        if cached is None or cached[0] is not vertices:
+            from isaklm_raytracer_tpu_torch.kernels.intersect import tri_consts
+
+            cached = (vertices, tri_consts(vertices.reshape(-1, 9)))
+            self.__dict__["_tri_table"] = cached
+        return cached[1]
+
 
 @dataclasses.dataclass
 class Scene:

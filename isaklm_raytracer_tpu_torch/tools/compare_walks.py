@@ -26,12 +26,21 @@ from fixed seeds, and
   same random rays and on those wavefronts in the caller's order (the
   render's order for flat_mxu);
 - runs first_block_keys on the hero's camera, bounce and NEE wavefronts;
+- runs the KD walk over both layouts (chunk rows, the tree's lists) with
+  its per-ray stats, and the brute force, on the camera, bounce and NEE
+  wavefronts of the demo and the 20k hero at 512x512 (chip_smoke's
+  ``kd_wavefronts``; the brute force on the demo's); and the chunk rows'
+  walk on the same rays sorted in Morton order (``ray_order``, as the
+  cluster intersectors sort) with its results scattered back, the sort
+  and the scatter timed with it;
 - times each of those kernels alone by CUDA events;
 - times one pass (ray_chunk 0) of the hero at 640x360x6 under the auto
   rule (blk), under ISAKLM_BLK_SORT=block and under
   ISAKLM_INTERSECTOR=hbm, of the 20k hero at 512x512x8 (queue) and of the
   demo at 512x512x8 (flat, and under ISAKLM_INTERSECTOR=flat_mxu), as
-  chip_smoke's perf phase.
+  chip_smoke's perf phase; and of the demo and the 20k hero at 512x512x8
+  through the KD walk (the cluster tables dropped) and through the brute
+  force (every table dropped), replayed as ``render`` replays its steps.
 
 Then, for each other checkout, one line per kernel and ray set: the sums
 of group visits and clusters intersected (where both checkouts count
@@ -40,8 +49,9 @@ where both have them; the keys of first_block_keys) have the same SHA-256
 in both checkouts, and each checkout's two times; the s/sample of each
 render; and, for each source of ``csrc/`` both checkouts built, whether
 the two libraries hold the same instructions (``cuobjdump -sass``, with
-addresses, encodings and kernel names left out). Exits non-zero if a child
-fails or a digest differs.
+addresses, encodings and kernel names left out), and the opcodes of the
+KD walk's and the brute force's test loops in each (chip_smoke's
+``sass_loops``). Exits non-zero if a child fails or a digest differs.
 """
 
 from __future__ import annotations
@@ -62,7 +72,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 WALKS = ("blk", "hbm", "blk_mxu")
 # timed calls a kernel; hbm few, as an older checkout's oct walk took 0.3 s a call
-REPS = {"blk": 10, "hbm": 3, "blk_mxu": 10, "queue": 5, "flat": 20, "first_blocks": 50}
+REPS = {"blk": 10, "hbm": 3, "blk_mxu": 10, "queue": 5, "flat": 20, "first_blocks": 50,
+        "kd": 10, "brute": 20}
+# the ISAKLM_INTERSECTOR overrides among the one-pass renders' kernels
+OVERRIDES = ("hbm", "flat_mxu", "blk_mxu")
 SEED = 42
 
 
@@ -111,8 +124,8 @@ def child() -> dict:
     def one_pass(label, scene, camera, config, kernel, blk_sort="morton"):
         ki.COUNTS.reset()
         os.environ["ISAKLM_BLK_SORT"] = blk_sort
-        with smoke.intersector_env(None if kernel in ("blk", "queue", "flat") else kernel):
-            seconds, _ = smoke.sample_seconds(render, scene, camera, config, ki.COUNTS)
+        with smoke.intersector_env(kernel if kernel in OVERRIDES else None):
+            seconds = smoke.sample_seconds(render, scene, camera, config, samples=4)
         os.environ["ISAKLM_BLK_SORT"] = "morton"
         if getattr(ki.COUNTS, f"{kernel}_kernel") == 0:
             raise RuntimeError(f"the {label} pass did not launch {kernel}")
@@ -166,6 +179,34 @@ def child() -> dict:
              Camera.create(smoke.GOLDEN_EYE, fov=np.pi / 2, device=device), config, "queue")
     del demo, hero20k, soup
 
+    # the KD walk (both layouts, with stats) and the brute force
+    for label, build in (("demo", procedural.material_demo_scene),
+                         ("hero20k", lambda: procedural.hero_scene(20_000))):
+        scene = prepare_scene(build(), device, build_kd=True)
+        sets, _ = smoke.kd_wavefronts(label, scene, device)[1:]
+        for kind, (o, d, _) in sets.items():
+            rays = ki.prep_rays(o, d)
+            record(f"kd chunk rows {label} {kind}",
+                   lambda r: ki.kd_intersect(scene.wkd, r[:, 0:3], r[:, 3:6], stats=True), rays,
+                   REPS["kd"])
+            record(f"kd chunk rows {label} {kind}, Morton-sorted and scattered back",
+                   lambda r: ki._ordered(
+                       lambda x: ki.kd_intersect(scene.wkd, x[:, 0:3], x[:, 3:6], stats=True),
+                       r, ki.ray_order(r, True, ki.DEFAULT_PACKET)), rays, REPS["kd"])
+            record(f"kd tree lists {label} {kind}",
+                   lambda r: ki.kd_intersect(scene.kd, r[:, 0:3], r[:, 3:6],
+                                             vertices=scene.vertices, stats=True), rays, REPS["kd"])
+            if label == "demo":
+                record(f"brute demo {kind}",
+                       lambda r: ki.brute_intersect(scene.vertices, r[:, 0:3], r[:, 3:6])[:2],
+                       rays, REPS["brute"])
+        eye, pitch = smoke.KD_EYES[label]
+        camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
+        one_pass(f"{label} 512x512x8 (kd)", scene.replace(cbvh=None), camera, config, "kd")
+        one_pass(f"{label} 512x512x8 (brute)", scene.replace(cbvh=None, wkd=None, kd=None),
+                 camera, config, "brute")
+        del scene
+
     # the 2M-triangle hero: the group walks
     hero = prepare_scene(procedural.hero_scene(), device)
     cb = hero.cbvh
@@ -211,17 +252,23 @@ def run_child(tree: Path) -> dict:
     return result
 
 
+def newest_library(tree: Path, source: str):
+    """The library that ``tree`` built last from csrc/<source>, or None."""
+    libs = sorted((tree / "isaklm_raytracer_tpu_torch" / "_build").glob(
+        f"lib{Path(source).stem}_*.so"), key=lambda p: p.stat().st_mtime)
+    return libs[-1] if libs else None
+
+
 def sass(tree: Path, source: str):
     """The instructions of the library that ``tree`` built from
     csrc/<source> (its newest), without addresses, encodings and kernel
     names, or None when there is no such library or no cuobjdump."""
-    libs = sorted((tree / "isaklm_raytracer_tpu_torch" / "_build").glob(
-        f"lib{Path(source).stem}_*.so"), key=lambda p: p.stat().st_mtime)
+    lib = newest_library(tree, source)
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not libs or not os.path.exists(tool):
+    if lib is None or not os.path.exists(tool):
         return None
-    dump = subprocess.run([tool, "-sass", str(libs[-1])], capture_output=True, text=True,
+    dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     return [re.sub(r"0x[0-9a-f]+", "X", " ".join(m.group(1).split()))
             for m in (re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(.*?);", line)
@@ -236,6 +283,10 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     others = [Path(a).resolve() for a in argv[1:]]
+    sys.path.insert(0, str(REPO))  # chip_smoke's SASS helpers find nvcc through the package
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -276,6 +327,19 @@ def main(argv) -> int:
                 print(f"  SASS of {source}: " + ("identical" if a == b else
                                                  f"differs ({len(a)} against {len(b)} "
                                                  "instructions, other against this)"), flush=True)
+        # the test loops of the walk and the brute force, by opcode: the
+        # innermost loop that holds the walk's test FMULs (its node steps
+        # have none), and the brute force's that reads the staged records
+        for source, opcode in (("kd_intersect.cu", "FMUL"), ("brute_intersect.cu", "LDS")):
+            for which, tree in (("other", other), ("this", REPO)):
+                lib = newest_library(tree, source)
+                for name, loops in sorted((smoke.sass_loops(lib) if lib else {}).items()):
+                    loop = smoke.innermost(loops, opcode)
+                    if loop is not None:
+                        ops = loop[2]
+                        print(f"  SASS test loop of {source} ({which}), {name}: "
+                              f"{sum(ops.values())} instructions: " + ", ".join(
+                                  f"{op} {c}" for op, c in ops.most_common()), flush=True)
     if not ok:
         print("compare_walks: the checkouts differ", file=sys.stderr)
         return 1
