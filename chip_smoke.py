@@ -10,11 +10,11 @@ raising on failure:
 
 1. card: name, power limit and maximum SM clock as nvidia-smi reports
    them, and the SM count;
-2. build: compiles the twelve kernels of ``csrc/`` (six intersectors, the
-   first-block keys, the null kernel, the KD walk and its triangle table,
-   the brute force and the sampler) with nvcc, one process per
-   source, all started together, and prints each one's ptxas register and
-   spill lines;
+2. build: compiles the fourteen kernels of ``csrc/`` (six intersectors,
+   the first-block keys, the null kernel, the KD walk and its triangle
+   table, the brute force, the sampler and the two shading kernels of
+   ``shade_bounce.cu``) with nvcc, one process per source, all started
+   together, and prints each one's ptxas register and spill lines;
 3. kernel flat: the flat intersector against its plain PyTorch version
    (exact) and against the brute-force oracle (the bench.py gate: hit masks
    equal, relative t error <= 1e-3, ids differ only at ties), on random
@@ -245,7 +245,8 @@ raising on failure:
    ray_chunk 0 and 16384, in turns, with each graph's capture and
    instantiation seconds and its pool's memory; one profiled replayed
    sample of each in one pass: the device's busy share within the trace,
-   and the path's kernel records equal to what the capture recorded; ``entry()``'s
+   the path's kernel records equal to what the capture recorded, and the
+   two shading kernels' records one each a bounce of each pass; ``entry()``'s
    ``fn`` captured in a graph and replayed with two keys against ``fn`` run
    eagerly, bit for bit; ``dryrun_multichip(1)`` over NCCL and
    ``dryrun_multichip(2, "cuda:0")``, two ranks on this card over gloo;
@@ -255,7 +256,9 @@ raising on failure:
    warm-up steps (the eager call and the capture: ``render`` replays its
    steps' graphs), and one torch.profiler sample at each:
    CUDA records per sample, summed device kernel time, the busy share
-   within the trace's device span and the intersector's share; then in one pass each override beside its default
+   within the trace's device span and the intersector's share, the two
+   shading kernels' records (one each a bounce of each pass) and time, and
+   in one pass the records by kernel name; then in one pass each override beside its default
    (demo: flat, flat_mxu; hero: blk, blk_mxu, hbm), in turns, with one
    profiled sample each;
 21. grad: bench.py's fwd and fwd+bwd (loss = mean(render_sample), leaf =
@@ -264,8 +267,9 @@ raising on failure:
    hero again in one pass under
    ISAKLM_BLK_SORT=block (the first-block key kernel's main-path run);
    s/sample, rays/s, peak memory, launches per kernel (no plain version
-   on CUDA; first_blocks and blk both launch under block ordering), grads
-   finite and nonzero; one torch.profiler sample of the hero's forward
+   on CUDA but the shading's, which autograd records: its plain versions
+   once each a bounce, its kernels never; first_blocks and blk both launch
+   under block ordering), grads finite and nonzero; one torch.profiler sample of the hero's forward
    and backward; grad-vs-FD on the card through the flat kernel (Cornell
    albedo, the silhouette-free camera view) with tests/test_estimator.py's
    tolerances, and the card's gradient against the port's on the CPU;
@@ -284,13 +288,34 @@ raising on failure:
    duration in one replay by torch.profiler, beside the bound; the demo
    n = 9 draw also by calls one after another (the host's cost); the demo and the hero rendered in one pass, 3 samples each
    (eager, capture, replay), with ``rng.uniforms`` patched to the plain
-   version: the G-buffer's SHA-256 equal to the kernel's.
+   version: the G-buffer's SHA-256 equal to the kernel's;
+23. shade: the two shading kernels of a bounce (csrc/shade_bounce.cu,
+   ``shade_bounce`` and ``finish_bounce`` of kernels/shade.py) against
+   their plain versions by SHA-256 of every output: the card test of
+   tests/test_torch_shade.py (an edge scene with 0, 1 and 2 lights and the
+   demo, both scene layouts, both lobe-ratio modes, with and without
+   roulette, 2,001 rays and one); every bounce's real wavefront of one
+   sample in one pass through ``render_sample`` (``integrator.path_trace.
+   shading`` replaced by a stand-in that runs both and goes on with the
+   kernels'): the demo at 512x512x8 (flat), the hero at 640x360x6 (blk),
+   the 20k hero at 512x512x8 (queue) and the demo without cluster or
+   shading tables (the brute force, the per-triangle arrays), each render
+   equal to the render; each kernel timed in turns with its plain version
+   at the first bounce of the hero and of the demo (the kernels line takes
+   the demo's) by CUDA events around the replay of a CUDA graph of 20 calls
+   (the device's time), its own duration by torch.profiler, and its
+   wrapper by calls one after another (the host's cost), beside its bound
+   (bytes over the HBM rate against issue slots over the FP32 lanes,
+   SHADE_*_SLOTS and SHADE_*_BYTES).
 
 Every path that check_only holds (main path, assets, resume, interactive,
 sharded, kd, graphs) must also have launched the sampler kernel and no
-plain sampler on CUDA; ``device_launches`` holds the sampler's profiler
-records to its eager plus replayed launches like every kernel's, and the
-kernels line's sampler row counts its launches over the main path's runs.
+plain sampler on CUDA, and the two shading kernels as often as each other
+and no plain shading on CUDA (the sharded value_and_grad, which
+differentiates, the plain shading instead); ``device_launches`` holds the
+sampler's and the shading's profiler records to their eager plus replayed
+launches like every kernel's, and the kernels line's sampler and shading
+rows count their launches over the main path's runs.
 
 Every kernel's ``bound_ms`` is the larger of its bytes over the HBM rate
 and its issue slots over the card's FP32 lanes (see the note on issue
@@ -409,6 +434,30 @@ HBM_BYTES_PER_S, FP32_LANES_PER_SM = 3.35e12, 128
 INT32_LANES_PER_SM, XU_LANES_PER_SM = 64, 16
 SAMPLER_PAIR_ALU, SAMPLER_PAIR_ADDS = 40, 27
 TRI_HIT_SLOTS, PLANE_SLOTS, WINDOW_SLOTS, EDGE_SLOTS = 51, 10, 12, 30
+# The shading kernels (csrc/shade_bounce.cu), counted off the code by the
+# rule above, with a square root ten slots like a division and a sine or a
+# cosine 25 (range reduction and polynomial), per lane by what it runs:
+#   SHADE_GEOMETRY_SLOTS, hit_geometry on every lane: the geometric normal's
+#     cross product and normalisation 45, the plane hit 30, the point 6, the
+#     barycentrics 57, the position 15, the shading normal, tangent and
+#     bitangent 123, the back-face flip 9, the uv 10;
+#   SHADE_LIVE_SLOTS, a live lane's material and two texture lookups 40, the
+#     GGX half vector 111 (two square roots, a division, a sine and a
+#     cosine), the emission and the state 20;
+#   SHADE_DIELECTRIC_SLOTS, a live non-metal lane's Fresnel term 74 and lobe
+#     ratios 26;
+#   SHADE_LOBE_SLOTS, the selected lobe: metal (conductor Fresnel, reflect,
+#     the specular weight's two Smith terms), specular, transmission
+#     (refract and the specular weight), diffuse (the cosine hemisphere);
+#   SHADE_SHADOW_SLOTS, every lane of a scene with lights: the light pick,
+#     the point on the light, the window and the direction;
+#   FINISH_LANE_SLOTS, every lane of finish_bounce: the direct light's sum
+#     and Russian roulette (three divisions);
+#   FINISH_DIRECT_SLOTS, a visible shadow hit: hit_geometry, the material,
+#     the light's area, the two cosines and the weight.
+SHADE_GEOMETRY_SLOTS, SHADE_LIVE_SLOTS, SHADE_DIELECTRIC_SLOTS = 295, 171, 100
+SHADE_LOBE_SLOTS = {"metal": 196, "specular": 120, "transmission": 169, "diffuse": 92}
+SHADE_SHADOW_SLOTS, FINISH_LANE_SLOTS, FINISH_DIRECT_SLOTS = 80, 45, 410
 SLAB_SLOTS, KEY_SLOTS = 32, 34
 LANE_SLOTS_PER_S = 0.0  # SMs x FP32_LANES_PER_SM x clocks.max.sm, once read
 TILE_BYTES = 16 * 128 * 4
@@ -1100,18 +1149,27 @@ def fwd_and_fwd_bwd(label, scene, camera, config, counts, card, samples: int = 2
     if GraphStep.recorded or GraphStep.replayed:
         raise RuntimeError(f"grad {label}: a step went through a CUDA graph")
     launches = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}  # all eager
-    plain = counts.plain_cuda()
+    plain = plain_but_shade(counts)
+    shading = (counts.shade_plain_cuda, counts.shade_finish_plain_cuda)
     rays = config.num_pixels * config.max_bounces * 2
     log(f"grad {label} {config.width}x{config.height}x{config.max_bounces} ray_chunk "
         f"{config.ray_chunk}: fwd {fwd_s:.4f} s/sample ({rays / fwd_s / 1e6:.3f} M rays/s), "
         f"fwd+bwd {bwd_s:.4f} s/sample ({rays / bwd_s / 1e6:.3f} M rays/s), ratio "
         f"{bwd_s / fwd_s:.2f}; peak memory {peak:.2f} GiB; launches in {samples} fwd+bwd samples "
-        f"{launches}, plain calls on CUDA {plain}; on {card}")
+        f"{launches}, plain calls on CUDA but the shading's {plain}, the shading's plain "
+        f"calls on CUDA {shading}; on {card}")
     for g in grads:
         if not torch.isfinite(g).all() or not g.abs().max() > 0:
             raise RuntimeError(f"grad {label}: the albedo gradient is not finite and nonzero")
     if plain:
         raise RuntimeError(f"grad {label}: a plain version ran on CUDA")
+    # autograd records the shading: its plain versions, once each a bounce
+    passes = -(-config.num_pixels // (config.ray_chunk or config.num_pixels))
+    want = samples * passes * config.max_bounces
+    if shading != (want, want) or launches["shade"] or launches["shade_finish"]:
+        raise RuntimeError(f"grad {label}: the shading ran {shading} plain versions and "
+                           f"{launches['shade']}, {launches['shade_finish']} kernels; {want} "
+                           "plain calls of each expected, no kernel")
     return {"fwd_s": fwd_s, "fwd_bwd_s": bwd_s, "peak_gib": peak, "launches": launches}
 
 
@@ -1198,9 +1256,13 @@ def grad_checks_on_card(device, counts):
                                 h=2e-3, rtol=0.05, atol=2e-4)
     log(f"grad vs FD on the card, Cornell albedo {auto.shape}: max |auto - fd| "
         f"{np.abs(auto - fd).max():.3e} (rtol 0.05, atol 2e-4); flat launches "
-        f"{counts.flat_kernel}, plain calls on CUDA {counts.plain_cuda()}")
-    if counts.flat_kernel == 0 or counts.plain_cuda():
-        raise RuntimeError("grad vs FD did not go through the flat kernel alone")
+        f"{counts.flat_kernel}, plain calls on CUDA but the shading's {plain_but_shade(counts)}; "
+        f"the shading's kernels (the finite differences) {counts.shade_kernel}, "
+        f"{counts.shade_finish_kernel}, its plain versions (autograd) "
+        f"{counts.shade_plain_cuda}, {counts.shade_finish_plain_cuda}")
+    if counts.flat_kernel == 0 or plain_but_shade(counts) or not counts.shade_plain_cuda:
+        raise RuntimeError("grad vs FD did not go through the flat kernel alone, or its "
+                           "gradient not through the plain shading")
 
     floor = prepare_scene(floor_view(), device)
     config = RenderConfig(width=12, height=12, max_bounces=1, rr_start_bounce=1,
@@ -1275,12 +1337,15 @@ def kernel_symbol(name: str) -> str:
     """A part of the name torch.profiler gives kernel ``name``'s CUDA
     kernel: flat and flat_mxu are the template ``flat_kernel`` over their
     layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``,
-    ``first_block_keys_kernel``, the sampler's ``threefry_uniforms_kernel``
-    or the KD walk's table kernel ``tri_consts_kernel``."""
+    ``first_block_keys_kernel``, the sampler's ``threefry_uniforms_kernel``,
+    the KD walk's table kernel ``tri_consts_kernel`` or the shading kernels
+    ``shade_bounce_kernel`` and ``finish_bounce_kernel``."""
     return {"flat": "TileLayout", "flat_mxu": "PairLayout",
             "first_blocks": "first_block_keys_kernel",
             "sampler": "threefry_uniforms_kernel",
-            "tri_consts": "tri_consts_kernel"}.get(name, f"{name}_intersect_kernel")
+            "tri_consts": "tri_consts_kernel",
+            "shade": "shade_bounce_kernel",
+            "shade_finish": "finish_bounce_kernel"}.get(name, f"{name}_intersect_kernel")
 
 
 def cuda_profile():
@@ -1327,12 +1392,19 @@ def device_launches(counts):
                            f"plus the replays' {want}")
 
 
-# (label, sampler kernels the card ran, the sampler wrapper's launches) of
-# every path that check_only held
+# (label, then the kernels the card ran and their wrappers' launches of the
+# sampler, shade_bounce and finish_bounce) of every path that check_only held
 SAMPLER_RUNS = []
+SHADE_KERNELS = ("shade", "shade_finish")
 
 
-def check_only(counts, kernel: str, label: str, ran=None):
+def plain_but_shade(counts) -> int:
+    """Plain-version calls on CUDA but the shading's (which the gradient
+    paths take on purpose)."""
+    return counts.plain_cuda() - counts.shade_plain_cuda - counts.shade_finish_plain_cuda
+
+
+def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
     """The launches of ``kernel`` since the counts were zeroed: (the
     kernels the card ran, the wrappers' count). ``ran`` is
     ``device_launches``'s measurement; without it the run must have
@@ -1340,7 +1412,10 @@ def check_only(counts, kernel: str, label: str, ran=None):
     ``kernel`` ran, no other intersector did and no plain version ran on
     CUDA; then unless the sampler kernel ran too (every render draws its
     variates there; its plain version is among the plain calls counted),
-    whose launches go to SAMPLER_RUNS."""
+    and the two shading kernels as often as each other (one launch each a
+    bounce; their launches go with the sampler's to SAMPLER_RUNS). With
+    ``grad`` (a path that differentiates) the shading must instead have run
+    its plain versions, which autograd records; no other plain version."""
     from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
 
     if ran is None:
@@ -1349,10 +1424,12 @@ def check_only(counts, kernel: str, label: str, ran=None):
         ran = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}
     wrapped = getattr(counts, f"{kernel}_kernel")
     others = {k: ran[k] for k in INTERSECTORS if k != kernel}
+    plain = plain_but_shade(counts) if grad else counts.plain_cuda()
     log(f"main path {label}: {kernel}_kernel ran {ran[kernel]} times on the card ({wrapped} "
         f"launched by its wrapper, eagerly or into a graph), other intersectors {others}, "
-        f"plain versions' calls on CUDA (the sampler's among them) {counts.plain_cuda()}")
-    if ran[kernel] == 0 or any(others.values()) or counts.plain_cuda():
+        f"plain versions' calls on CUDA ("
+        f"{'but the shading' if grad else 'the sampler and the shading among them'}) {plain}")
+    if ran[kernel] == 0 or any(others.values()) or plain:
         raise RuntimeError(f"the {label} path did not go through its kernel alone")
     log(f"main path {label}: the sampler kernel ran {ran['sampler']} times on the card "
         f"({counts.sampler_kernel} launched by its wrapper), the plain sampler on CUDA "
@@ -1360,7 +1437,19 @@ def check_only(counts, kernel: str, label: str, ran=None):
     if ran["sampler"] == 0 or counts.sampler_plain_cuda:
         raise RuntimeError(f"the {label} path did not draw its variates through the sampler "
                            "kernel alone")
-    SAMPLER_RUNS.append((label, ran["sampler"], counts.sampler_kernel))
+    shading = {k: (ran[k], getattr(counts, f"{k}_kernel"), getattr(counts, f"{k}_plain_cuda"))
+               for k in SHADE_KERNELS}
+    log(f"main path {label}: shading (kernels the card ran, wrapper launches, plain calls on "
+        f"CUDA) shade_bounce {shading['shade']}, finish_bounce {shading['shade_finish']}")
+    if grad:
+        if not all(v[2] for v in shading.values()):
+            raise RuntimeError(f"the {label} path differentiates but did not shade through "
+                               "the plain versions")
+    elif shading["shade"][0] == 0 or shading["shade"][:2] != shading["shade_finish"][:2]:
+        raise RuntimeError(f"the {label} path did not shade through the two kernels, one "
+                           "launch each a bounce")
+    SAMPLER_RUNS.append((label, ran["sampler"], counts.sampler_kernel,
+                         *(x for k in SHADE_KERNELS for x in shading[k][:2])))
     return ran[kernel], wrapped
 
 
@@ -1371,6 +1460,35 @@ def trace_share(records):
     start = min(t for _, t, _ in records)
     end = max(t + d for _, t, d in records)
     return len(records), sum(d for _, _, d in records) / 1e9, (end - start) / 1e9
+
+
+def shade_records(label, records, config) -> None:
+    """The shading kernels' records in a profile of one full step: each of
+    the two must have run once a bounce of each of the step's passes;
+    logs their count and device time."""
+    passes = -(-config.num_pixels // (config.ray_chunk or config.num_pixels))
+    want = passes * config.max_bounces
+    got = {k: [d for name, _, d in records if kernel_symbol(k) in name] for k in SHADE_KERNELS}
+    busy = sum(d for _, _, d in records)
+    log(f"  {label}: shade_bounce {len(got['shade'])} records, {sum(got['shade']) / 1e6:.4f} ms; "
+        f"finish_bounce {len(got['shade_finish'])}, {sum(got['shade_finish']) / 1e6:.4f} ms "
+        f"({(sum(got['shade']) + sum(got['shade_finish'])) / busy:.2%} of the kernel time); "
+        f"{want} of each expected ({passes} passes x {config.max_bounces} bounces)")
+    if any(len(v) != want for v in got.values()):
+        raise RuntimeError(f"{label}: the shading kernels did not run once each a bounce")
+
+
+def records_by_name(label, records, config, top: int = 12) -> None:
+    """The records of one full step in one pass by kernel name, the most
+    frequent first, per bounce."""
+    names = collections.Counter(name for name, _, _ in records)
+    time_of = collections.Counter()
+    for name, _, d in records:
+        time_of[name] += d
+    log(f"  {label}: {len(records)} records, {len(records) / config.max_bounces:.1f} a bounce, "
+        f"{len(names)} kernel names; the most frequent (records a bounce, ms a step): " + "; ".join(
+            f"{n / config.max_bounces:g} x {name[:70]} ({time_of[name] / 1e6:.3f} ms)"
+            for name, n in names.most_common(top)))
 
 
 def profile_sample(render, scene, camera, config, kernel_name):
@@ -1390,6 +1508,9 @@ def profile_sample(render, scene, camera, config, kernel_name):
     log(f"  the profiled sample's sampler kernels: {len(drawn)} launches, "
         f"{sum(drawn) / 1e6:.4f} ms = {sum(drawn) / 1e9 / busy_s:.2%} of its {busy_s * 1e3:.2f} ms "
         f"of device kernel time ({n} CUDA records)")
+    shade_records("the profiled sample's shading", records, config)
+    if not config.ray_chunk:
+        records_by_name("the profiled sample's kernels", records, config)
     return n, busy_s, span_s, len(mine), sum(mine) / 1e9
 
 
@@ -1970,8 +2091,8 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
     sync = torch.cuda.synchronize
     counts = ki.COUNTS
 
-    def launched(kernel, label):  # a rank's steps run eagerly
-        return check_only(counts, kernel, f"rank {rank} {label}")[0]
+    def launched(kernel, label, grad=False):  # a rank's steps run eagerly
+        return check_only(counts, kernel, f"rank {rank} {label}", grad=grad)[0]
 
     tile = sharding.make_render_mesh(world, 1, device=device)
     streams = sharding.make_render_mesh(1, world, device=device)
@@ -2032,7 +2153,7 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
     sync()
     out["vg"] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
                  "grads": {k: v.cpu().numpy() for k, v in grads.items()},
-                 "launches": launched("flat", "sharded value_and_grad")}
+                 "launches": launched("flat", "sharded value_and_grad", grad=True)}
     step = sharding.sharded_train_step_fn(demo, demo_config, streams)
     p, losses = params, []
     dist.barrier()
@@ -2904,6 +3025,8 @@ def profile_replay(label, kernel, scene, camera, config) -> float:
     if len(drawn) != drawn_recorded or drawn_recorded == 0:
         raise RuntimeError(f"graphs {label}: the replay ran {len(drawn)} sampler kernels, its "
                            f"capture recorded {drawn_recorded}")
+    shade_records(f"graphs {label} ray_chunk {config.ray_chunk}, the replay's shading", records,
+                  config)
     return busy_s / span_s
 
 
@@ -3132,13 +3255,14 @@ def log_sampler_sass() -> None:
                         f"{counted['all']['slots_a_ray']} in all" if counted else ""))
 
 
-def sampler_device_ms(kernel_fn, plain_fn, reps: int = 20) -> tuple:
-    """Device ms a call of the sampler kernel and of its plain version: each
-    captured ``reps`` times into a CUDA graph, which is replayed between
-    CUDA events (a call one after another is bound by the host's launch
-    rate, not by the kernel). In turns plain, kernel, kernel, plain; the
-    two outputs must be equal. Then one replay of the kernel's graph under
-    torch.profiler: the kernel's own duration, without the gaps between
+def graph_device_ms(label, symbol, kernel_fn, plain_fn, reps: int = 20) -> tuple:
+    """Device ms a call of a kernel and of its plain version: each captured
+    ``reps`` times into a CUDA graph, which is replayed between CUDA events
+    (a call one after another is bound by the host's launch rate, not by
+    the kernel). In turns plain, kernel, kernel, plain; the outputs (a
+    tensor or a sequence of them) must be equal by SHA-256. Then one
+    replay of the kernel's graph under torch.profiler: the kernel's own
+    duration (its records named like ``symbol``), without the gaps between
     graph nodes. Returns the means of the two turns (ms) and the
     profiler's mean kernel duration (ms)."""
     graphs, outs = {}, {}
@@ -3153,19 +3277,21 @@ def sampler_device_ms(kernel_fn, plain_fn, reps: int = 20) -> tuple:
     for name in ("plain", "kernel", "kernel", "plain"):
         ms, _ = cuda_ms(graphs[name].replay, reps=3, warmup=1)
         times.setdefault(name, []).append(ms / reps)
-    if not torch.equal(outs["kernel"], outs["plain"]):
-        raise RuntimeError("sampler: the captured kernel's draw differs from the plain version's")
+    digests = [sha(*(o if isinstance(o, (list, tuple)) else (o,))) for o in outs.values()]
+    if digests[0] != digests[1]:
+        raise RuntimeError(f"{label}: the captured kernel's outputs differ from the plain "
+                           "version's")
     with cuda_profile() as prof:
         graphs["kernel"].replay()
-    own = [d for name, _, d in device_records(prof) if kernel_symbol("sampler") in name]
+    own = [d for name, _, d in device_records(prof) if symbol in name]
     if len(own) != reps:
-        raise RuntimeError(f"sampler: the profiler saw {len(own)} kernels of a replay of {reps}")
+        raise RuntimeError(f"{label}: the profiler saw {len(own)} kernels of a replay of {reps}")
     own_ms = sum(own) / len(own) / 1e6
-    log("time threefry_uniforms device, from CUDA graphs of "
-        f"{reps} calls: kernel {times['kernel'][0] * 1e3:.3f}/{times['kernel'][1] * 1e3:.3f} us, "
-        f"plain {times['plain'][0]:.4f}/{times['plain'][1]:.4f} ms, outputs equal; the "
-        f"kernel's own duration (torch.profiler, one replay) {own_ms * 1e3:.3f} us, "
-        f"{min(own) / 1e3:.3f}-{max(own) / 1e3:.3f}")
+    log(f"time {label} device, from CUDA graphs of {reps} calls: kernel "
+        f"{times['kernel'][0]:.5f}/{times['kernel'][1]:.5f} ms, plain "
+        f"{times['plain'][0]:.4f}/{times['plain'][1]:.4f} ms, outputs equal by SHA-256; the "
+        f"kernel's own duration (torch.profiler, one replay) {own_ms:.5f} ms, "
+        f"{min(own) / 1e6:.5f}-{max(own) / 1e6:.5f}")
     del graphs
     return sum(times["kernel"]) / 2, sum(times["plain"]) / 2, own_ms
 
@@ -3212,8 +3338,10 @@ def phase_sampler(counts, device, scenes, results) -> None:
                              ("demo 262144 int32", rng.CAMERA_STREAM, 4),
                              (f"hero {HERO_W * HERO_H} int32", 3, 9)):
         ids = draws[label]
-        k_dev, p_dev, own = sampler_device_ms(lambda: rng.uniforms(key_t, ids, stream, n),
-                                              lambda: rng.uniforms_plain(key_t, ids, stream, n))
+        k_dev, p_dev, own = graph_device_ms(
+            f"threefry_uniforms {label} n {n}", kernel_symbol("sampler"),
+            lambda: rng.uniforms(key_t, ids, stream, n),
+            lambda: rng.uniforms_plain(key_t, ids, stream, n))
         b = sampler_bound(ids.shape[0], n, ids.element_size())
         pipes = ", ".join(f"{k} {v['slots_a_ray']} slots a ray on {v['lanes_per_sm']} lanes an "
                           f"SM {v['us']:.3f} us" for k, v in b["pipes"].items())
@@ -3258,6 +3386,188 @@ def phase_sampler(counts, device, scenes, results) -> None:
         if digests["kernel"] != digests["plain"]:
             raise RuntimeError(f"sampler render {label}: the plain sampler's G-buffer differs")
     clear_step_caches()
+
+# --- phase shade -------------------------------------------------------------
+
+# The bytes a shading kernel must move, each input read once and each
+# output written once (kernels/shade.py's Pending): a ray's state in (its
+# origin, direction, throughput and radiance, its hit id and four flags,
+# eight uniforms) and the pending state out (without lights, with them);
+# the hit rows (a shading row, or the vertices, normals, uvs and material
+# id), each distinct row once.
+SHADE_IN_BYTES, SHADE_OUT_BYTES = 88, (51, 88)
+SHADE_ROW_BYTES = {True: 128, False: 100}
+
+
+def shade_tables_bytes(scene) -> int:
+    """The material table (44 B a material), the texture atlas and the
+    light list, read once."""
+    m, tex = scene.materials, scene.textures
+    return (m.albedo.shape[0] * 44 + tex.buffer.numel() * 4 + tex.offset.numel() * 12
+            + scene.light_indices.numel() * 4)
+
+
+def shade_bound(args, pending) -> dict:
+    """shade_bounce's bound on one call's inputs ``args`` and its outputs
+    ``pending``: the lanes counted by what they run (live lanes by the lobe
+    they selected: metal from the hit material, diffuse from the new
+    prev_diffuse, transmission from the flipped inside flag)."""
+    scene, _, _, idx, _, _, _, _, inside, _, _, _ = args
+    num = idx.shape[0]
+    table = scene.shade_table is not None
+    safe = idx.clamp_min(0).long()
+    mat = scene.shade_table[safe, 24].long() if table else scene.mat_id[safe].long()
+    live = pending.live
+    metal = live & (scene.materials.extinction[mat] > 0)
+    diffuse = live & pending.prev_diffuse
+    trans = live & (pending.inside != inside)
+    spec = live & ~metal & ~diffuse & ~trans
+    kinds = {"metal": metal, "specular": spec, "transmission": trans, "diffuse": diffuse}
+    lanes = {k: int(v.sum()) for k, v in kinds.items()}
+    lit = bool(scene.has_lights)
+    slots = (num * (SHADE_GEOMETRY_SLOTS + (SHADE_SHADOW_SLOTS if lit else 0))
+             + int(live.sum()) * SHADE_LIVE_SLOTS + int((live & ~metal).sum()) * SHADE_DIELECTRIC_SLOTS
+             + sum(n * SHADE_LOBE_SLOTS[k] for k, n in lanes.items()))
+    nbytes = (num * (SHADE_IN_BYTES + SHADE_OUT_BYTES[lit])
+              + torch.unique(safe).numel() * SHADE_ROW_BYTES[table] + shade_tables_bytes(scene)
+              + (torch.unique(pending.light_idx).numel() * 36 if lit else 0))
+    return {**bound(slots, nbytes), "lanes": lanes}
+
+
+def finish_bound(args) -> dict:
+    """finish_bounce's bound on one call's inputs: every lane reads its
+    throughput, radiance and live flag (and its uniform, with roulette)
+    and writes 25 B; a NEE lane reads its shadow hit and light (9 B more);
+    a visible one its origin, direction, normal and distance (40 B), and
+    each distinct light's row and vertices once."""
+    scene, pending, idx, hit, _, roulette = args
+    num = pending.live.shape[0]
+    nbytes = num * (25 + 12 + 12 + 1 + (4 if roulette else 0))
+    visible_n = 0
+    if pending.nee_mask is not None:
+        nee = pending.nee_mask
+        visible = nee & hit & (idx == pending.light_idx)
+        visible_n = int(visible.sum())
+        rows = torch.unique(pending.light_idx[visible]).numel()
+        nbytes += (num + int(nee.sum()) * 9 + visible_n * 40
+                   + rows * (SHADE_ROW_BYTES[scene.shade_table is not None] + 36)
+                   + shade_tables_bytes(scene))
+    return {**bound(num * FINISH_LANE_SLOTS + visible_n * FINISH_DIRECT_SLOTS, nbytes),
+            "visible": visible_n}
+
+
+class ShadeCheck:
+    """A stand-in for ``integrator.path_trace.shading`` in phase shade: each
+    bounce runs both kernels and both plain versions on the same inputs,
+    holds every output of each kernel to its plain version's by SHA-256
+    and goes on with the kernels'; keeps the first bounce's inputs."""
+
+    def __init__(self, label: str):
+        self.label, self.calls, self.first = label, {"shade": 0, "finish": 0}, {}
+
+    def __call__(self, route):
+        return self.shade, self.finish
+
+    def _same(self, which, kernel, plain, args) -> None:
+        got, want = sha(*kernel), sha(*plain)
+        if got != want:
+            bits = [(k.view(torch.int32) if k.dtype == torch.float32 else k,
+                     p.view(torch.int32) if p.dtype == torch.float32 else p)
+                    for k, p in zip(kernel, plain)]
+            rays = [int((k != p).reshape(k.shape[0], -1).any(dim=1).sum()) for k, p in bits]
+            raise RuntimeError(f"shade {self.label} {which} bounce {self.calls[which]}: the "
+                               f"kernel's outputs differ from the plain version's in "
+                               f"{rays} rays (by output)")
+        self.calls[which] += 1
+        self.first.setdefault(which, args)
+
+    def shade(self, *args):
+        from isaklm_raytracer_tpu_torch.kernels import shade
+
+        kernel = shade.shade_bounce(*args)
+        self._same("shade", kernel.tensors(), shade.shade_bounce_plain(*args).tensors(), args)
+        return kernel
+
+    def finish(self, *args):
+        from isaklm_raytracer_tpu_torch.kernels import shade
+
+        kernel = shade.finish_bounce(*args)
+        self._same("finish", kernel, shade.finish_bounce_plain(*args), args)
+        return kernel
+
+
+def phase_shade(device, scenes, results) -> None:
+    """Phase shade (the module docstring, 23)."""
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.integrator import path_trace
+    from isaklm_raytracer_tpu_torch.integrator.render import render_sample, trace_name
+    from isaklm_raytracer_tpu_torch.kernels import shade
+
+    card_test("test_torch_shade", "test_cuda_shade_kernels_equal_plain")
+    demo = scenes["demo"]
+    paths = (
+        ("demo", demo, (512, 512, 8), BENCH_EYE, BENCH_PITCH),
+        ("hero", scenes["hero"], (HERO_W, HERO_H, HERO_BOUNCES), BENCH_EYE, BENCH_PITCH),
+        ("hero20k", scenes["hero20k"], (512, 512, 8), GOLDEN_EYE, 0.0),
+        ("demo without tables", demo.replace(cbvh=None, wkd=None, kd=None, shade_table=None),
+         (512, 512, 8), BENCH_EYE, BENCH_PITCH),
+    )
+    firsts = {}
+    real_shading = path_trace.shading
+    for label, scene, (w, h, b), eye, pitch in paths:
+        camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
+        config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
+        check = ShadeCheck(label)
+        path_trace.shading = check
+        try:
+            with torch.no_grad():
+                checked = render_sample(scene, camera, (3, 4), config)
+        finally:
+            path_trace.shading = real_shading
+        with torch.no_grad():
+            straight = render_sample(scene, camera, (3, 4), config)
+        if check.calls != {"shade": b, "finish": b} or sha(checked) != sha(straight):
+            raise RuntimeError(f"shade {label}: {check.calls} bounces checked, or the checked "
+                               "render differs from the render")
+        log(f"shade {label} {w}x{h}x{b} ({trace_name(scene)}): every bounce's wavefront of "
+            f"{config.num_pixels} rays through shade_bounce and finish_bounce equal to the plain "
+            f"versions by SHA-256 of every output ({b} bounces each); the render through them "
+            f"equal to the render by SHA-256")
+        firsts[label] = check.first
+
+    def timed(label, first):
+        s_args, f_args = first["shade"], first["finish"]
+        rays = s_args[1].shape[0]
+        k_ms, p_ms, _ = graph_device_ms(
+            f"shade_bounce {label} bounce 0, {rays} rays", kernel_symbol("shade"),
+            lambda: shade.shade_bounce(*s_args).tensors(),
+            lambda: shade.shade_bounce_plain(*s_args).tensors())
+        fk_ms, fp_ms, _ = graph_device_ms(
+            f"finish_bounce {label} bounce 0, {rays} rays", kernel_symbol("shade_finish"),
+            lambda: shade.finish_bounce(*f_args), lambda: shade.finish_bounce_plain(*f_args))
+        host = [cuda_ms(fn)[0] for fn in (lambda: shade.shade_bounce(*s_args),
+                                          lambda: shade.finish_bounce(*f_args))]
+        log(f"time shade_bounce and finish_bounce {label} bounce 0, {rays} rays, calls one after "
+            f"another (the host's rate): {host[0]:.4f} and {host[1]:.4f} ms a call")
+        sb = shade_bound(s_args, f_args[1])
+        fb = finish_bound(f_args)
+        log(f"shade bounds {label} bounce 0: shade_bounce {sb['bound_ms']:.4f} ms "
+            f"({sb['bound_by']}; {sb['ops']:.4g} slots, {sb['bytes']:.4g} bytes; live lanes by "
+            f"lobe {sb['lanes']}) = {sb['bound_ms'] / k_ms:.1%} of its time; finish_bounce "
+            f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}; {fb['ops']:.4g} slots, "
+            f"{fb['bytes']:.4g} bytes; {fb['visible']} visible shadow hits) = "
+            f"{fb['bound_ms'] / fk_ms:.1%} of its time")
+        return (k_ms, p_ms, sb), (fk_ms, fp_ms, fb)
+
+    for label in ("hero", "demo"):  # the kernels line takes the demo's
+        (k_ms, p_ms, sb), (fk_ms, fp_ms, fb) = timed(label, firsts[label])
+    rays = firsts["demo"]["shade"][1].shape[0]
+    for key, (ms, plain_ms, b_) in (("shade", (k_ms, p_ms, sb)),
+                                    ("shade_finish", (fk_ms, fp_ms, fb))):
+        results[key] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                        **{k: v for k, v in b_.items() if k not in ("lanes", "visible")},
+                        "shape": f"{rays} rays, the demo's first bounce at 512x512"}
 
 
 def main() -> int:
@@ -3749,6 +4059,14 @@ def main() -> int:
         log(f"main path: the sampler kernel ran {sampler_launches[0]} times on the card over its "
             f"{len(SAMPLER_RUNS) - main_path_runs} paths ({sampler_launches[1]} launched by its "
             "wrapper)")
+        # and the shading kernels, one launch each a bounce on every path
+        shade_launches = {k: tuple(sum(run[i] for run in SAMPLER_RUNS[main_path_runs:])
+                                   for i in (j, j + 1))
+                          for k, j in zip(SHADE_KERNELS, (3, 5))}
+        log(f"main path: the shading kernels ran {shade_launches['shade'][0]} (shade_bounce) and "
+            f"{shade_launches['shade_finish'][0]} (finish_bounce) times on the card over its paths "
+            f"({shade_launches['shade'][1]}, {shade_launches['shade_finish'][1]} launched by "
+            "their wrappers)")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         with Phase("assets"):
@@ -3818,13 +4136,16 @@ def main() -> int:
     with Phase("sampler"):
         phase_sampler(counts, device, {"demo": demo, "hero": hero}, results)
 
+    with Phase("shade"):
+        phase_shade(device, {"demo": demo, "hero": hero, "hero20k": hero20k}, results)
+
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall in all")
     launches = {"flat": flat_launches, "queue": queue_launches, "blk": blk_launches,
                 "first_blocks": first_blocks_launches, "hbm": hbm_launches,
                 "flat_mxu": flat_mxu_launches, "blk_mxu": blk_mxu_launches,
                 "null": (null_launches,) * 2, "kd": results["kd"]["launches"],
                 "brute": results["brute"]["launches"], "sampler": sampler_launches,
-                "tri_consts": results["tri_consts"]["launches"]}
+                "tri_consts": results["tri_consts"]["launches"], **shade_launches}
     # the CUDA kernel of each entry and the TPU kernel it replaces
     pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
     kernels = {
@@ -3843,7 +4164,13 @@ def main() -> int:
         "sampler": ("threefry_uniforms", "isaklm_raytracer_tpu/math/rng.py:72"),
         # the KD walk's triangle terms (_intersect_chunk), formed once a scene
         "tri_consts": ("tri_consts", "isaklm_raytracer_tpu/accel/wavefront.py:121"),
+        # the bounce body of the lax.scan (bounce_step): its shading up to
+        # the NEE call, and after it
+        "shade": ("shade_bounce", "isaklm_raytracer_tpu/integrator/path_trace.py:61"),
+        "shade_finish": ("finish_bounce", "isaklm_raytracer_tpu/integrator/path_trace.py:61"),
     }
+    # the source of each kernel that is not csrc/<name>.cu
+    sources = {"finish_bounce": "shade_bounce"}
     for k, r in results.items():
         log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches: the "
             f"kernels the card ran in its main-path run, measured by torch.profiler where the "
@@ -3856,7 +4183,7 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"isaklm_raytracer_tpu_torch/csrc/{name}.cu",
+        "source": f"isaklm_raytracer_tpu_torch/csrc/{sources.get(name, name)}.cu",
         "replaces": replaces,
         "launches": launches[k][0],
         "wrapper_launches": launches[k][1],
@@ -3865,8 +4192,8 @@ def main() -> int:
         "plain_ms": results[k]["plain_ms"],
         "bound_ms": results[k]["bound_ms"],
         "bound_by": results[k]["bound_by"],
-        # no PyTorch call computes a nearest hit, a block key or Threefry-2x32
-        # (torch's generators are Philox)
+        # no PyTorch call computes a nearest hit, a block key, Threefry-2x32
+        # (torch's generators are Philox) or a bounce's shading
         "library_ms": None,
     } for k, (name, replaces) in kernels.items()]}), name_card=False)
     log(card)

@@ -13,18 +13,48 @@ loop. The estimator's bookkeeping is kept exactly:
 
 Per-bounce variates come from the counter sampler (stream = bounce), keyed
 on the global pixel ids, so a pixel's path does not depend on its batch.
+
+A bounce is the intersector call, the first half of the shading
+(``kernels/shade.py``: hit attributes, emission, the BSDF sample and the
+NEE shadow rays), the shadow rays' intersector call and the second half
+(the direct light and Russian roulette): two kernels on the card, or their
+plain versions (``shade_route``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from isaklm_raytracer_tpu_torch.accel.traverse import hit_attributes
 from isaklm_raytracer_tpu_torch.config import RenderConfig
-from isaklm_raytracer_tpu_torch.integrator.bsdf import scatter
-from isaklm_raytracer_tpu_torch.integrator.nee import sample_direct_light
+from isaklm_raytracer_tpu_torch.kernels import shade
 from isaklm_raytracer_tpu_torch.math import rng
 from isaklm_raytracer_tpu_torch.scene.types import Scene
+
+
+def shade_route(scene: Scene, origins: torch.Tensor, directions: torch.Tensor) -> str:
+    """How ``trace_paths`` shades a bounce: "kernel" (the two kernels of
+    ``kernels/shade.py``, one launch each a bounce) for CUDA rays when
+    autograd records none of the inputs (none requires grad, or grad mode
+    is off), else "plain" (their plain versions, whose tensor ops autograd
+    differentiates)."""
+    if not origins.is_cuda:
+        return "plain"
+    if torch.is_grad_enabled():
+        m, tex = scene.materials, scene.textures
+        inputs = (origins, directions, scene.vertices, scene.normals, scene.uvs,
+                  scene.shade_table, tex.buffer, m.albedo, m.emittance, m.roughness, m.ior,
+                  m.extinction, m.transparent)
+        if any(t is not None and t.requires_grad for t in inputs):
+            return "plain"
+    return "kernel"
+
+
+def shading(route: str):
+    """(shade, finish) of a route: ``shade.shade_bounce`` and
+    ``shade.finish_bounce``, or their plain versions."""
+    if route == "kernel":
+        return shade.shade_bounce, shade.finish_bounce
+    return shade.shade_bounce_plain, shade.finish_bounce_plain
 
 
 def trace_paths(
@@ -44,7 +74,8 @@ def trace_paths(
     """
     num_rays = origins.shape[0]
     device = origins.device
-    ray_o, ray_d = origins, directions
+    shade_fn, finish_fn = shading(shade_route(scene, origins, directions))
+    ray_o, ray_d = origins.contiguous(), directions.contiguous()
     throughput = torch.ones((num_rays, 3), dtype=torch.float32, device=device)
     radiance = torch.zeros((num_rays, 3), dtype=torch.float32, device=device)
     inside = torch.zeros((num_rays,), dtype=torch.bool, device=device)
@@ -52,52 +83,16 @@ def trace_paths(
     active = torch.ones((num_rays,), dtype=torch.bool, device=device)
 
     for bounce in range(config.max_bounces):
-        u = rng.uniforms(key_words, ray_ids, bounce, 9)  # (9, R)
+        u = rng.uniforms(key_words, ray_ids, bounce, shade.BOUNCE_UNIFORMS)  # (9, R)
 
         _, idx, hit = trace_fn(ray_o, ray_d, active=active)
-        attrs = hit_attributes(scene, ray_o, ray_d, idx, hit)
-        live = active & hit
-
-        emit_mask = live & (~prev_diffuse)
-        radiance = radiance + torch.where(
-            emit_mask[:, None], attrs.emittance * throughput, 0.0
-        )
-
-        event = scatter(
-            attrs, ray_d, inside, u[0], u[1], u[2], u[3], u[4],
-            lobe_ratio_grad=config.lobe_ratio_grad,
-        )
-        new_throughput = throughput * event.weight
-
+        pending = shade_fn(scene, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
+                           prev_diffuse, u, config.lobe_ratio_grad)
+        shadow_idx = shadow_hit = None
         if scene.has_lights:
-            nee_mask = live & event.is_diffuse
-            direct = sample_direct_light(
-                scene, attrs.position, attrs.normal, u[5], u[6], u[7], trace_fn,
-                active=nee_mask,
-            )
-            radiance = radiance + torch.where(
-                nee_mask[:, None], direct * new_throughput, 0.0
-            )
-
-        # Russian roulette; the reference divides by the raw max channel
-        # even when it exceeds 1. Bounces below rr_start_bounce skip it.
-        survival = new_throughput.max(dim=-1).values.detach()
-        if bounce >= config.rr_start_bounce:
-            rr_alive = u[8] <= survival
-            new_throughput = torch.where(
-                rr_alive[:, None],
-                new_throughput / torch.clamp_min(survival, 1e-30)[:, None],
-                new_throughput,
-            )
-        else:
-            rr_alive = torch.ones_like(live)
-
-        next_active = live & rr_alive
-        ray_o = torch.where(live[:, None], attrs.position, ray_o)
-        ray_d = torch.where(live[:, None], event.direction, ray_d)
-        throughput = torch.where(live[:, None], new_throughput, throughput)
-        inside = torch.where(live, event.inside_medium, inside)
-        prev_diffuse = torch.where(live, event.is_diffuse, prev_diffuse)
-        active = next_active
+            _, shadow_idx, shadow_hit = trace_fn(pending.ray_o, pending.shadow_dir,
+                                                 active=pending.nee_mask, t_max=pending.window)
+        ray_o, ray_d, throughput, radiance, inside, prev_diffuse, active = finish_fn(
+            scene, pending, shadow_idx, shadow_hit, u[8], bounce >= config.rr_start_bounce)
 
     return radiance

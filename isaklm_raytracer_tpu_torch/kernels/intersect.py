@@ -78,8 +78,10 @@ records kernel launches and plain calls on CUDA tensors, so a run can show
 which one it went through.
 
 ``SOURCES`` also lists the sampler's kernel (``csrc/threefry_uniforms.cu``,
-wrapped by ``kernels/sampler.py`` for ``math.rng.uniforms``), which shares
-this module's build, launch route and ``COUNTS`` (``sampler``).
+wrapped by ``kernels/sampler.py`` for ``math.rng.uniforms``) and the two
+shading kernels of a bounce (``csrc/shade_bounce.cu``, wrapped by
+``kernels/shade.py``), which share this module's build, launch route and
+``COUNTS`` (``sampler``; ``shade`` and ``shade_finish``).
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ VMEM_TABLE_LIMIT = 6 * 1024 * 1024
 SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu",
            "first_block_keys.cu", "hbm_intersect.cu", "flat_mxu_intersect.cu",
            "blk_mxu_intersect.cu", "null_intersect.cu", "kd_intersect.cu",
-           "brute_intersect.cu", "threefry_uniforms.cu", "tri_consts.cu")
+           "brute_intersect.cu", "threefry_uniforms.cu", "tri_consts.cu", "shade_bounce.cu")
 # The JAX package's packet sizes: the ordering sorts a call's rays only when
 # there are more of them than one packet (DEFAULT_PACKET for every
 # intersector but blk, which the render path calls with BLK_PACKET).
@@ -134,7 +136,7 @@ class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
     KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null",
-               "kd", "brute", "sampler", "tri_consts")
+               "kd", "brute", "sampler", "tri_consts", "shade", "shade_finish")
 
     def __init__(self) -> None:
         self.reset()
@@ -190,7 +192,12 @@ _ENTRY_ARGS = {
     "threefry_uniforms": [_P, _I, _I, _P, _U, _U, _U, _I, _P],
     # corners, num, out
     "tri_consts": [_P, _I, _P],
+    # the ShadeScene and ShadeArgs / FinishArgs structs (kernels/shade.py)
+    "shade_bounce": [_P, _P],
+    "finish_bounce": [_P, _P],
 }
+# entry points whose source is not <name>.cu
+_SOURCE = {"finish_bounce": "shade_bounce.cu"}
 # the COUNTS attribute prefix of each entry point
 _COUNTER = {
     "flat_intersect": "flat",
@@ -205,13 +212,15 @@ _COUNTER = {
     "brute_intersect": "brute",
     "threefry_uniforms": "sampler",
     "tri_consts": "tri_consts",
+    "shade_bounce": "shade",
+    "finish_bounce": "shade_finish",
 }
 
 
 @functools.cache
 def _kernel_fn(name: str):
     """The C entry point ``name`` of its built library (built at first use)."""
-    fn = getattr(build.load(f"{name}.cu"), name)
+    fn = getattr(build.load(_SOURCE.get(name, f"{name}.cu")), name)
     fn.argtypes = [_I, *_ENTRY_ARGS[name], _P]
     fn.restype = ctypes.c_int
     return fn

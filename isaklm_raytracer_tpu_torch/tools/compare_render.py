@@ -19,10 +19,13 @@ bounces, the blocked kernel), with the bench camera, each child reports
   and one at 16384; the graph's capture and instantiation seconds and its
   pool; one replayed step under torch.profiler (this checkout's
   ``tools/profiling.py`` in both children): its CUDA records, their
-  summed device time, the device span of the trace and the sampler
-  kernel's records and time (``threefry_uniforms_kernel``; none where the
-  checkout draws its variates one tensor op at a time); the SHA-256 of
-  the G-buffers of the eager and the replayed steps;
+  summed device time, the device span of the trace, the sampler kernel's
+  records and time (``threefry_uniforms_kernel``; none where the checkout
+  draws its variates one tensor op at a time), the shading kernels'
+  (``shade_bounce_kernel``, ``finish_bounce_kernel``; none where the
+  checkout shades one tensor op at a time) and the most frequent kernel
+  names with their records and time; the SHA-256 of the G-buffers of the
+  eager and the replayed steps;
 - bench.py's fwd+bwd in one pass (loss = mean(render_sample), leaf = the
   material albedo): seconds a sample over two after a warm-up, and the
   peak device memory over those two;
@@ -69,7 +72,9 @@ from isaklm_raytracer_tpu_torch.scene.types import GBuffer
 
 EYE, PITCH = (0.0, 1.2, -1.8), 0.15  # bench.py's camera
 PRESETS = {"demo": (512, 512, 8), "hero": (640, 360, 6)}
+TOP_NAMES = 15  # kernel names of a profiled step, the most frequent first
 SAMPLER = "threefry_uniforms_kernel"
+SHADE = ("shade_bounce_kernel", "finish_bounce_kernel")
 
 
 def sha(*tensors):
@@ -117,9 +122,17 @@ def profiled(fn):
     recs = profiling.device_records(prof)
     start, end = min(t for _, t, _ in recs), max(t + d for _, t, d in recs)
     drawn = [d for name, _, d in recs if SAMPLER in name]
+    shaded = [d for name, _, d in recs if any(k in name for k in SHADE)]
+    names, times = {}, {}
+    for name, _, d in recs:
+        names[name] = names.get(name, 0) + 1
+        times[name] = times.get(name, 0) + d
+    top = sorted(names, key=lambda k: -names[k])[:TOP_NAMES]
     return {"records": len(recs), "kernel_s": sum(d for _, _, d in recs) / 1e9,
             "span_s": (end - start) / 1e9, "sampler_records": len(drawn),
-            "sampler_s": sum(drawn) / 1e9}
+            "sampler_s": sum(drawn) / 1e9, "shade_records": len(shaded),
+            "shade_s": sum(shaded) / 1e9,
+            "by_name": [[k[:90], names[k], times[k] / 1e9] for k in top]}
 
 
 def steps(label, scene, camera, chunk):
@@ -143,7 +156,7 @@ def steps(label, scene, camera, chunk):
         out[how + "_sha"] = sha(gb.frame, gb.sq_luminance, gb.count)
     graph = step.graphs.last
     out.update(capture_s=graph.capture_s, instantiate_s=graph.instantiate_s,
-               pool_mib=graph.pool_bytes / 2**20)
+               pool_mib=graph.pool_bytes / 2**20, bounces=config.max_bounces)
     out["profile"] = profiled(lambda: step(scene, camera, gb, rng.sample_key_words(0, 9), False))
     clear_steps()
     return out
@@ -258,7 +271,13 @@ def summary(run: dict) -> str:
                 f"{s['pool_mib']:.0f} MiB; profiled replay {p['records']} records, kernels "
                 f"{p['kernel_s'] * 1e3:.2f} ms in a span of {p['span_s'] * 1e3:.2f} ms (busy "
                 f"{p['kernel_s'] / p['span_s']:.1%}), sampler {p['sampler_records']} records "
-                f"{p['sampler_s'] * 1e3:.3f} ms")
+                f"{p['sampler_s'] * 1e3:.3f} ms, shading kernels {p.get('shade_records', 0)} "
+                f"records {p.get('shade_s', 0) * 1e3:.3f} ms")
+            if not chunk or chunk == "0":
+                bounces = s["bounces"]
+                parts.append(f"{label} {chunk} records a bounce by kernel name: " + "; ".join(
+                    f"{n / bounces:g} x {name} ({t * 1e3:.3f} ms)"
+                    for name, n, t in p.get("by_name", [])))
         fb = preset["fwd_bwd"]
         parts.append(f"{label} fwd+bwd {fb['fwd_bwd_s']:.4f} s/sample, peak {fb['peak_gib']:.3f} "
                      f"GiB ({fb['allocated_before_gib']:.3f} allocated before)")
