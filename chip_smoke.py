@@ -10,11 +10,12 @@ raising on failure:
 
 1. card: name, power limit and maximum SM clock as nvidia-smi reports
    them, and the SM count;
-2. build: compiles the fourteen kernels of ``csrc/`` (six intersectors,
+2. build: compiles the fifteen kernels of ``csrc/`` (six intersectors,
    the first-block keys, the null kernel, the KD walk and its triangle
-   table, the brute force, the sampler and the two shading kernels of
-   ``shade_bounce.cu``) with nvcc, one process per source, all started
-   together, and prints each one's ptxas register and spill lines;
+   table, the brute force, the sampler, the two shading kernels of
+   ``shade_bounce.cu`` and their backward, ``shade_backward.cu``) with
+   nvcc, one process per source, all started together, and prints each
+   one's ptxas register and spill lines;
 3. kernel flat: the flat intersector against its plain PyTorch version
    (exact) and against the brute-force oracle (the bench.py gate: hit masks
    equal, relative t error <= 1e-3, ids differ only at ties), on random
@@ -171,7 +172,8 @@ raising on failure:
    decorrelated gradient against the single-process hand-built estimator
    (the loss and grads within rtol 1e-4, atol 1e-6), grads bit-identical on
    both ranks, and three ``sharded_train_step_fn`` steps (finite params,
-   s a step); the CLI with the demo, checkpointed, under the two ranks'
+   s a step), both shading through the kernels and the backward kernel;
+   the CLI with the demo, checkpointed, under the two ranks'
    group: both PNGs byte-equal to one process's; the ms of the G-buffer
    all_gather and of the grad all_reduce. Then NCCL at world size 1 in
    this process: ``render_sharded`` of the demo on a (1, 1) mesh bit-equal
@@ -267,12 +269,17 @@ raising on failure:
    hero again in one pass under
    ISAKLM_BLK_SORT=block (the first-block key kernel's main-path run);
    s/sample, rays/s, peak memory, launches per kernel (no plain version
-   on CUDA but the shading's, which autograd records: its plain versions
-   once each a bounce, its kernels never; first_blocks and blk both launch
-   under block ordering), grads finite and nonzero; one torch.profiler sample of the hero's forward
-   and backward; grad-vs-FD on the card through the flat kernel (Cornell
-   albedo, the silhouette-free camera view) with tests/test_estimator.py's
-   tolerances, and the card's gradient against the port's on the CPU;
+   on CUDA; the two shading kernels and the backward kernel once each a
+   bounce of each pass; first_blocks and blk both launch under block
+   ordering), grads finite and nonzero; one fwd+bwd sample of the demo and
+   of the hero under torch.profiler, the kernels the card ran held to the
+   wrappers' launches (``device_launches``, ``check_only`` with grad), the
+   backward kernel's records and device time, the forward's and the
+   backward's device time and top kernels; grad-vs-FD on the card through
+   the flat kernel and the shading kernels, the backward kernel for the
+   autodiff side (Cornell albedo, the silhouette-free camera view) with
+   tests/test_estimator.py's tolerances, the autodiff side under
+   torch.profiler, and the card's gradient against the port's on the CPU;
 22. sampler: the Threefry-2x32 sampler kernel (csrc/threefry_uniforms.cu,
    ``rng.uniforms`` on CUDA ids) against its plain version
    (``rng.uniforms_plain``) by SHA-256 at the main path's shapes: the
@@ -307,15 +314,39 @@ raising on failure:
    wrapper by calls one after another (the host's cost), beside its bound
    (bytes over the HBM rate against issue slots over the FP32 lanes,
    SHADE_*_SLOTS and SHADE_*_BYTES).
+24. shade_grad: the backward kernel of a bounce's shading
+   (csrc/shade_backward.cu, ``bounce_backward`` of kernels/shade.py)
+   against its plain version (``bounce_backward_plain``: autograd of the
+   plain versions recomputed) at tests/test_torch_shade_grad.py's
+   tolerances (per-ray gradients within rtol 1e-4 plus 1e-6 x the largest,
+   the material and texel sums within rtol 1e-4 plus atol 1e-6, non-finite
+   values at the same places): that module's card test (the edge scenes
+   and the demo, both layouts, both lobe-ratio modes, with and without
+   roulette, 2,001 rays and one, and a grazing miss whose plain gradient is
+   NaN and the kernel's finite); every bounce of one fwd+bwd sample
+   through ``render_sample`` with every material field, the texels and
+   the camera position as leaves (``shade.bounce_backward`` replaced by a
+   stand-in that runs both and goes on with the kernel's): the demo at
+   512x512x8 (flat), the hero at 640x360x6 (blk), the 20k hero at
+   512x512x8 (queue) and the demo without cluster or shading tables (the
+   brute force), each checked sample's loss equal to the sample's; the
+   kernel timed in turns with its plain version at the first bounce of the
+   hero and of the demo (the kernels line takes the demo's) by CUDA events
+   around the replay of a CUDA graph (20 calls of the kernel, 3 of the
+   plain version), its own duration by torch.profiler, beside its bound
+   (SHADE_BACKWARD_* bytes and slots).
 
 Every path that check_only holds (main path, assets, resume, interactive,
-sharded, kd, graphs) must also have launched the sampler kernel and no
-plain sampler on CUDA, and the two shading kernels as often as each other
-and no plain shading on CUDA (the sharded value_and_grad, which
-differentiates, the plain shading instead); ``device_launches`` holds the
-sampler's and the shading's profiler records to their eager plus replayed
-launches like every kernel's, and the kernels line's sampler and shading
-rows count their launches over the main path's runs.
+sharded, kd, graphs, grad) must also have launched the sampler kernel and
+no plain sampler on CUDA, the two shading kernels as often as each other
+and no plain shading on CUDA; a path that differentiates (the grad
+phase's fwd+bwd and autodiff side, the sharded value_and_grad and train
+step) also the backward kernel once each a shading launch, the others
+never; ``device_launches`` holds the sampler's and the shading's profiler
+records to their eager plus replayed launches like every kernel's, and the
+kernels line's sampler and shading rows count their launches over the
+main path's runs, the backward kernel's over the grad phase's fwd+bwd
+runs.
 
 Every kernel's ``bound_ms`` is the larger of its bytes over the HBM rate
 and its issue slots over the card's FP32 lanes (see the note on issue
@@ -674,17 +705,22 @@ def exact(label, kernel_out, plain_out) -> float:
     return float((k.double() - p.double()).abs().max()) if k.numel() else 0.0
 
 
-def card_test(module: str, name: str, *args) -> None:
-    """Run the ``cuda``-marked test ``name`` of tests/<module>.py on the card,
-    outside pytest (tests/conftest.py imports JAX, which a machine with the
-    card need not have)."""
-    spec = importlib.util.spec_from_file_location(module, os.path.join(REPO, "tests",
-                                                                       f"{module}.py"))
+def test_module(name: str):
+    """tests/<name>.py, loaded from its file, outside pytest
+    (tests/conftest.py imports JAX, which a machine with the card need not
+    have)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     threads = torch.get_num_threads()
     spec.loader.exec_module(mod)
     torch.set_num_threads(threads)  # the test modules cap torch's threads
-    getattr(mod, name)(*args)
+    return mod
+
+
+def card_test(module: str, name: str, *args) -> None:
+    """Run the ``cuda``-marked test ``name`` of tests/<module>.py on the card
+    (``test_module``)."""
+    getattr(test_module(module), name)(*args)
     log(f"card test tests/{module}.py::{name}{list(args) if args else ''}: passed")
 
 
@@ -1149,69 +1185,75 @@ def fwd_and_fwd_bwd(label, scene, camera, config, counts, card, samples: int = 2
     if GraphStep.recorded or GraphStep.replayed:
         raise RuntimeError(f"grad {label}: a step went through a CUDA graph")
     launches = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}  # all eager
-    plain = plain_but_shade(counts)
-    shading = (counts.shade_plain_cuda, counts.shade_finish_plain_cuda)
+    plain = counts.plain_cuda()
     rays = config.num_pixels * config.max_bounces * 2
     log(f"grad {label} {config.width}x{config.height}x{config.max_bounces} ray_chunk "
         f"{config.ray_chunk}: fwd {fwd_s:.4f} s/sample ({rays / fwd_s / 1e6:.3f} M rays/s), "
         f"fwd+bwd {bwd_s:.4f} s/sample ({rays / bwd_s / 1e6:.3f} M rays/s), ratio "
-        f"{bwd_s / fwd_s:.2f}; peak memory {peak:.2f} GiB; launches in {samples} fwd+bwd samples "
-        f"{launches}, plain calls on CUDA but the shading's {plain}, the shading's plain "
-        f"calls on CUDA {shading}; on {card}")
+        f"{bwd_s / fwd_s:.2f}; peak memory {peak:.3f} GiB; launches in {samples} fwd+bwd samples "
+        f"{launches}, plain calls on CUDA {plain}; on {card}")
     for g in grads:
         if not torch.isfinite(g).all() or not g.abs().max() > 0:
             raise RuntimeError(f"grad {label}: the albedo gradient is not finite and nonzero")
     if plain:
         raise RuntimeError(f"grad {label}: a plain version ran on CUDA")
-    # autograd records the shading: its plain versions, once each a bounce
+    # the shading kernels forward, the backward kernel backward: once each a bounce
     passes = -(-config.num_pixels // (config.ray_chunk or config.num_pixels))
     want = samples * passes * config.max_bounces
-    if shading != (want, want) or launches["shade"] or launches["shade_finish"]:
-        raise RuntimeError(f"grad {label}: the shading ran {shading} plain versions and "
-                           f"{launches['shade']}, {launches['shade_finish']} kernels; {want} "
-                           "plain calls of each expected, no kernel")
+    shading = {k: launches[k] for k in GRAD_SHADE_KERNELS}
+    if any(n != want for n in shading.values()):
+        raise RuntimeError(f"grad {label}: the shading launched {shading}; {want} of each "
+                           "expected (one a bounce of each pass)")
     return {"fwd_s": fwd_s, "fwd_bwd_s": bwd_s, "peak_gib": peak, "launches": launches}
 
 
-def profile_fwd_bwd(scene, camera, config, card):
-    """torch.profiler over the forward (with autograd recording) and, apart,
-    the backward of one hero sample: device time of each, the blocked
-    kernel's share of the forward, the backward's top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_fwd_bwd(label, kernel, scene, camera, config, counts, card) -> dict:
+    """One fwd+bwd sample (bench.py's, leaf = the albedo) under
+    torch.profiler with the kernels the card ran held to the wrappers'
+    launches (``device_launches``, ``check_only`` with grad); then the
+    forward (autograd recording) and, apart, the backward of another
+    sample: the device time of each, the intersector's share of the
+    forward, the backward kernel's records (one a bounce of each pass) and
+    device time, the backward's top kernels. Returns the backward kernel's
+    records and ms."""
     from isaklm_raytracer_tpu_torch.integrator.render import render_sample
     from isaklm_raytracer_tpu_torch.math import rng as prng
 
-    def device_us(prof):
-        per = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
-        if not per:
-            raise RuntimeError("the profiler recorded no CUDA kernel")
-        return per
-
-    leaf = scene.materials.albedo.detach().clone().requires_grad_(True)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as pf:
+    def sample(i):
+        leaf = scene.materials.albedo.detach().clone().requires_grad_(True)
         s = scene.replace(materials=scene.materials.replace(albedo=leaf))
-        loss = render_sample(s, camera, prng.sample_key_words(0, 9), config).mean()
-        torch.cuda.synchronize()
-    with profile(activities=acts) as pb:
+        return leaf, render_sample(s, camera, prng.sample_key_words(0, i), config).mean()
+
+    with device_launches(counts) as ran:
+        leaf, loss = sample(8)
         torch.autograd.grad(loss, leaf)
         torch.cuda.synchronize()
-    f, b = device_us(pf), device_us(pb)
-    f_us, b_us = sum(f.values()), sum(b.values())
-    blk_us = sum(v for k, v in f.items() if "blk_intersect" in k)
-    keys_us = sum(v for k, v in f.items() if "first_block_keys" in k)
-    top = sorted(b.items(), key=lambda kv: -kv[1])[:6]
-    log(f"profile hero fwd+bwd ray_chunk {config.ray_chunk}: fwd device time {f_us / 1e3:.2f} ms "
-        f"(blk_intersect {blk_us / 1e3:.2f} ms = {blk_us / f_us:.1%}, first_block_keys "
-        f"{keys_us / 1e3:.2f} ms), bwd device time {b_us / 1e3:.2f} ms; blk_intersect "
-        f"{blk_us / (f_us + b_us):.1%} of fwd+bwd device time; on {card}")
-    for name, us in top:
-        log(f"  bwd top kernel {us / 1e3:.3f} ms ({us / b_us:.1%}): {name[:110]}")
+    check_only(counts, kernel, f"fwd+bwd of the {label} under torch.profiler", ran, grad=True)
+    with cuda_profile() as pf:
+        leaf, loss = sample(9)
+        torch.cuda.synchronize()
+    with cuda_profile() as pb:
+        torch.autograd.grad(loss, leaf)
+        torch.cuda.synchronize()
+    f, b = device_records(pf), device_records(pb)
+    f_ns, b_ns = sum(d for _, _, d in f), sum(d for _, _, d in b)
+    walk_ns = sum(d for name, _, d in f if kernel_symbol(kernel) in name)
+    bwd = [d for name, _, d in b if kernel_symbol("shade_backward") in name]
+    passes = -(-config.num_pixels // (config.ray_chunk or config.num_pixels))
+    top = collections.Counter()
+    for name, _, d in b:
+        top[name] += d
+    log(f"profile {label} fwd+bwd ray_chunk {config.ray_chunk}: fwd device time "
+        f"{f_ns / 1e6:.2f} ms in {len(f)} records ({kernel} {walk_ns / 1e6:.2f} ms = "
+        f"{walk_ns / max(f_ns, 1):.1%}), bwd device time {b_ns / 1e6:.2f} ms in {len(b)} records; "
+        f"bounce_backward {len(bwd)} records, {sum(bwd) / 1e6:.4f} ms "
+        f"({sum(bwd) / max(b_ns, 1):.1%} of the backward); on {card}")
+    for name, ns in top.most_common(6):
+        log(f"  {label} bwd top kernel {ns / 1e6:.3f} ms ({ns / max(b_ns, 1):.1%}): {name[:110]}")
+    if len(bwd) != passes * config.max_bounces:
+        raise RuntimeError(f"profile {label} fwd+bwd: {len(bwd)} backward kernels, "
+                           f"{passes * config.max_bounces} expected")
+    return {"records": len(bwd), "ms": sum(bwd) / 1e6, "bwd_ms": b_ns / 1e6, "fwd_ms": f_ns / 1e6}
 
 
 def floor_view():
@@ -1230,8 +1272,10 @@ def floor_view():
 
 def grad_checks_on_card(device, counts):
     """Grad-vs-FD on the card through the kernels (TestGradVsFD's Cornell
-    albedo, TestGradVsFDCamera's pose, with their tolerances), then the
-    card's autodiff gradient against the port's on the CPU."""
+    albedo, TestGradVsFDCamera's pose, with their tolerances): the finite
+    differences through the shading kernels, the autodiff side through them
+    and the backward kernel, which the profiler counts; then the card's
+    autodiff gradient against the port's on the CPU."""
     from isaklm_raytracer_tpu_torch.accel import prepare_scene
     from isaklm_raytracer_tpu_torch.camera import Camera
     from isaklm_raytracer_tpu_torch.config import RenderConfig
@@ -1248,21 +1292,29 @@ def grad_checks_on_card(device, counts):
             return render_sample(s, camera, kw, no_rr).mean()
         return loss
 
+    def launched():
+        return {k: getattr(counts, f"{k}_kernel") for k in ("flat", *GRAD_SHADE_KERNELS)}
+
     cornell = procedural.cornell_box(include_blockers=False)
     scene = prepare_scene(cornell, device)
     camera = Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2, device=device)
     zero_counts(counts)
     auto, fd = check_grad_vs_fd(cornell_loss(scene, camera), scene.materials.albedo,
                                 h=2e-3, rtol=0.05, atol=2e-4)
+    n = launched()
     log(f"grad vs FD on the card, Cornell albedo {auto.shape}: max |auto - fd| "
-        f"{np.abs(auto - fd).max():.3e} (rtol 0.05, atol 2e-4); flat launches "
-        f"{counts.flat_kernel}, plain calls on CUDA but the shading's {plain_but_shade(counts)}; "
-        f"the shading's kernels (the finite differences) {counts.shade_kernel}, "
-        f"{counts.shade_finish_kernel}, its plain versions (autograd) "
-        f"{counts.shade_plain_cuda}, {counts.shade_finish_plain_cuda}")
-    if counts.flat_kernel == 0 or plain_but_shade(counts) or not counts.shade_plain_cuda:
-        raise RuntimeError("grad vs FD did not go through the flat kernel alone, or its "
-                           "gradient not through the plain shading")
+        f"{np.abs(auto - fd).max():.3e} (rtol 0.05, atol 2e-4); launches {n} (the autodiff "
+        f"side one bounce_backward a bounce, the finite differences none), plain calls on CUDA "
+        f"{counts.plain_cuda()}")
+    if (not n["flat"] or counts.plain_cuda() or n["shade"] != n["shade_finish"]
+            or n["shade_backward"] != no_rr.max_bounces):
+        raise RuntimeError("grad vs FD did not go through the kernels alone, or its autodiff "
+                           "side not through the backward kernel once a bounce")
+    with device_launches(counts) as ran:
+        leaf = scene.materials.albedo.clone().requires_grad_(True)
+        torch.autograd.grad(cornell_loss(scene, camera)(leaf), leaf)
+        torch.cuda.synchronize()
+    check_only(counts, "flat", "grad vs FD's autodiff side (Cornell albedo)", ran, grad=True)
 
     floor = prepare_scene(floor_view(), device)
     config = RenderConfig(width=12, height=12, max_bounces=1, rr_start_bounce=1,
@@ -1274,13 +1326,17 @@ def grad_checks_on_card(device, counts):
         ("yaw/pitch", torch.stack([cam.yaw, cam.pitch]),
          lambda x: cam.replace(yaw=x[0], pitch=x[1])),
     ):
+        zero_counts(counts)
         auto, fd = check_grad_vs_fd(
             lambda x: render_sample(floor, make(x), fkw, config).mean(), leaf,
             h=1e-3, rtol=0.05, atol=5e-4)
         log(f"grad vs FD on the card, floor camera {label}: auto {np.round(auto, 5).tolist()} "
-            f"fd {np.round(fd, 5).tolist()} (rtol 0.05, atol 5e-4)")
+            f"fd {np.round(fd, 5).tolist()} (rtol 0.05, atol 5e-4); launches {launched()}")
         if not np.abs(auto).max() > 0:
             raise RuntimeError(f"camera {label} gradient is zero")
+        if counts.plain_cuda() or counts.shade_backward_kernel != config.max_bounces:
+            raise RuntimeError(f"camera {label}: the autodiff side did not run the backward "
+                               "kernel once a bounce, or a plain version ran on CUDA")
 
     cpu_scene = prepare_scene(cornell, "cpu")
     grads = []
@@ -1288,7 +1344,8 @@ def grad_checks_on_card(device, counts):
         leaf = s.materials.albedo.clone().requires_grad_(True)
         grads.append(torch.autograd.grad(cornell_loss(s, c)(leaf), leaf)[0].cpu())
     diff = (grads[0] - grads[1]).abs()
-    log(f"grad card vs CPU, Cornell albedo: max |diff| {float(diff.max()):.3e}, max rel "
+    log(f"grad card (kernels) vs CPU (plain versions), Cornell albedo: max |diff| "
+        f"{float(diff.max()):.3e}, max rel "
         f"{float((diff / grads[1].abs().clamp_min(1e-12)).max()):.3e} (rtol "
         f"{CARD_VS_CPU_RTOL:g}, atol {CARD_VS_CPU_ATOL:g})")
     torch.testing.assert_close(grads[0], grads[1], rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL)
@@ -1339,13 +1396,15 @@ def kernel_symbol(name: str) -> str:
     layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``,
     ``first_block_keys_kernel``, the sampler's ``threefry_uniforms_kernel``,
     the KD walk's table kernel ``tri_consts_kernel`` or the shading kernels
-    ``shade_bounce_kernel`` and ``finish_bounce_kernel``."""
+    ``shade_bounce_kernel`` and ``finish_bounce_kernel`` and their backward
+    ``bounce_backward_kernel``."""
     return {"flat": "TileLayout", "flat_mxu": "PairLayout",
             "first_blocks": "first_block_keys_kernel",
             "sampler": "threefry_uniforms_kernel",
             "tri_consts": "tri_consts_kernel",
             "shade": "shade_bounce_kernel",
-            "shade_finish": "finish_bounce_kernel"}.get(name, f"{name}_intersect_kernel")
+            "shade_finish": "finish_bounce_kernel",
+            "shade_backward": "bounce_backward_kernel"}.get(name, f"{name}_intersect_kernel")
 
 
 def cuda_profile():
@@ -1396,12 +1455,9 @@ def device_launches(counts):
 # sampler, shade_bounce and finish_bounce) of every path that check_only held
 SAMPLER_RUNS = []
 SHADE_KERNELS = ("shade", "shade_finish")
-
-
-def plain_but_shade(counts) -> int:
-    """Plain-version calls on CUDA but the shading's (which the gradient
-    paths take on purpose)."""
-    return counts.plain_cuda() - counts.shade_plain_cuda - counts.shade_finish_plain_cuda
+# the shading of a path that differentiates: both halves forward, the
+# backward kernel backward
+GRAD_SHADE_KERNELS = ("shade", "shade_finish", "shade_backward")
 
 
 def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
@@ -1414,8 +1470,9 @@ def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
     variates there; its plain version is among the plain calls counted),
     and the two shading kernels as often as each other (one launch each a
     bounce; their launches go with the sampler's to SAMPLER_RUNS). With
-    ``grad`` (a path that differentiates) the shading must instead have run
-    its plain versions, which autograd records; no other plain version."""
+    ``grad`` (a path that differentiates, each differentiated bounce once)
+    the backward kernel must have run as often as the shading kernels,
+    without it never."""
     from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
 
     if ran is None:
@@ -1424,11 +1481,10 @@ def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
         ran = {k: getattr(counts, f"{k}_kernel") for k in counts.KERNELS}
     wrapped = getattr(counts, f"{kernel}_kernel")
     others = {k: ran[k] for k in INTERSECTORS if k != kernel}
-    plain = plain_but_shade(counts) if grad else counts.plain_cuda()
+    plain = counts.plain_cuda()
     log(f"main path {label}: {kernel}_kernel ran {ran[kernel]} times on the card ({wrapped} "
         f"launched by its wrapper, eagerly or into a graph), other intersectors {others}, "
-        f"plain versions' calls on CUDA ("
-        f"{'but the shading' if grad else 'the sampler and the shading among them'}) {plain}")
+        f"plain versions' calls on CUDA (the sampler and the shading among them) {plain}")
     if ran[kernel] == 0 or any(others.values()) or plain:
         raise RuntimeError(f"the {label} path did not go through its kernel alone")
     log(f"main path {label}: the sampler kernel ran {ran['sampler']} times on the card "
@@ -1438,16 +1494,20 @@ def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
         raise RuntimeError(f"the {label} path did not draw its variates through the sampler "
                            "kernel alone")
     shading = {k: (ran[k], getattr(counts, f"{k}_kernel"), getattr(counts, f"{k}_plain_cuda"))
-               for k in SHADE_KERNELS}
+               for k in GRAD_SHADE_KERNELS}
     log(f"main path {label}: shading (kernels the card ran, wrapper launches, plain calls on "
-        f"CUDA) shade_bounce {shading['shade']}, finish_bounce {shading['shade_finish']}")
-    if grad:
-        if not all(v[2] for v in shading.values()):
-            raise RuntimeError(f"the {label} path differentiates but did not shade through "
-                               "the plain versions")
-    elif shading["shade"][0] == 0 or shading["shade"][:2] != shading["shade_finish"][:2]:
+        f"CUDA) shade_bounce {shading['shade']}, finish_bounce {shading['shade_finish']}, "
+        f"bounce_backward {shading['shade_backward']}")
+    if shading["shade"][0] == 0 or shading["shade"][:2] != shading["shade_finish"][:2]:
         raise RuntimeError(f"the {label} path did not shade through the two kernels, one "
                            "launch each a bounce")
+    backward = shading["shade_backward"][:2]
+    if grad and backward != shading["shade"][:2]:
+        raise RuntimeError(f"the {label} path differentiates but did not run the backward "
+                           "kernel once each a differentiated bounce")
+    if not grad and any(backward):
+        raise RuntimeError(f"the {label} path does not differentiate but ran the backward "
+                           "kernel")
     SAMPLER_RUNS.append((label, ran["sampler"], counts.sampler_kernel,
                          *(x for k in SHADE_KERNELS for x in shading[k][:2])))
     return ran[kernel], wrapped
@@ -2156,6 +2216,7 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
                  "launches": launched("flat", "sharded value_and_grad", grad=True)}
     step = sharding.sharded_train_step_fn(demo, demo_config, streams)
     p, losses = params, []
+    zero_counts(counts)
     dist.barrier()
     t0 = time.perf_counter()
     for i in range(3):
@@ -2164,7 +2225,8 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
     sync()
     out["train"] = {"s_per_step": (time.perf_counter() - t0) / 3, "losses": losses,
                     "finite": all(bool(torch.isfinite(getattr(p, f)).all())
-                                  for f in sharding.FLOAT_FIELDS)}
+                                  for f in sharding.FLOAT_FIELDS),
+                    "launches": launched("flat", "sharded train step", grad=True)}
 
     # the collectives alone
     shard = sharding.shard_gbuffer(GBuffer.create(n, device), demo_config, tile)
@@ -3255,30 +3317,33 @@ def log_sampler_sass() -> None:
                         f"{counted['all']['slots_a_ray']} in all" if counted else ""))
 
 
-def graph_device_ms(label, symbol, kernel_fn, plain_fn, reps: int = 20) -> tuple:
+def graph_device_ms(label, symbol, kernel_fn, plain_fn, reps: int = 20, plain_reps=None,
+                    same: bool = True) -> tuple:
     """Device ms a call of a kernel and of its plain version: each captured
-    ``reps`` times into a CUDA graph, which is replayed between CUDA events
-    (a call one after another is bound by the host's launch rate, not by
-    the kernel). In turns plain, kernel, kernel, plain; the outputs (a
+    ``reps`` times (the plain version ``plain_reps``, by default as many)
+    into a CUDA graph, which is replayed between CUDA events (a call one
+    after another is bound by the host's launch rate, not by the kernel).
+    In turns plain, kernel, kernel, plain; with ``same`` the outputs (a
     tensor or a sequence of them) must be equal by SHA-256. Then one
     replay of the kernel's graph under torch.profiler: the kernel's own
     duration (its records named like ``symbol``), without the gaps between
     graph nodes. Returns the means of the two turns (ms) and the
     profiler's mean kernel duration (ms)."""
     graphs, outs = {}, {}
+    calls = {"kernel": reps, "plain": plain_reps or reps}
     for name, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
         fn()
         torch.cuda.synchronize()
         graphs[name] = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graphs[name]):
-            for _ in range(reps):
+            for _ in range(calls[name]):
                 outs[name] = fn()
     times = {}
     for name in ("plain", "kernel", "kernel", "plain"):
         ms, _ = cuda_ms(graphs[name].replay, reps=3, warmup=1)
-        times.setdefault(name, []).append(ms / reps)
+        times.setdefault(name, []).append(ms / calls[name])
     digests = [sha(*(o if isinstance(o, (list, tuple)) else (o,))) for o in outs.values()]
-    if digests[0] != digests[1]:
+    if same and digests[0] != digests[1]:
         raise RuntimeError(f"{label}: the captured kernel's outputs differ from the plain "
                            "version's")
     with cuda_profile() as prof:
@@ -3287,9 +3352,10 @@ def graph_device_ms(label, symbol, kernel_fn, plain_fn, reps: int = 20) -> tuple
     if len(own) != reps:
         raise RuntimeError(f"{label}: the profiler saw {len(own)} kernels of a replay of {reps}")
     own_ms = sum(own) / len(own) / 1e6
-    log(f"time {label} device, from CUDA graphs of {reps} calls: kernel "
-        f"{times['kernel'][0]:.5f}/{times['kernel'][1]:.5f} ms, plain "
-        f"{times['plain'][0]:.4f}/{times['plain'][1]:.4f} ms, outputs equal by SHA-256; the "
+    log(f"time {label} device, from CUDA graphs of {calls['kernel']} and {calls['plain']} "
+        f"calls: kernel {times['kernel'][0]:.5f}/{times['kernel'][1]:.5f} ms, plain "
+        f"{times['plain'][0]:.4f}/{times['plain'][1]:.4f} ms"
+        f"{', outputs equal by SHA-256' if same else ''}; the "
         f"kernel's own duration (torch.profiler, one replay) {own_ms:.5f} ms, "
         f"{min(own) / 1e6:.5f}-{max(own) / 1e6:.5f}")
     del graphs
@@ -3568,6 +3634,199 @@ def phase_shade(device, scenes, results) -> None:
         results[key] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                         **{k: v for k, v in b_.items() if k not in ("lanes", "visible")},
                         "shape": f"{rays} rays, the demo's first bounce at 512x512"}
+
+
+# --- phase shade_grad --------------------------------------------------------
+
+# The backward kernel (csrc/shade_backward.cu), counted off its code by the
+# rule above; a live lane recomputes its forward (SHADE_GEOMETRY_SLOTS,
+# SHADE_LIVE_SLOTS, the dielectric's SHADE_DIELECTRIC_SLOTS, its lobe's
+# SHADE_LOBE_SLOTS and Russian roulette), then runs:
+#   SHADE_BACKWARD_LIVE_SLOTS, every live lane: the geometry's forward
+#     intermediates 187 and reverse with the shading frame 350 (three
+#     normalisations' reverses, 56 each), the half vector's reverse 87, the
+#     state, the emission and the two texture lookups' reverse 78;
+#   SHADE_BACKWARD_LOBE_SLOTS, the selected lobe's reverse: metal (the
+#     specular weight's 358 with its two Smith terms, the conductor Fresnel
+#     205, reflect 27), specular outside a medium (the specular weight,
+#     reflect, the lobe ratio), specular inside (reflect and the ratio),
+#     transmission (the specular weight, refract 109, the ratio), diffuse
+#     (the cosine hemisphere's frame, the ratio);
+#   SHADE_BACKWARD_FRESNEL_SLOTS, a non-metal lane with lobe_ratio_grad: the
+#     dielectric Fresnel's recomputation and reverse;
+#   SHADE_BACKWARD_NEE_SLOTS, a visible shadow hit: the shadow ray and the
+#     direct light again (SHADE_SHADOW_SLOTS + FINISH_DIRECT_SLOTS) and their
+#     reverse (the light's geometry without its frame 342, the direction's
+#     normalisation 56, the weight, the texture);
+#   SHADE_BACKWARD_LANE_SLOTS, every lane: the flags and the pass-through.
+# The warp's shuffles and the atomics of the sums are not counted.
+SHADE_BACKWARD_LIVE_SLOTS = 702
+SHADE_BACKWARD_LOBE_SLOTS = {"metal": 620, "specular": 411, "specular inside": 53,
+                             "transmission": 506, "diffuse": 106}
+SHADE_BACKWARD_FRESNEL_SLOTS, SHADE_BACKWARD_NEE_SLOTS, SHADE_BACKWARD_LANE_SLOTS = 189, 515, 3
+
+
+def shade_backward_bound(saved, pending) -> dict:
+    """bounce_backward's bound on one call's ``saved`` inputs, with the
+    forward's ``pending`` state on them (its lobes, its shadow rays). The
+    bytes: every lane reads its hit and active flags and three output
+    gradients (38 B) and writes three input gradients (36 B); a live lane
+    its origin, direction, throughput, hit id and two flags (42 B), the
+    uniforms it reads (the half vector's two, the lobe's, roulette's, the
+    diffuse direction's two, the light's three) and, where it emits or its
+    shadow ray is visible, the radiance's gradient (12 B); a diffuse lane
+    of a lit scene its shadow hit (5 B); each distinct hit row and visible
+    light row once, the material table, the atlas and the light list once,
+    and the material and texel sums once."""
+    scene, live = saved.scene, saved.active & saved.hit
+    num = live.shape[0]
+    table = scene.shade_table is not None
+    safe = saved.idx.clamp_min(0).long()
+    mat = scene.shade_table[safe, 24].long() if table else scene.mat_id[safe].long()
+    metal = live & (scene.materials.extinction[mat] > 0)
+    diffuse = live & pending.prev_diffuse
+    trans = live & (pending.inside != saved.inside)
+    spec = live & ~metal & ~diffuse & ~trans
+    lit = bool(scene.has_lights)
+    nee = diffuse & saved.shadow_hit if lit else torch.zeros_like(live)
+    visible = nee & (saved.shadow_idx == pending.light_idx) if lit else nee
+    emit = live & ~saved.prev_diffuse
+    kinds = {"metal": metal, "specular": spec & ~saved.inside,
+             "specular inside": spec & saved.inside, "transmission": trans, "diffuse": diffuse}
+    lanes = {k: int(v.sum()) for k, v in kinds.items()}
+    n_live, n_visible = int(live.sum()), int(visible.sum())
+    dielectric = n_live - lanes["metal"]
+    slots = (num * SHADE_BACKWARD_LANE_SLOTS
+             + n_live * (SHADE_GEOMETRY_SLOTS + SHADE_LIVE_SLOTS + SHADE_BACKWARD_LIVE_SLOTS
+                         + (FINISH_LANE_SLOTS if saved.roulette else 0))
+             + dielectric * (SHADE_DIELECTRIC_SLOTS
+                             + (SHADE_BACKWARD_FRESNEL_SLOTS if saved.lobe_ratio_grad else 0))
+             + sum(n * (SHADE_LOBE_SLOTS[k.split()[0]] + SHADE_BACKWARD_LOBE_SLOTS[k])
+                   for k, n in lanes.items())
+             + n_visible * (SHADE_SHADOW_SLOTS + FINISH_DIRECT_SLOTS + SHADE_BACKWARD_NEE_SLOTS))
+    uniforms = (n_live * 2 + dielectric + (n_live if saved.roulette else 0)
+                + lanes["diffuse"] * 2 + int(nee.sum()) + n_visible * 2)
+    rows = torch.unique(safe[live]).numel() * SHADE_ROW_BYTES[table]
+    if lit:
+        rows += torch.unique(pending.light_idx[visible]).numel() * (SHADE_ROW_BYTES[table] + 36)
+    nbytes = (num * (38 + 36) + n_live * 42 + uniforms * 4 + int((emit | visible).sum()) * 12
+              + int(diffuse.sum()) * (5 if lit else 0) + rows + shade_tables_bytes(scene)
+              + scene.materials.albedo.shape[0] * 36 + scene.textures.buffer.numel() * 4)
+    return {**bound(slots, nbytes), "lanes": lanes, "visible": n_visible}
+
+
+class BackwardCheck:
+    """A stand-in for ``kernels.shade.bounce_backward`` in phase shade_grad:
+    each bounce's backward runs the kernel and the plain version on the
+    same saved inputs and output gradients (``plain_in_slices`` of
+    tests/test_torch_shade_grad.py: slices of 4,096 rays, their table
+    gradients summed in float64), holds the kernel's to the plain version's
+    (that module's ``check_backward``, with its allowance for
+    ill-conditioned rays) and goes on with the kernel's; keeps the last
+    call's (bounce 0's) inputs, the largest differences and the per-ray
+    values beyond the tolerances."""
+
+    def __init__(self, label: str, real, tests):
+        self.label, self.real, self.tests = label, real, tests
+        self.calls, self.last, self.errs = 0, None, {}
+
+    def __call__(self, saved, grad_outputs, needs=None):
+        got = self.real(saved, grad_outputs)
+        want = self.tests.plain_in_slices(saved, grad_outputs)
+        torch.cuda.synchronize()
+        errs = self.tests.check_backward(f"shade_grad {self.label} backward call {self.calls}",
+                                         got, want, self.tests.ILL_CONDITIONED_SHARE)
+        self.errs["beyond"] = self.errs.get("beyond", 0) + errs.pop("beyond")
+        for k, v in errs.items():
+            self.errs[k] = max(self.errs.get(k, 0.0), v)
+        self.calls += 1
+        self.last = (saved, grad_outputs)
+        return got
+
+
+def phase_shade_grad(device, scenes, results) -> None:
+    """Phase shade_grad (the module docstring, 24)."""
+    from isaklm_raytracer_tpu_torch.camera import Camera
+    from isaklm_raytracer_tpu_torch.config import RenderConfig
+    from isaklm_raytracer_tpu_torch.integrator.render import render_sample, trace_name
+    from isaklm_raytracer_tpu_torch.kernels import shade
+
+    card_test("test_torch_shade_grad", "test_cuda_bounce_backward_equals_plain")
+    tests = test_module("test_torch_shade_grad")
+    demo = scenes["demo"]
+    paths = (
+        ("demo", demo, (512, 512, 8), BENCH_EYE, BENCH_PITCH),
+        ("hero", scenes["hero"], (HERO_W, HERO_H, HERO_BOUNCES), BENCH_EYE, BENCH_PITCH),
+        ("hero20k", scenes["hero20k"], (512, 512, 8), GOLDEN_EYE, 0.0),
+        ("demo without tables", demo.replace(cbvh=None, wkd=None, kd=None, shade_table=None),
+         (512, 512, 8), BENCH_EYE, BENCH_PITCH),
+    )
+
+    def fwd_bwd(scene, camera, config):
+        m = scene.materials
+        leaves = [getattr(m, f).detach().clone().requires_grad_(True)
+                  for f in shade.MATERIAL_FIELDS]
+        texels = scene.textures.buffer.detach().clone().requires_grad_(True)
+        position = camera.position.detach().clone().requires_grad_(True)
+        s = scene.replace(materials=m.replace(**dict(zip(shade.MATERIAL_FIELDS, leaves))),
+                          textures=dataclasses.replace(scene.textures, buffer=texels))
+        loss = render_sample(s, camera.replace(position=position), (3, 4), config).mean()
+        grads = torch.autograd.grad(loss, [*leaves, texels, position])
+        return loss.detach(), grads
+
+    checks, real = {}, shade.bounce_backward
+    for label, scene, (w, h, b), eye, pitch in paths:
+        camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
+        config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
+        check = BackwardCheck(label, real, tests)
+        shade.bounce_backward = check
+        try:
+            loss, grads = fwd_bwd(scene, camera, config)
+        finally:
+            shade.bounce_backward = real
+        straight, _ = fwd_bwd(scene, camera, config)
+        if check.calls != b or sha(loss) != sha(straight):
+            raise RuntimeError(f"shade_grad {label}: {check.calls} bounces checked, or the "
+                               "checked sample's loss differs from the sample's")
+        if not all(torch.isfinite(g).all() for g in grads):
+            raise RuntimeError(f"shade_grad {label}: a non-finite gradient")
+        beyond = check.errs.pop("beyond")
+        log(f"shade_grad {label} {w}x{h}x{b} ({trace_name(scene)}): every bounce's backward of "
+            f"{config.num_pixels} rays through bounce_backward within the test tolerances of "
+            f"bounce_backward_plain ({b} bounces; {beyond} per-ray values beyond them, within "
+            f"{tests.ILL_CONDITIONED_RTOL:g}; largest |kernel - plain| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in check.errs.items())
+            + f"); loss {float(loss):.6f} equal to the straight sample's")
+        checks[label] = check
+
+    @torch.no_grad()  # as in a backward: the saved rays require grad
+    def timed(label, check):
+        saved, gouts = check.last
+        rays = saved.ray_o.shape[0]
+        k_ms, p_ms, own_ms = graph_device_ms(
+            f"bounce_backward {label} bounce 0, {rays} rays", kernel_symbol("shade_backward"),
+            lambda: shade.bounce_backward(saved, gouts),
+            lambda: shade.bounce_backward_plain(saved, gouts), plain_reps=3, same=False)
+        host_ms, _ = cuda_ms(lambda: shade.bounce_backward(saved, gouts))
+        log(f"time bounce_backward {label} bounce 0, {rays} rays, calls one after another (the "
+            f"host's rate): {host_ms:.4f} ms a call")
+        pending = shade.shade_bounce(saved.scene, saved.ray_o, saved.ray_d, saved.idx, saved.hit,
+                                     saved.active, saved.throughput, saved.radiance,
+                                     saved.inside, saved.prev_diffuse, saved.u,
+                                     saved.lobe_ratio_grad)
+        bb = shade_backward_bound(saved, pending)
+        log(f"bounce_backward bound {label} bounce 0: {bb['bound_ms']:.4f} ms ({bb['bound_by']}; "
+            f"{bb['ops']:.4g} slots, {bb['bytes']:.4g} bytes; live lanes by lobe {bb['lanes']}, "
+            f"{bb['visible']} visible shadow hits) = {bb['bound_ms'] / k_ms:.1%} of its time")
+        return k_ms, p_ms, bb
+
+    for label in ("hero", "demo"):  # the kernels line takes the demo's
+        k_ms, p_ms, bb = timed(label, checks[label])
+    rays = checks["demo"].last[0].ray_o.shape[0]
+    results["shade_backward"] = {
+        "max_abs_err": max(max(c.errs.values()) for c in checks.values()), "ms": k_ms,
+        "plain_ms": p_ms, **{k: v for k, v in bb.items() if k not in ("lanes", "visible")},
+        "shape": f"{rays} rays, the demo's bounce 0 at 512x512"}
 
 
 def main() -> int:
@@ -4111,6 +4370,7 @@ def main() -> int:
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved before the runs (the demo's "
             f"and the hero's graphs cached); the hero with MXU blocks "
             f"{'freed with its graphs' if hero_mxu_ref() is None else 'still alive'}")
+        bwd_launches = 0  # the backward kernel's, over the fwd+bwd runs (eager)
         for label, scene, (w, h, b), chunks, sort in (
             ("demo", demo, (512, 512, 8), (0, defaults.ray_chunk), "morton"),
             ("hero", hero, (HERO_W, HERO_H, HERO_BOUNCES), (0, defaults.ray_chunk), "morton"),
@@ -4124,13 +4384,18 @@ def main() -> int:
                 kernel = "flat" if label == "demo" else "blk"
                 if out["launches"][kernel] == 0:
                     raise RuntimeError(f"grad {label}: the {kernel} kernel did not launch")
+                bwd_launches += out["launches"]["shade_backward"]
                 if sort == "block":
                     first_blocks_launches = (out["launches"]["first_blocks"],) * 2  # eager
                     if first_blocks_launches[0] == 0:
                         raise RuntimeError("block ordering did not launch first_block_keys")
         os.environ["ISAKLM_BLK_SORT"] = "morton"
-        profile_fwd_bwd(hero, camera, RenderConfig(width=HERO_W, height=HERO_H,
-                                                   max_bounces=HERO_BOUNCES, ray_chunk=0), card)
+        for label, kernel, scene, (w, h, b) in (
+                ("demo", "flat", demo, (512, 512, 8)),
+                ("hero", "blk", hero, (HERO_W, HERO_H, HERO_BOUNCES))):
+            profile_fwd_bwd(label, kernel, scene, camera,
+                            RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0), counts,
+                            card)
         grad_checks_on_card(device, counts)
 
     with Phase("sampler"):
@@ -4139,13 +4404,17 @@ def main() -> int:
     with Phase("shade"):
         phase_shade(device, {"demo": demo, "hero": hero, "hero20k": hero20k}, results)
 
+    with Phase("shade_grad"):
+        phase_shade_grad(device, {"demo": demo, "hero": hero, "hero20k": hero20k}, results)
+
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall in all")
     launches = {"flat": flat_launches, "queue": queue_launches, "blk": blk_launches,
                 "first_blocks": first_blocks_launches, "hbm": hbm_launches,
                 "flat_mxu": flat_mxu_launches, "blk_mxu": blk_mxu_launches,
                 "null": (null_launches,) * 2, "kd": results["kd"]["launches"],
                 "brute": results["brute"]["launches"], "sampler": sampler_launches,
-                "tri_consts": results["tri_consts"]["launches"], **shade_launches}
+                "tri_consts": results["tri_consts"]["launches"], **shade_launches,
+                "shade_backward": (bwd_launches,) * 2}  # the grad phase's fwd+bwd, eager
     # the CUDA kernel of each entry and the TPU kernel it replaces
     pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
     kernels = {
@@ -4168,9 +4437,12 @@ def main() -> int:
         # the NEE call, and after it
         "shade": ("shade_bounce", "isaklm_raytracer_tpu/integrator/path_trace.py:61"),
         "shade_finish": ("finish_bounce", "isaklm_raytracer_tpu/integrator/path_trace.py:61"),
+        # the reverse of that body (jax.grad through the lax.scan)
+        "shade_backward": ("bounce_backward",
+                           "isaklm_raytracer_tpu/integrator/path_trace.py:61"),
     }
     # the source of each kernel that is not csrc/<name>.cu
-    sources = {"finish_bounce": "shade_bounce"}
+    sources = {"finish_bounce": "shade_bounce", "bounce_backward": "shade_backward"}
     for k, r in results.items():
         log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches: the "
             f"kernels the card ran in its main-path run, measured by torch.profiler where the "

@@ -18,35 +18,61 @@ A bounce is the intersector call, the first half of the shading
 (``kernels/shade.py``: hit attributes, emission, the BSDF sample and the
 NEE shadow rays), the shadow rays' intersector call and the second half
 (the direct light and Russian roulette): two kernels on the card, or their
-plain versions (``shade_route``).
+plain versions (``shade_route``). Where autograd records the rays, the
+material fields or the texels, the card runs the bounce as one autograd
+node (``shade.bounce``): the two kernels forward, the ``bounce_backward``
+kernel backward.
 """
 
 from __future__ import annotations
+
+import functools
+import logging
 
 import torch
 
 from isaklm_raytracer_tpu_torch.config import RenderConfig
 from isaklm_raytracer_tpu_torch.kernels import shade
+from isaklm_raytracer_tpu_torch.kernels.intersect import COUNTS
 from isaklm_raytracer_tpu_torch.math import rng
 from isaklm_raytracer_tpu_torch.scene.types import Scene
 
+_LOG = logging.getLogger(__name__)
+_GEOMETRY_LOGGED = False
+
+
+def _records(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
 
 def shade_route(scene: Scene, origins: torch.Tensor, directions: torch.Tensor) -> str:
-    """How ``trace_paths`` shades a bounce: "kernel" (the two kernels of
-    ``kernels/shade.py``, one launch each a bounce) for CUDA rays when
-    autograd records none of the inputs (none requires grad, or grad mode
-    is off), else "plain" (their plain versions, whose tensor ops autograd
-    differentiates)."""
+    """How ``trace_paths`` shades a bounce on CUDA rays: "kernel" (the two
+    kernels of ``kernels/shade.py``, one launch each a bounce, and where
+    autograd records the rays, the material fields or the texels, their
+    backward kernel, ``shade.bounce``), unless autograd records a geometry
+    tensor (vertices, normals, uvs, the shading table), which no kernel
+    differentiates: then "plain" (their plain versions, whose tensor ops
+    autograd differentiates), counted in ``COUNTS.shade_geometry_grad`` and
+    logged. CPU rays take "plain"."""
+    global _GEOMETRY_LOGGED
     if not origins.is_cuda:
         return "plain"
-    if torch.is_grad_enabled():
-        m, tex = scene.materials, scene.textures
-        inputs = (origins, directions, scene.vertices, scene.normals, scene.uvs,
-                  scene.shade_table, tex.buffer, m.albedo, m.emittance, m.roughness, m.ior,
-                  m.extinction, m.transparent)
-        if any(t is not None and t.requires_grad for t in inputs):
-            return "plain"
+    if _records((scene.vertices, scene.normals, scene.uvs, scene.shade_table)):
+        COUNTS.shade_geometry_grad += 1
+        if not _GEOMETRY_LOGGED:
+            _LOG.warning("a geometry tensor requires grad: the bounce's shading runs its plain "
+                         "versions, op by op (no kernel differentiates the geometry)")
+            _GEOMETRY_LOGGED = True
+        return "plain"
     return "kernel"
+
+
+def records_shading(scene: Scene, origins: torch.Tensor, directions: torch.Tensor) -> bool:
+    """Whether autograd records one of the inputs ``shade.bounce``
+    differentiates: the rays, the six float material fields, the texels."""
+    m = scene.materials
+    return _records((origins, directions, scene.textures.buffer,
+                     *(getattr(m, f) for f in shade.MATERIAL_FIELDS)))
 
 
 def shading(route: str):
@@ -74,7 +100,9 @@ def trace_paths(
     """
     num_rays = origins.shape[0]
     device = origins.device
-    shade_fn, finish_fn = shading(shade_route(scene, origins, directions))
+    route = shade_route(scene, origins, directions)
+    differentiate = route == "kernel" and records_shading(scene, origins, directions)
+    shade_fn, finish_fn = shading(route)
     ray_o, ray_d = origins.contiguous(), directions.contiguous()
     throughput = torch.ones((num_rays, 3), dtype=torch.float32, device=device)
     radiance = torch.zeros((num_rays, 3), dtype=torch.float32, device=device)
@@ -86,13 +114,23 @@ def trace_paths(
         u = rng.uniforms(key_words, ray_ids, bounce, shade.BOUNCE_UNIFORMS)  # (9, R)
 
         _, idx, hit = trace_fn(ray_o, ray_d, active=active)
-        pending = shade_fn(scene, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
-                           prev_diffuse, u, config.lobe_ratio_grad)
-        shadow_idx = shadow_hit = None
-        if scene.has_lights:
-            _, shadow_idx, shadow_hit = trace_fn(pending.ray_o, pending.shadow_dir,
-                                                 active=pending.nee_mask, t_max=pending.window)
-        ray_o, ray_d, throughput, radiance, inside, prev_diffuse, active = finish_fn(
-            scene, pending, shadow_idx, shadow_hit, u[8], bounce >= config.rr_start_bounce)
+        roulette = bounce >= config.rr_start_bounce
+        if differentiate:  # the backward draws the bounce's variates again
+            state = shade.bounce(
+                scene, trace_fn, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
+                prev_diffuse, u,
+                functools.partial(rng.uniforms, key_words, ray_ids, bounce,
+                                  shade.BOUNCE_UNIFORMS),
+                config.lobe_ratio_grad, roulette)
+        else:
+            pending = shade_fn(scene, ray_o, ray_d, idx, hit, active, throughput, radiance,
+                               inside, prev_diffuse, u, config.lobe_ratio_grad)
+            shadow_idx = shadow_hit = None
+            if scene.has_lights:
+                _, shadow_idx, shadow_hit = trace_fn(pending.ray_o, pending.shadow_dir,
+                                                     active=pending.nee_mask,
+                                                     t_max=pending.window)
+            state = finish_fn(scene, pending, shadow_idx, shadow_hit, u[8], roulette)
+        ray_o, ray_d, throughput, radiance, inside, prev_diffuse, active = state
 
     return radiance

@@ -78,10 +78,11 @@ records kernel launches and plain calls on CUDA tensors, so a run can show
 which one it went through.
 
 ``SOURCES`` also lists the sampler's kernel (``csrc/threefry_uniforms.cu``,
-wrapped by ``kernels/sampler.py`` for ``math.rng.uniforms``) and the two
-shading kernels of a bounce (``csrc/shade_bounce.cu``, wrapped by
-``kernels/shade.py``), which share this module's build, launch route and
-``COUNTS`` (``sampler``; ``shade`` and ``shade_finish``).
+wrapped by ``kernels/sampler.py`` for ``math.rng.uniforms``), the two
+shading kernels of a bounce (``csrc/shade_bounce.cu``) and their backward
+(``csrc/shade_backward.cu``), all three wrapped by ``kernels/shade.py``,
+which share this module's build, launch route and ``COUNTS`` (``sampler``;
+``shade``, ``shade_finish`` and ``shade_backward``).
 """
 
 from __future__ import annotations
@@ -102,7 +103,8 @@ VMEM_TABLE_LIMIT = 6 * 1024 * 1024
 SOURCES = ("flat_intersect.cu", "queue_intersect.cu", "blk_intersect.cu",
            "first_block_keys.cu", "hbm_intersect.cu", "flat_mxu_intersect.cu",
            "blk_mxu_intersect.cu", "null_intersect.cu", "kd_intersect.cu",
-           "brute_intersect.cu", "threefry_uniforms.cu", "tri_consts.cu", "shade_bounce.cu")
+           "brute_intersect.cu", "threefry_uniforms.cu", "tri_consts.cu", "shade_bounce.cu",
+           "shade_backward.cu")
 # The JAX package's packet sizes: the ordering sorts a call's rays only when
 # there are more of them than one packet (DEFAULT_PACKET for every
 # intersector but blk, which the render path calls with BLK_PACKET).
@@ -136,7 +138,7 @@ class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
     KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null",
-               "kd", "brute", "sampler", "tri_consts", "shade", "shade_finish")
+               "kd", "brute", "sampler", "tri_consts", "shade", "shade_finish", "shade_backward")
 
     def __init__(self) -> None:
         self.reset()
@@ -145,6 +147,9 @@ class LaunchCounts:
         for kernel in self.KERNELS:
             setattr(self, f"{kernel}_kernel", 0)
             setattr(self, f"{kernel}_plain_cuda", 0)
+        # renders on CUDA that shaded plainly because a geometry tensor
+        # requires grad (integrator.path_trace.shade_route)
+        self.shade_geometry_grad = 0
 
     def plain_cuda(self) -> int:
         """Plain-version calls on CUDA tensors, all kernels together."""
@@ -195,9 +200,11 @@ _ENTRY_ARGS = {
     # the ShadeScene and ShadeArgs / FinishArgs structs (kernels/shade.py)
     "shade_bounce": [_P, _P],
     "finish_bounce": [_P, _P],
+    # the ShadeScene and BackwardArgs structs (kernels/shade.py)
+    "bounce_backward": [_P, _P],
 }
 # entry points whose source is not <name>.cu
-_SOURCE = {"finish_bounce": "shade_bounce.cu"}
+_SOURCE = {"finish_bounce": "shade_bounce.cu", "bounce_backward": "shade_backward.cu"}
 # the COUNTS attribute prefix of each entry point
 _COUNTER = {
     "flat_intersect": "flat",
@@ -214,6 +221,7 @@ _COUNTER = {
     "tri_consts": "tri_consts",
     "shade_bounce": "shade",
     "finish_bounce": "shade_finish",
+    "bounce_backward": "shade_backward",
 }
 
 

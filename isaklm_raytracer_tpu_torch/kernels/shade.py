@@ -18,16 +18,30 @@ to their arithmetic:
 
 ``shade_bounce`` and ``finish_bounce`` launch the two kernels of
 ``csrc/shade_bounce.cu`` (one thread a ray), which equal the plain versions
-bit for bit on every output. ``integrator.path_trace.trace_paths`` takes
-the kernels for CUDA tensors that autograd does not record and the plain
-versions otherwise (``path_trace.shade_route``).
+bit for bit on every output.
+
+Gradients: ``bounce`` runs a whole bounce (both halves and the NEE
+intersector call between them) as one ``BounceFunction``, a node autograd
+records. Its forward is the two kernels (on CPU tensors the plain
+versions); its backward is ``bounce_backward``, the kernel of
+``csrc/shade_backward.cu`` (one thread a ray: the forward recomputed in
+registers, then its reverse), on CPU tensors ``bounce_backward_plain``
+(autograd of the plain versions recomputed on the saved inputs). It
+differentiates the rays, the throughput and radiance, the six float
+material fields and the texel atlas; the geometry stays a constant.
+
+``integrator.path_trace.trace_paths`` takes, for CUDA rays, the kernels
+when autograd records none of the inputs, ``bounce`` when it records only
+those ``bounce`` differentiates, and the plain versions when a geometry
+tensor requires grad or on CPU tensors (``path_trace.shade_route``).
 
 On CUDA tensors the wrappers launch their kernel or raise, and count in
-``kernels.intersect.COUNTS`` (``shade``, ``shade_finish``); on CPU tensors
-they raise (the render calls the plain versions there). The plain versions
-count their calls on CUDA tensors (``shade_plain_cuda``,
-``shade_finish_plain_cuda``). A launch makes no host sync and no copy from
-the host, so a CUDA graph capture records it.
+``kernels.intersect.COUNTS`` (``shade``, ``shade_finish``,
+``shade_backward``); on CPU tensors they raise (the render calls the plain
+versions there). The plain versions count their calls on CUDA tensors
+(``shade_plain_cuda``, ``shade_finish_plain_cuda``,
+``shade_backward_plain_cuda``). A launch makes no host sync and no copy
+from the host, so a CUDA graph capture records it.
 """
 
 from __future__ import annotations
@@ -47,6 +61,12 @@ from isaklm_raytracer_tpu_torch.scene.types import Scene
 # uniforms a bounce reads: u[0:5] the BSDF sample, u[5:8] the light pick and
 # the point on the light (shade_bounce), u[8] Russian roulette (finish_bounce)
 SHADE_UNIFORMS, BOUNCE_UNIFORMS = 8, 9
+# the MaterialTable fields a bounce's backward differentiates (dist/sharding.py
+# FLOAT_FIELDS), and the columns of each in the kernel's (M, 9) sums;
+# transparent only feeds a comparison, so its gradient is zeros
+MATERIAL_FIELDS = ("albedo", "emittance", "roughness", "ior", "extinction", "transparent")
+_MATERIAL_COLUMNS = {"albedo": slice(0, 3), "emittance": slice(3, 6), "roughness": 6, "ior": 7,
+                     "extinction": 8}
 
 
 @dataclasses.dataclass
@@ -202,11 +222,11 @@ class FinishArgs(ctypes.Structure):
 
 
 def _planes(device, num_rays: int, vecs: int, scalars: int, flags: int):
-    """Outputs of a launch, in two allocations (each costs host time): ``vecs``
-    (R, 3) and ``scalars`` (R,) float32 planes of one buffer, ``flags`` (R,)
-    bool planes of another; each plane contiguous."""
+    """Outputs of a launch, in at most two allocations (each costs host
+    time): ``vecs`` (R, 3) and ``scalars`` (R,) float32 planes of one
+    buffer, ``flags`` (R,) bool planes of another; each plane contiguous."""
     floats = torch.empty(num_rays * (3 * vecs + scalars), dtype=torch.float32, device=device)
-    bools = torch.empty(num_rays * flags, dtype=torch.bool, device=device)
+    bools = torch.empty(num_rays * flags, dtype=torch.bool, device=device) if flags else None
     n3 = 3 * num_rays
     return ([floats[k * n3:(k + 1) * n3].view(num_rays, 3) for k in range(vecs)],
             [floats[vecs * n3 + k * num_rays:vecs * n3 + (k + 1) * num_rays]
@@ -224,8 +244,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.requires_grad and torch.is_grad_enabled():
-        raise ValueError(f"{name} requires grad: the kernels do not differentiate "
-                         "(trace_paths takes the plain versions when autograd records)")
+        raise ValueError(f"{name} requires grad: the kernels record no autograd graph "
+                         "(shade.bounce differentiates a bounce through them)")
 
 
 def scene_args(scene: Scene, device) -> tuple:
@@ -288,11 +308,14 @@ def kernel_args(scene: Scene, ray_o, ray_d, idx, hit, active, throughput, radian
     _check("u", u, torch.float32, (u.shape[0], num_rays), device)
     tables, s_args = scene_args(scene, device)
     lit = bool(scene.has_lights)
-    vecs, scalars, masks = _planes(device, num_rays, 6 if lit else 4, 3 if lit else 0,
+    # the next rays apart from the rest, which finish_bounce consumes: a
+    # differentiated bounce's next node keeps them and frees the rest
+    (ray_o_next, ray_d_next), _, _ = _planes(device, num_rays, 2, 0, 0)
+    vecs, scalars, masks = _planes(device, num_rays, 4 if lit else 2, 3 if lit else 0,
                                    4 if lit else 3)
-    pending = Pending(*vecs[:4], *masks[:3])
+    pending = Pending(ray_o_next, ray_d_next, *vecs[:2], *masks[:3])
     if lit:
-        pending.nee_mask, pending.shadow_dir, pending.normal = masks[3], vecs[4], vecs[5]
+        pending.nee_mask, pending.shadow_dir, pending.normal = masks[3], vecs[2], vecs[3]
         pending.window, pending.dist_sq = scalars[0], scalars[1]
         pending.light_idx = scalars[2].view(torch.int32)
     outputs = {f"o_{f.name}": getattr(pending, f.name) for f in dataclasses.fields(pending)}
@@ -377,3 +400,227 @@ def finish_bounce(scene: Scene, pending: Pending, idx, hit, u_rr, roulette: bool
         _launch("finish_bounce", pending.ray_o, ctypes.addressof(s_args), ctypes.addressof(args))
     return (pending.ray_o, pending.ray_d, throughput, radiance, pending.inside,
             pending.prev_diffuse, active)
+
+
+# --- the backward ------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BounceSaved:
+    """What a bounce's backward reads: the scene (its material fields and
+    atlas those the forward read), the bounce's inputs, its uniforms and
+    the shadow rays' hits (None where the scene has no lights)."""
+
+    scene: Scene
+    ray_o: torch.Tensor  # (R, 3) float32
+    ray_d: torch.Tensor
+    idx: torch.Tensor  # (R,) int32
+    hit: torch.Tensor  # (R,) bool
+    active: torch.Tensor
+    throughput: torch.Tensor  # (R, 3) float32
+    radiance: torch.Tensor
+    inside: torch.Tensor  # (R,) bool
+    prev_diffuse: torch.Tensor
+    u: torch.Tensor  # (n >= 9, R) float32
+    shadow_idx: Optional[torch.Tensor]  # (R,) int32
+    shadow_hit: Optional[torch.Tensor]  # (R,) bool
+    lobe_ratio_grad: bool
+    roulette: bool
+
+
+def _differentiable(saved: BounceSaved) -> list:
+    """The tensors a bounce's backward differentiates, in its order: the
+    ray origin, direction, throughput and radiance, the six material fields
+    and the texel atlas."""
+    m = saved.scene.materials
+    return [saved.ray_o, saved.ray_d, saved.throughput, saved.radiance,
+            *(getattr(m, f) for f in MATERIAL_FIELDS), saved.scene.textures.buffer]
+
+
+def bounce_backward_plain(saved: BounceSaved, grad_outputs, needs=None) -> list:
+    """The gradients of ``_differentiable(saved)`` from those of the
+    bounce's next (ray_o, ray_d, throughput, radiance): autograd of
+    ``shade_bounce_plain`` and ``finish_bounce_plain`` recomputed on the
+    saved inputs. ``needs`` (one flag a tensor) leaves out the gradients not
+    asked for (None); a field that does not reach the outputs
+    (transparent) gets zeros."""
+    inputs = _differentiable(saved)
+    if needs is None:
+        needs = [True] * len(inputs)
+    if saved.ray_o.is_cuda:
+        COUNTS.shade_backward_plain_cuda += 1
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        ray_o, ray_d, throughput, radiance, *fields, texels = leaves
+        scene = saved.scene.replace(
+            materials=saved.scene.materials.replace(**dict(zip(MATERIAL_FIELDS, fields))),
+            textures=dataclasses.replace(saved.scene.textures, buffer=texels))
+        pending = shade_bounce_plain(scene, ray_o, ray_d, saved.idx, saved.hit, saved.active,
+                                     throughput, radiance, saved.inside, saved.prev_diffuse,
+                                     saved.u, saved.lobe_ratio_grad)
+        out = finish_bounce_plain(scene, pending, saved.shadow_idx, saved.shadow_hit, saved.u[8],
+                                  saved.roulette)
+        wanted = [x for x, need in zip(leaves, needs) if need]
+        got = iter(torch.autograd.grad(out[:4], wanted, grad_outputs[:4], allow_unused=True))
+    grads = []
+    for x, need in zip(inputs, needs):
+        g = next(got) if need else None
+        grads.append(torch.zeros_like(x) if need and g is None else g)
+    return grads
+
+
+class BackwardArgs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in (
+        "ray_o", "ray_d", "idx", "hit", "active", "throughput", "inside", "prev_diffuse", "u",
+        "shadow_idx", "shadow_hit", "g_ray_o", "g_ray_d", "g_throughput", "g_radiance",
+        "o_ray_o", "o_ray_d", "o_throughput", "o_material", "o_texels")] + [
+        ("u_stride", _I64), ("num_rays", _I32), ("roulette", _I32), ("lobe_ratio_grad", _I32)]
+
+
+def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
+                  texels: bool = True):
+    """(the tensors a launch reads, the (ray_o, ray_d, throughput, (M, 9)
+    material sums or None, (P, 3) texel sums or None) it writes, its
+    ``ShadeSceneArgs`` and ``BackwardArgs``) of ``bounce_backward``, every
+    input checked as ``kernel_args`` checks. ``grad_outputs`` are the
+    gradients of the next (ray_o, ray_d, throughput, radiance), contiguous.
+    The sums are float64 and start at zero; ``materials`` and ``texels``
+    False leave them out (a null pointer)."""
+    device = saved.ray_o.device
+    num_rays = saved.ray_o.shape[0]
+    if num_rays >= 2**31:
+        raise ValueError(f"{num_rays} rays exceed the kernel's int32 ray count")
+    vec, one = (num_rays, 3), (num_rays,)
+    for name in ("ray_o", "ray_d", "throughput"):
+        _check(name, getattr(saved, name), torch.float32, vec, device)
+    _check("idx", saved.idx, torch.int32, one, device)
+    flags = {name: _bool_ptr(name, getattr(saved, name), one, device)
+             for name in ("hit", "active", "inside", "prev_diffuse")}
+    u = saved.u
+    if u.dim() != 2 or u.shape[0] < BOUNCE_UNIFORMS:
+        raise ValueError(f"u must be (n >= {BOUNCE_UNIFORMS}, R), got {tuple(u.shape)}")
+    _check("u", u, torch.float32, (u.shape[0], num_rays), device)
+    scene = saved.scene
+    lights = bool(scene.has_lights)
+    if {lights} != {saved.shadow_idx is not None, saved.shadow_hit is not None}:
+        raise ValueError("the shadow rays' (idx, hit) go with a scene that has lights, and "
+                         "only with one")
+    reads = [saved.ray_o, saved.ray_d, saved.idx, saved.hit, saved.active, saved.throughput,
+             saved.inside, saved.prev_diffuse, u]
+    shadow = {"shadow_idx": None, "shadow_hit": None}
+    if lights:
+        _check("shadow_idx", saved.shadow_idx, torch.int32, one, device)
+        shadow = {"shadow_idx": saved.shadow_idx.data_ptr(),
+                  "shadow_hit": _bool_ptr("shadow_hit", saved.shadow_hit, one, device)}
+        reads += [saved.shadow_idx, saved.shadow_hit]
+    names = ("g_ray_o", "g_ray_d", "g_throughput", "g_radiance")
+    if len(grad_outputs) < 4:
+        raise ValueError("the gradients of the next ray_o, ray_d, throughput and radiance "
+                         "expected")
+    for name, g in zip(names, grad_outputs):
+        _check(name, g, torch.float32, vec, device)
+    tables, s_args = scene_args(scene, device)
+    (o_ray_o, o_ray_d, o_throughput), _, _ = _planes(device, num_rays, 3, 0, 0)
+    n_mat = scene.materials.albedo.shape[0]
+    o_material = torch.zeros((n_mat, 9), dtype=torch.float64, device=device) if materials else None
+    o_texels = (torch.zeros(scene.textures.buffer.shape, dtype=torch.float64, device=device)
+                if texels else None)
+    args = BackwardArgs(
+        ray_o=saved.ray_o.data_ptr(), ray_d=saved.ray_d.data_ptr(), idx=saved.idx.data_ptr(),
+        throughput=saved.throughput.data_ptr(), u=u.data_ptr(), **flags, **shadow,
+        **{name: g.data_ptr() for name, g in zip(names, grad_outputs)},
+        o_ray_o=o_ray_o.data_ptr(), o_ray_d=o_ray_d.data_ptr(),
+        o_throughput=o_throughput.data_ptr(),
+        o_material=None if o_material is None else o_material.data_ptr(),
+        o_texels=None if o_texels is None else o_texels.data_ptr(),
+        u_stride=u.shape[1], num_rays=num_rays, roulette=int(bool(saved.roulette)),
+        lobe_ratio_grad=int(bool(saved.lobe_ratio_grad)))
+    return (reads + list(grad_outputs[:4]) + tables,
+            (o_ray_o, o_ray_d, o_throughput, o_material, o_texels), s_args, args)
+
+
+def material_grads(sums: Optional[torch.Tensor], scene: Scene, needs) -> list:
+    """The six material fields' float32 gradients from the kernel's (M, 9)
+    float64 sums (None where not needed; transparent's zeros)."""
+    out = []
+    sums = None if sums is None else sums.to(torch.float32)
+    for f, need in zip(MATERIAL_FIELDS, needs):
+        if not need:
+            out.append(None)
+        elif f == "transparent":
+            out.append(torch.zeros_like(scene.materials.transparent))
+        else:
+            out.append(sums[:, _MATERIAL_COLUMNS[f]])
+    return out
+
+
+def bounce_backward(saved: BounceSaved, grad_outputs, needs=None) -> list:
+    """``bounce_backward_plain`` by the ``bounce_backward`` kernel (within
+    float32 rounding: the per-ray gradients in another order of the same
+    derivative rules, the material and texel sums by atomics); CUDA tensors
+    only."""
+    _cuda_only("bounce_backward", saved.ray_o)
+    if needs is None:
+        needs = [True] * 11
+    grads = [g.contiguous() for g in grad_outputs[:4]]
+    # reads stay referenced until the launch: the kernel reads them
+    reads, (g_o, g_d, g_t, sums, texels), s_args, args = backward_args(
+        saved, grads, materials=any(needs[4:9]), texels=needs[10])
+    if saved.ray_o.shape[0]:  # an empty grid is an invalid launch
+        _launch("bounce_backward", saved.ray_o, ctypes.addressof(s_args), ctypes.addressof(args))
+    return [g_o, g_d, g_t, grads[3], *material_grads(sums, saved.scene, needs[4:10]),
+            None if texels is None else texels.to(torch.float32)]
+
+
+class BounceFunction(torch.autograd.Function):
+    """One bounce as one autograd node (``bounce``): the forward kernels
+    (plain versions on CPU tensors) and the NEE intersector call, the
+    backward ``bounce_backward`` (``bounce_backward_plain`` on CPU
+    tensors)."""
+
+    @staticmethod
+    def forward(ctx, static, ray_o, ray_d, throughput, radiance, *fields):
+        scene, trace_fn, idx, hit, active, inside, prev_diffuse, u, redraw, lobe, roulette = static
+        if ray_o.is_cuda:
+            shade_fn, finish_fn = shade_bounce, finish_bounce
+        else:
+            shade_fn, finish_fn = shade_bounce_plain, finish_bounce_plain
+        pending = shade_fn(scene, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
+                           prev_diffuse, u, lobe)
+        shadow_idx = shadow_hit = None
+        if scene.has_lights:
+            _, shadow_idx, shadow_hit = trace_fn(pending.ray_o, pending.shadow_dir,
+                                                 active=pending.nee_mask, t_max=pending.window)
+        out = finish_fn(scene, pending, shadow_idx, shadow_hit, u[BOUNCE_UNIFORMS - 1], roulette)
+        # the backward draws u again (redraw) rather than keep it
+        ctx.save_for_backward(ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
+                              prev_diffuse, shadow_idx, shadow_hit)
+        ctx.scene, ctx.flags, ctx.redraw = scene, (lobe, roulette), redraw
+        ctx.mark_non_differentiable(*out[4:])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_ray_o, g_ray_d, g_throughput, g_radiance, *_):
+        *state, shadow_idx, shadow_hit = ctx.saved_tensors
+        saved = BounceSaved(ctx.scene, *state, ctx.redraw(), shadow_idx, shadow_hit, *ctx.flags)
+        fn = bounce_backward if g_ray_o.is_cuda else bounce_backward_plain
+        grads = fn(saved, (g_ray_o, g_ray_d, g_throughput, g_radiance), ctx.needs_input_grad[1:])
+        return (None, *grads)
+
+
+def bounce(scene: Scene, trace_fn, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
+           prev_diffuse, u, redraw, lobe_ratio_grad: bool, roulette: bool):
+    """A whole bounce after its intersector call (idx, hit) as one node
+    autograd records (``BounceFunction``): ``shade_bounce``, the shadow
+    rays' call ``trace_fn`` and ``finish_bounce``. Returns the next
+    (ray_o, ray_d, throughput, radiance, inside, prev_diffuse, active),
+    those of ``finish_bounce``; the gradients reach the rays, the
+    throughput and radiance, the six float fields of ``scene.materials``
+    and ``scene.textures.buffer``. ``redraw()`` returns ``u`` again (the
+    sampler's draw) for the backward, so the node keeps no uniforms."""
+    m = scene.materials
+    static = (scene, trace_fn, idx, hit, active, inside, prev_diffuse, u, redraw,
+              lobe_ratio_grad, roulette)
+    return BounceFunction.apply(static, ray_o, ray_d, throughput, radiance,
+                                *(getattr(m, f) for f in MATERIAL_FIELDS),
+                                scene.textures.buffer)

@@ -26,16 +26,20 @@ bounces, the blocked kernel), with the bench camera, each child reports
   checkout shades one tensor op at a time) and the most frequent kernel
   names with their records and time; the SHA-256 of the G-buffers of the
   eager and the replayed steps;
-- bench.py's fwd+bwd in one pass (loss = mean(render_sample), leaf = the
-  material albedo): seconds a sample over two after a warm-up, and the
-  peak device memory over those two;
+- bench.py's fwd+bwd (loss = mean(render_sample), leaf = the material
+  albedo) at ``ray_chunk`` 0 and 16384: seconds a sample over two (one at
+  16384) after a warm-up, the peak device memory over those, the SHA-256
+  of the losses; at 0 one more sample's backward under torch.profiler: its
+  CUDA records and their device time, the backward shading kernel's
+  (``bounce_backward_kernel``; none where the checkout differentiates the
+  shading one tensor op at a time);
 - two ranks on this card over gloo (``dist.launch`` with ``cuda:0``):
   each rank's seconds a full step of ``render_sharded`` on a (2, 1) mesh
   in one pass (two timed steps after one; a rank's steps run eagerly),
   and the SHA-256 of the gathered G-buffer.
 
-Every G-buffer digest must be equal in all four runs (the checkouts render
-the same bits), else the tool exits 1. It prints one line per run, the
+Every G-buffer digest and every fwd+bwd loss digest must be equal in all
+four runs (the checkouts render the same bits), else the tool exits 1. It prints one line per run, the
 card's name and power limit as ``nvidia-smi`` gives them, and, as its last
 line, the runs as JSON.
 """
@@ -75,6 +79,7 @@ PRESETS = {"demo": (512, 512, 8), "hero": (640, 360, 6)}
 TOP_NAMES = 15  # kernel names of a profiled step, the most frequent first
 SAMPLER = "threefry_uniforms_kernel"
 SHADE = ("shade_bounce_kernel", "finish_bounce_kernel")
+BACKWARD = "bounce_backward_kernel"
 
 
 def sha(*tensors):
@@ -162,27 +167,44 @@ def steps(label, scene, camera, chunk):
     return out
 
 
-def fwd_bwd(label, scene, camera):
-    config = config_of(label, 0)
+def fwd_bwd(label, scene, camera, chunk):
+    config = config_of(label, chunk)
     albedo = scene.materials.albedo
+    samples = 1 if chunk else 2
 
-    def one(i):
+    def forward(i):
         leaf = albedo.detach().clone().requires_grad_(True)
         s = scene.replace(materials=scene.materials.replace(albedo=leaf))
-        loss = R.render_sample(s, camera, rng.sample_key_words(0, i), config).mean()
-        return torch.autograd.grad(loss, leaf)[0]
+        return leaf, R.render_sample(s, camera, rng.sample_key_words(0, i), config).mean()
+
+    def one(i):
+        leaf, loss = forward(i)
+        return loss.detach(), torch.autograd.grad(loss, leaf)[0]
 
     one(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    grads = [one(i) for i in (1, 2)]
+    outs = [one(i) for i in range(1, samples + 1)]
     torch.cuda.synchronize()
-    return {"fwd_bwd_s": (time.perf_counter() - t0) / 2,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "allocated_before_gib": before / 2**30,
-            "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads)}
+    out = {"fwd_bwd_s": (time.perf_counter() - t0) / samples,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "allocated_before_gib": before / 2**30,
+           "grads_finite": all(bool(torch.isfinite(g).all()) for _, g in outs),
+           "loss_sha": sha(*(loss for loss, _ in outs))}
+    if not chunk:
+        leaf, loss = forward(9)
+        torch.cuda.synchronize()
+        with profiling.cuda_profile() as prof:
+            torch.autograd.grad(loss, leaf)
+        recs = profiling.device_records(prof)
+        mine = [d for name, _, d in recs if BACKWARD in name]
+        out["backward_profile"] = {"records": len(recs),
+                                   "kernel_s": sum(d for _, _, d in recs) / 1e9,
+                                   "bounce_backward_records": len(mine),
+                                   "bounce_backward_s": sum(mine) / 1e9}
+    return out
 
 
 def sharded_rank(rank, world, label):
@@ -215,7 +237,7 @@ def main():
         scene = scene_of(label, device)
         out["presets"][label] = {
             "steps": {chunk: steps(label, scene, camera, chunk) for chunk in (0, 16384)},
-            "fwd_bwd": fwd_bwd(label, scene, camera)}
+            "fwd_bwd": {chunk: fwd_bwd(label, scene, camera, chunk) for chunk in (0, 16384)}}
         del scene
     from isaklm_raytracer_tpu_torch.dist.launch import launch
 
@@ -257,6 +279,8 @@ def digests(run: dict) -> dict:
             out[f"{label} {chunk} replay"] = s["replay_sha"]
         for rank, r in enumerate(preset["sharded"]):
             out[f"{label} sharded rank {rank}"] = r["sha"]
+        for chunk, fb in preset["fwd_bwd"].items():
+            out[f"{label} {chunk} fwd+bwd loss"] = fb["loss_sha"]
     return out
 
 
@@ -278,9 +302,14 @@ def summary(run: dict) -> str:
                 parts.append(f"{label} {chunk} records a bounce by kernel name: " + "; ".join(
                     f"{n / bounces:g} x {name} ({t * 1e3:.3f} ms)"
                     for name, n, t in p.get("by_name", [])))
-        fb = preset["fwd_bwd"]
-        parts.append(f"{label} fwd+bwd {fb['fwd_bwd_s']:.4f} s/sample, peak {fb['peak_gib']:.3f} "
-                     f"GiB ({fb['allocated_before_gib']:.3f} allocated before)")
+        for chunk, fb in preset["fwd_bwd"].items():
+            bp = fb.get("backward_profile")
+            parts.append(f"{label} {chunk} fwd+bwd {fb['fwd_bwd_s']:.4f} s/sample, peak "
+                         f"{fb['peak_gib']:.3f} GiB ({fb['allocated_before_gib']:.3f} allocated "
+                         "before)" + (f"; a profiled backward {bp['records']} records, kernels "
+                                      f"{bp['kernel_s'] * 1e3:.3f} ms, bounce_backward "
+                                      f"{bp['bounce_backward_records']} records "
+                                      f"{bp['bounce_backward_s'] * 1e3:.3f} ms" if bp else ""))
         parts.append(f"{label} sharded (2, 1) on one card, s/sample rank 0/1: "
                      + "/".join(f"{r['s_per_sample']:.4f}" for r in preset["sharded"]))
     return "\n  ".join(parts)
@@ -311,8 +340,8 @@ def main(argv) -> int:
             print(f"{label} ({tree}), {r['wall_s']:.1f} s [{card}]:\n  {summary(r)}", flush=True)
     first = digests(runs[0])
     same = all(digests(r) == first for r in runs)
-    print(f"G-buffer digests of the four runs {'equal' if same else 'DIFFER'}: {first}",
-          flush=True)
+    print(f"G-buffer and loss digests of the four runs {'equal' if same else 'DIFFER'}: "
+          f"{first}", flush=True)
     print(card, flush=True)
     print(json.dumps(runs), flush=True)
     return 0 if same else 1

@@ -404,8 +404,8 @@ class _FakeCuda:
 
 @pytest.mark.parametrize("case,want", [
     ("cpu", "plain"), ("cpu, no grad", "plain"), ("cuda", "kernel"),
-    ("cuda, rays require grad", "plain"), ("cuda, rays require grad, no grad mode", "kernel"),
-    ("cuda, albedo requires grad", "plain"), ("cuda, texels require grad", "plain")])
+    ("cuda, rays require grad", "kernel"), ("cuda, rays require grad, no grad mode", "kernel"),
+    ("cuda, albedo requires grad", "kernel"), ("cuda, texels require grad", "kernel")])
 def test_shade_route(port_scenes, case, want):
     scene = port_scenes["demo"]
     rays = _FakeCuda(requires_grad="rays require" in case)
