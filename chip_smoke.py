@@ -10,10 +10,10 @@ raising on failure:
 
 1. card: name, power limit and maximum SM clock as nvidia-smi reports
    them, and the SM count;
-2. build: compiles the fifteen kernels of ``csrc/`` (six intersectors,
+2. build: compiles the sixteen kernels of ``csrc/`` (six intersectors,
    the first-block keys, the null kernel, the KD walk and its triangle
    table, the brute force, the sampler, the two shading kernels of
-   ``shade_bounce.cu`` and their backward, ``shade_backward.cu``) with
+   ``shade_bounce.cu`` and their backward's two, ``shade_backward.cu``) with
    nvcc, one process per source, all started together, and prints each
    one's ptxas register and spill lines;
 3. kernel flat: the flat intersector against its plain PyTorch version
@@ -269,8 +269,8 @@ raising on failure:
    hero again in one pass under
    ISAKLM_BLK_SORT=block (the first-block key kernel's main-path run);
    s/sample, rays/s, peak memory, launches per kernel (no plain version
-   on CUDA; the two shading kernels and the backward kernel once each a
-   bounce of each pass; first_blocks and blk both launch under block
+   on CUDA; the two shading kernels and the backward's two kernels once
+   each a bounce of each pass; first_blocks and blk both launch under block
    ordering), grads finite and nonzero; one fwd+bwd sample of the demo and
    of the hero under torch.profiler, the kernels the card ran held to the
    wrappers' launches (``device_launches``, ``check_only`` with grad), the
@@ -314,35 +314,48 @@ raising on failure:
    wrapper by calls one after another (the host's cost), beside its bound
    (bytes over the HBM rate against issue slots over the FP32 lanes,
    SHADE_*_SLOTS and SHADE_*_BYTES).
-24. shade_grad: the backward kernel of a bounce's shading
-   (csrc/shade_backward.cu, ``bounce_backward`` of kernels/shade.py)
-   against its plain version (``bounce_backward_plain``: autograd of the
-   plain versions recomputed) at tests/test_torch_shade_grad.py's
-   tolerances (per-ray gradients within rtol 1e-4 plus 1e-6 x the largest,
-   the material and texel sums within rtol 1e-4 plus atol 1e-6, non-finite
-   values at the same places): that module's card test (the edge scenes
-   and the demo, both layouts, both lobe-ratio modes, with and without
-   roulette, 2,001 rays and one, and a grazing miss whose plain gradient is
-   NaN and the kernel's finite); every bounce of one fwd+bwd sample
-   through ``render_sample`` with every material field, the texels and
-   the camera position as leaves (``shade.bounce_backward`` replaced by a
-   stand-in that runs both and goes on with the kernel's): the demo at
-   512x512x8 (flat), the hero at 640x360x6 (blk), the 20k hero at
-   512x512x8 (queue) and the demo without cluster or shading tables (the
-   brute force), each checked sample's loss equal to the sample's; the
-   kernel timed in turns with its plain version at the first bounce of the
-   hero and of the demo (the kernels line takes the demo's) by CUDA events
-   around the replay of a CUDA graph (20 calls of the kernel, 3 of the
-   plain version), its own duration by torch.profiler, beside its bound
-   (SHADE_BACKWARD_* bytes and slots).
+24. shade_grad: the backward of a bounce's shading (csrc/shade_backward.cu:
+   ``bounce_bin``, which sorts the live rays by class into a ray list, and
+   ``bounce_backward``, the reverse over that list; ``bounce_backward`` of
+   kernels/shade.py launches both) against its plain version
+   (``bounce_backward_plain``: autograd of the plain versions recomputed)
+   at tests/test_torch_shade_grad.py's tolerances (per-ray gradients
+   within rtol 1e-4 plus 1e-6 x the largest, the material and texel sums
+   within rtol 1e-4 plus atol 1e-6, non-finite values at the same places):
+   first the kernels' registers, local bytes and resident warps as the
+   card reports them; that module's card test (the edge scenes and the
+   demo, both layouts, both lobe-ratio modes, with and without roulette,
+   2,001 rays and one, and a grazing miss whose plain gradient is NaN and
+   the kernel's finite); every bounce of one fwd+bwd sample through
+   ``render_sample`` with every material field, the texels and the camera
+   position as leaves (``shade.bounce_backward`` replaced by a stand-in
+   that runs both and goes on with the kernel's, and recomputes in float64
+   each ray with a value beyond the strict tolerance: the kernel no
+   farther from it than RECHECK_FACTOR times the float32 plain version):
+   the demo at 512x512x8 (flat), the hero at 640x360x6 (blk), the 20k hero
+   at 512x512x8 (queue) and the demo without cluster or shading tables
+   (the brute force), each checked sample's loss equal to the sample's
+   and no more values beyond the tolerance than run BO's
+   (SHADE_GRAD_BEYOND); on the demo's bounce 0 the reverse with its
+   material sums in device memory (a table of more materials than the
+   shared one holds, ``many_materials``), then with the shared table (the
+   profiler names the instantiation), a call where every lane is dead and
+   one for each class alone; the binning against ``bounce_bin_plain`` (each
+   class's rays, the counts, the dead lanes' pass-through); a call timed
+   in turns with its plain version at the first bounce of the hero and of
+   the demo (the kernels line takes the demo's) by CUDA events around the
+   replay of a CUDA graph (20 calls of the kernels, 3 of the plain
+   version), the reverse's own duration by torch.profiler, beside its
+   bound (SHADE_BACKWARD_* bytes and slots); the binning alone likewise,
+   beside its bound (``shade_bin_bound``).
 
 Every path that check_only holds (main path, assets, resume, interactive,
 sharded, kd, graphs, grad) must also have launched the sampler kernel and
 no plain sampler on CUDA, the two shading kernels as often as each other
 and no plain shading on CUDA; a path that differentiates (the grad
 phase's fwd+bwd and autodiff side, the sharded value_and_grad and train
-step) also the backward kernel once each a shading launch, the others
-never; ``device_launches`` holds the sampler's and the shading's profiler
+step) also the backward's two kernels once each a shading launch, the
+others never; ``device_launches`` holds the sampler's and the shading's profiler
 records to their eager plus replayed launches like every kernel's, and the
 kernels line's sampler and shading rows count their launches over the
 main path's runs, the backward kernel's over the grad phase's fwd+bwd
@@ -1239,6 +1252,7 @@ def profile_fwd_bwd(label, kernel, scene, camera, config, counts, card) -> dict:
     f_ns, b_ns = sum(d for _, _, d in f), sum(d for _, _, d in b)
     walk_ns = sum(d for name, _, d in f if kernel_symbol(kernel) in name)
     bwd = [d for name, _, d in b if kernel_symbol("shade_backward") in name]
+    binned = [d for name, _, d in b if kernel_symbol("shade_bin") in name]
     passes = -(-config.num_pixels // (config.ray_chunk or config.num_pixels))
     top = collections.Counter()
     for name, _, d in b:
@@ -1247,12 +1261,13 @@ def profile_fwd_bwd(label, kernel, scene, camera, config, counts, card) -> dict:
         f"{f_ns / 1e6:.2f} ms in {len(f)} records ({kernel} {walk_ns / 1e6:.2f} ms = "
         f"{walk_ns / max(f_ns, 1):.1%}), bwd device time {b_ns / 1e6:.2f} ms in {len(b)} records; "
         f"bounce_backward {len(bwd)} records, {sum(bwd) / 1e6:.4f} ms "
-        f"({sum(bwd) / max(b_ns, 1):.1%} of the backward); on {card}")
+        f"({sum(bwd) / max(b_ns, 1):.1%} of the backward), bounce_bin {len(binned)} records, "
+        f"{sum(binned) / 1e6:.4f} ms ({sum(binned) / max(b_ns, 1):.1%}); on {card}")
     for name, ns in top.most_common(6):
         log(f"  {label} bwd top kernel {ns / 1e6:.3f} ms ({ns / max(b_ns, 1):.1%}): {name[:110]}")
-    if len(bwd) != passes * config.max_bounces:
-        raise RuntimeError(f"profile {label} fwd+bwd: {len(bwd)} backward kernels, "
-                           f"{passes * config.max_bounces} expected")
+    if len(bwd) != passes * config.max_bounces or len(binned) != len(bwd):
+        raise RuntimeError(f"profile {label} fwd+bwd: {len(bwd)} backward kernels and "
+                           f"{len(binned)} binnings, {passes * config.max_bounces} expected")
     return {"records": len(bwd), "ms": sum(bwd) / 1e6, "bwd_ms": b_ns / 1e6, "fwd_ms": f_ns / 1e6}
 
 
@@ -1307,7 +1322,7 @@ def grad_checks_on_card(device, counts):
         f"side one bounce_backward a bounce, the finite differences none), plain calls on CUDA "
         f"{counts.plain_cuda()}")
     if (not n["flat"] or counts.plain_cuda() or n["shade"] != n["shade_finish"]
-            or n["shade_backward"] != no_rr.max_bounces):
+            or n["shade_backward"] != no_rr.max_bounces or n["shade_bin"] != n["shade_backward"]):
         raise RuntimeError("grad vs FD did not go through the kernels alone, or its autodiff "
                            "side not through the backward kernel once a bounce")
     with device_launches(counts) as ran:
@@ -1334,7 +1349,8 @@ def grad_checks_on_card(device, counts):
             f"fd {np.round(fd, 5).tolist()} (rtol 0.05, atol 5e-4); launches {launched()}")
         if not np.abs(auto).max() > 0:
             raise RuntimeError(f"camera {label} gradient is zero")
-        if counts.plain_cuda() or counts.shade_backward_kernel != config.max_bounces:
+        if (counts.plain_cuda() or counts.shade_backward_kernel != config.max_bounces
+                or counts.shade_bin_kernel != config.max_bounces):
             raise RuntimeError(f"camera {label}: the autodiff side did not run the backward "
                                "kernel once a bounce, or a plain version ran on CUDA")
 
@@ -1396,14 +1412,16 @@ def kernel_symbol(name: str) -> str:
     layouts (csrc/flat_walk.cuh), every other is ``<name>_intersect_kernel``,
     ``first_block_keys_kernel``, the sampler's ``threefry_uniforms_kernel``,
     the KD walk's table kernel ``tri_consts_kernel`` or the shading kernels
-    ``shade_bounce_kernel`` and ``finish_bounce_kernel`` and their backward
-    ``bounce_backward_kernel``."""
+    ``shade_bounce_kernel`` and ``finish_bounce_kernel`` and their backward,
+    ``bounce_bin_kernel`` and ``bounce_backward_kernel`` (the template over
+    where its material sums go)."""
     return {"flat": "TileLayout", "flat_mxu": "PairLayout",
             "first_blocks": "first_block_keys_kernel",
             "sampler": "threefry_uniforms_kernel",
             "tri_consts": "tri_consts_kernel",
             "shade": "shade_bounce_kernel",
             "shade_finish": "finish_bounce_kernel",
+            "shade_bin": "bounce_bin_kernel",
             "shade_backward": "bounce_backward_kernel"}.get(name, f"{name}_intersect_kernel")
 
 
@@ -1456,8 +1474,8 @@ def device_launches(counts):
 SAMPLER_RUNS = []
 SHADE_KERNELS = ("shade", "shade_finish")
 # the shading of a path that differentiates: both halves forward, the
-# backward kernel backward
-GRAD_SHADE_KERNELS = ("shade", "shade_finish", "shade_backward")
+# backward's two kernels (the binning and the reverse) backward
+GRAD_SHADE_KERNELS = ("shade", "shade_finish", "shade_bin", "shade_backward")
 
 
 def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
@@ -1497,11 +1515,14 @@ def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
                for k in GRAD_SHADE_KERNELS}
     log(f"main path {label}: shading (kernels the card ran, wrapper launches, plain calls on "
         f"CUDA) shade_bounce {shading['shade']}, finish_bounce {shading['shade_finish']}, "
-        f"bounce_backward {shading['shade_backward']}")
+        f"bounce_bin {shading['shade_bin']}, bounce_backward {shading['shade_backward']}")
     if shading["shade"][0] == 0 or shading["shade"][:2] != shading["shade_finish"][:2]:
         raise RuntimeError(f"the {label} path did not shade through the two kernels, one "
                            "launch each a bounce")
     backward = shading["shade_backward"][:2]
+    if shading["shade_bin"][:2] != backward:
+        raise RuntimeError(f"the {label} path ran the backward's binning and its reverse "
+                           "unequally often")
     if grad and backward != shading["shade"][:2]:
         raise RuntimeError(f"the {label} path differentiates but did not run the backward "
                            "kernel once each a differentiated bounce")
@@ -3664,24 +3685,22 @@ SHADE_BACKWARD_LIVE_SLOTS = 702
 SHADE_BACKWARD_LOBE_SLOTS = {"metal": 620, "specular": 411, "specular inside": 53,
                              "transmission": 506, "diffuse": 106}
 SHADE_BACKWARD_FRESNEL_SLOTS, SHADE_BACKWARD_NEE_SLOTS, SHADE_BACKWARD_LANE_SLOTS = 189, 515, 3
+# The binning (bounce_bin_kernel), a lane: the flags' tests and the class's
+# selects 8, the light pick (a product, a conversion, the clamp) 5, the
+# warp's match, the popcounts and the list's address 7.
+SHADE_BIN_SLOTS = 20
 
 
-def shade_backward_bound(saved, pending) -> dict:
-    """bounce_backward's bound on one call's ``saved`` inputs, with the
-    forward's ``pending`` state on them (its lobes, its shadow rays). The
-    bytes: every lane reads its hit and active flags and three output
-    gradients (38 B) and writes three input gradients (36 B); a live lane
-    its origin, direction, throughput, hit id and two flags (42 B), the
-    uniforms it reads (the half vector's two, the lobe's, roulette's, the
-    diffuse direction's two, the light's three) and, where it emits or its
-    shadow ray is visible, the radiance's gradient (12 B); a diffuse lane
-    of a lit scene its shadow hit (5 B); each distinct hit row and visible
-    light row once, the material table, the atlas and the light list once,
-    and the material and texel sums once."""
+def backward_classes(saved, pending) -> dict:
+    """The live lanes of a backward call's ``saved`` inputs by class
+    (kernels/shade.py RAY_CLASSES: {name: mask}), from the forward's
+    ``pending`` state on them (its lobes, its shadow rays): a metal
+    material; a diffuse lobe (``prev_diffuse``), its shadow ray visible
+    (it hit the light it picked) or dark; a transmission (``inside``
+    flipped); else a specular reflection, from outside or inside."""
     scene, live = saved.scene, saved.active & saved.hit
-    num = live.shape[0]
-    table = scene.shade_table is not None
     safe = saved.idx.clamp_min(0).long()
+    table = scene.shade_table is not None
     mat = scene.shade_table[safe, 24].long() if table else scene.mat_id[safe].long()
     metal = live & (scene.materials.extinction[mat] > 0)
     diffuse = live & pending.prev_diffuse
@@ -3690,9 +3709,38 @@ def shade_backward_bound(saved, pending) -> dict:
     lit = bool(scene.has_lights)
     nee = diffuse & saved.shadow_hit if lit else torch.zeros_like(live)
     visible = nee & (saved.shadow_idx == pending.light_idx) if lit else nee
+    return {"diffuse visible": visible, "transmission": trans, "specular": spec & ~saved.inside,
+            "metal": metal, "specular inside": spec & saved.inside,
+            "diffuse dark": diffuse & ~visible}
+
+
+def shade_backward_bound(saved, pending) -> dict:
+    """bounce_backward's bound on one call's ``saved`` inputs, with the
+    forward's ``pending`` state on them (``backward_classes``). The
+    bytes: every lane reads its hit and active flags and three output
+    gradients (38 B) and writes three input gradients (36 B); a live lane
+    its origin, direction, throughput, hit id and two flags (42 B), the
+    uniforms it reads (the half vector's two, the lobe's, roulette's, the
+    diffuse direction's two, the light's three) and, where it emits or its
+    shadow ray is visible, the radiance's gradient (12 B); a diffuse lane
+    of a lit scene its shadow hit (5 B); each distinct hit row and visible
+    light row once, the material table, the atlas and the light list once,
+    and the material and texel sums once. The kernel's binning and its
+    ray list are not the function's work: bounce_bin has its own bound
+    (``shade_bin_bound``)."""
+    scene, live = saved.scene, saved.active & saved.hit
+    num = live.shape[0]
+    table = scene.shade_table is not None
+    safe = saved.idx.clamp_min(0).long()
+    classes = backward_classes(saved, pending)
+    visible = classes["diffuse visible"]
+    diffuse = visible | classes["diffuse dark"]
+    nee = diffuse & saved.shadow_hit if scene.has_lights else torch.zeros_like(live)
+    lit = bool(scene.has_lights)
     emit = live & ~saved.prev_diffuse
-    kinds = {"metal": metal, "specular": spec & ~saved.inside,
-             "specular inside": spec & saved.inside, "transmission": trans, "diffuse": diffuse}
+    kinds = {"metal": classes["metal"], "specular": classes["specular"],
+             "specular inside": classes["specular inside"],
+             "transmission": classes["transmission"], "diffuse": diffuse}
     lanes = {k: int(v.sum()) for k, v in kinds.items()}
     n_live, n_visible = int(live.sum()), int(visible.sum())
     dielectric = n_live - lanes["metal"]
@@ -3722,26 +3770,82 @@ class BackwardCheck:
     tests/test_torch_shade_grad.py: slices of 4,096 rays, their table
     gradients summed in float64), holds the kernel's to the plain version's
     (that module's ``check_backward``, with its allowance for
-    ill-conditioned rays) and goes on with the kernel's; keeps the last
-    call's (bounce 0's) inputs, the largest differences and the per-ray
-    values beyond the tolerances."""
+    ill-conditioned rays), recomputes in float64 each ray with a value
+    beyond the strict tolerance (``float64_recheck``: the kernel no farther
+    from it than RECHECK_FACTOR times the plain version) and goes on with
+    the kernel's; keeps the last call's (bounce 0's) inputs, the largest
+    differences, the per-ray values beyond the tolerances and the float64
+    distances."""
 
     def __init__(self, label: str, real, tests):
         self.label, self.real, self.tests = label, real, tests
         self.calls, self.last, self.errs = 0, None, {}
+        self.recheck = {"rays": 0, "kernel": 0.0, "plain": 0.0}
 
     def __call__(self, saved, grad_outputs, needs=None):
         got = self.real(saved, grad_outputs)
         want = self.tests.plain_in_slices(saved, grad_outputs)
         torch.cuda.synchronize()
-        errs = self.tests.check_backward(f"shade_grad {self.label} backward call {self.calls}",
-                                         got, want, self.tests.ILL_CONDITIONED_SHARE)
+        label = f"shade_grad {self.label} backward call {self.calls}"
+        errs = self.tests.check_backward(label, got, want, self.tests.ILL_CONDITIONED_SHARE)
         self.errs["beyond"] = self.errs.get("beyond", 0) + errs.pop("beyond")
         for k, v in errs.items():
             self.errs[k] = max(self.errs.get(k, 0.0), v)
+        rays = self.tests.beyond_rays(got, want)
+        if rays.numel():
+            r = self.tests.float64_recheck(label, saved, grad_outputs, got, want, rays)
+            self.recheck = {"rays": self.recheck["rays"] + r["rays"],
+                            **{k: max(self.recheck[k], r[k]) for k in ("kernel", "plain")}}
         self.calls += 1
         self.last = (saved, grad_outputs)
         return got
+
+
+# Per-ray values beyond the strict tolerance in run BO (PR 15) over each
+# path's fwd+bwd sample: the kernel's per-ray bits are that kernel's, so the
+# counts cannot grow.
+SHADE_GRAD_BEYOND = {"demo": 0, "hero": 5, "hero20k": 0, "demo without tables": 0}
+
+
+def many_materials(scene, copies: int):
+    """``scene`` with its material table repeated ``copies`` times and
+    triangle i given copy i % copies of its material: the same shading,
+    ``copies`` times the materials."""
+    m = scene.materials
+    n_mat = m.albedo.shape[0]
+
+    def shift(rows):
+        return (torch.arange(rows, device=scene.device) % copies) * n_mat
+
+    tables = {}
+    if scene.shade_table is not None:
+        table = scene.shade_table.detach().clone()
+        table[:, 24] += shift(table.shape[0]).to(table.dtype)
+        tables["shade_table"] = table
+    with torch.no_grad():
+        fields = {f.name: getattr(m, f.name).detach().repeat(
+            copies, *([1] * (getattr(m, f.name).dim() - 1))) for f in dataclasses.fields(m)}
+    return scene.replace(materials=m.replace(**fields), **tables,
+                         mat_id=scene.mat_id + shift(scene.mat_id.shape[0]).to(scene.mat_id.dtype))
+
+
+def shade_bin_bound(saved) -> dict:
+    """bounce_bin's bound on one call's ``saved`` inputs: SHADE_BIN_SLOTS a
+    lane, and the bytes: every lane's hit, active and next flags (4 B), a
+    live lane's inside flag and list entry (5 B), each live lane that is
+    neither diffuse nor a transmission its hit id, the material id of its
+    row and the extinction (12 B), a diffuse lane its shadow hit (1 B) and,
+    where it hit, its shadow id and light pick (8 B), a dead lane its three
+    gradients in and out (72 B), and the six class counts."""
+    live = saved.active & saved.hit
+    diffuse = live & saved.next_diffuse
+    trans = live & ~saved.next_diffuse & (saved.next_inside != saved.inside)
+    n_live, n_dead = int(live.sum()), live.numel() - int(live.sum())
+    rest = n_live - int(diffuse.sum()) - int(trans.sum())
+    hits = int((diffuse & saved.shadow_hit).sum()) if saved.shadow_hit is not None else 0
+    nbytes = (live.numel() * 4 + n_live * (1 + 4) + rest * 12 + int(diffuse.sum()) * 1
+              + hits * 8 + n_dead * 72 + 4 * 6)
+    return bound(live.numel() * SHADE_BIN_SLOTS, nbytes)
 
 
 def phase_shade_grad(device, scenes, results) -> None:
@@ -3751,6 +3855,11 @@ def phase_shade_grad(device, scenes, results) -> None:
     from isaklm_raytracer_tpu_torch.integrator.render import render_sample, trace_name
     from isaklm_raytracer_tpu_torch.kernels import shade
 
+    attrs = shade.backward_attributes(device)
+    log("shade_grad: the backward's kernels as the card reports them (registers a thread, local "
+        "bytes a thread, resident warps an SM, threads a block): " + "; ".join(
+            f"{k} {v['registers']}, {v['local_bytes']} B, {v['resident_warps']} warps, "
+            f"{v['threads']}" for k, v in attrs.items()))
     card_test("test_torch_shade_grad", "test_cuda_bounce_backward_equals_plain")
     tests = test_module("test_torch_shade_grad")
     demo = scenes["demo"]
@@ -3791,25 +3900,114 @@ def phase_shade_grad(device, scenes, results) -> None:
         if not all(torch.isfinite(g).all() for g in grads):
             raise RuntimeError(f"shade_grad {label}: a non-finite gradient")
         beyond = check.errs.pop("beyond")
+        rc = check.recheck
         log(f"shade_grad {label} {w}x{h}x{b} ({trace_name(scene)}): every bounce's backward of "
             f"{config.num_pixels} rays through bounce_backward within the test tolerances of "
             f"bounce_backward_plain ({b} bounces; {beyond} per-ray values beyond them, within "
-            f"{tests.ILL_CONDITIONED_RTOL:g}; largest |kernel - plain| "
+            f"{tests.ILL_CONDITIONED_RTOL:g}, at most {SHADE_GRAD_BEYOND[label]} in run BO; their "
+            f"{rc['rays']} rays recomputed in float64: the kernel at most {rc['kernel']:.3e} from "
+            f"it, the float32 plain version {rc['plain']:.3e}; largest |kernel - plain| "
             + ", ".join(f"{k} {v:.3e}" for k, v in check.errs.items())
             + f"); loss {float(loss):.6f} equal to the straight sample's")
+        if beyond > SHADE_GRAD_BEYOND[label]:
+            raise RuntimeError(f"shade_grad {label}: {beyond} per-ray values beyond the "
+                               f"tolerance, more than run BO's {SHADE_GRAD_BEYOND[label]}")
         checks[label] = check
+
+    @torch.no_grad()  # as in a backward: the saved rays require grad
+    def kernel_symbols(label, fn, want):
+        """The backward kernel records of one call under torch.profiler:
+        the reverse's instantiation must be ``want``."""
+        with cuda_profile() as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [name for name, _, _ in device_records(prof)
+                 if kernel_symbol("shade_backward") in name]
+        if len(names) != 1 or want not in names[0]:
+            raise RuntimeError(f"shade_grad {label}: the reverse ran as {names}, {want} expected")
+
+    @torch.no_grad()
+    def held(label, saved, gouts, want_symbol=None):
+        """The kernel against the plain version on one call's inputs."""
+        got = shade.bounce_backward(saved, gouts)
+        want = tests.plain_in_slices(saved, gouts)
+        torch.cuda.synchronize()
+        errs = tests.check_backward(f"shade_grad {label}", got, want)
+        if want_symbol:
+            kernel_symbols(label, lambda: shade.bounce_backward(saved, gouts), want_symbol)
+        return errs
+
+    def rays_of(saved, gouts, rays):
+        """The saved inputs and output gradients of ``rays`` alone."""
+        cut = {f: ((v[:, rays] if f == "u" else v[rays]).contiguous()
+                   if isinstance(v, torch.Tensor) else v) for f, v in vars(saved).items()}
+        return shade.BounceSaved(**cut), [g[rays].contiguous() for g in gouts]
+
+    saved, gouts = checks["demo"].last
+    n_mat = saved.scene.materials.albedo.shape[0]
+    copies = 256 // n_mat + 1
+    wide = dataclasses.replace(saved, scene=many_materials(saved.scene, copies))
+    errs = held(f"demo bounce 0 with {copies * n_mat} materials", wide, gouts,
+                "bounce_backward_kernel<false>")
+    held("demo bounce 0", saved, gouts, "bounce_backward_kernel<true>")
+    log(f"shade_grad demo bounce 0 with its material table repeated {copies} times "
+        f"({copies * n_mat} materials, above the shared table's 256): the reverse with device "
+        f"sums (bounce_backward_kernel<false>) within the test tolerances of the plain version, "
+        f"largest |kernel - plain| albedo {errs['albedo']:.3e}, emittance {errs['emittance']:.3e};"
+        f" the demo's own {n_mat} ran bounce_backward_kernel<true>")
+    dead = dataclasses.replace(saved, active=torch.zeros_like(saved.active))
+    errs = held("demo bounce 0, every lane dead", dead, gouts)
+    lists = shade.bounce_bin_plain(saved)
+    for name, rays in zip(shade.RAY_CLASSES, lists):
+        if rays.numel():
+            sub, sub_g = rays_of(saved, gouts, rays)
+            held(f"demo bounce 0, its {rays.numel()} {name} rays alone", sub, sub_g)
+    log(f"shade_grad demo bounce 0: every lane dead (the pass-through alone, largest "
+        f"|kernel - plain| ray_d {errs['ray_d']:.3e}) and each class alone ("
+        + ", ".join(f"{n} {r.numel()}" for n, r in zip(shade.RAY_CLASSES, lists))
+        + " rays) within the test tolerances of the plain version")
+
+    @torch.no_grad()
+    def bin_check(label, saved, gouts):
+        """bounce_bin against bounce_bin_plain: each segment's rays (sorted),
+        the counts, the dead lanes' gradients bit for bit."""
+        outs = shade.bounce_bin(saved, gouts)
+        want = shade.bounce_bin_plain(saved)
+        counts = outs.class_counts.tolist()
+        for c, (name, rays) in enumerate(zip(shade.RAY_CLASSES, want)):
+            got = outs.ray_list[c, :counts[c]].long().sort().values
+            if counts[c] != rays.numel() or not torch.equal(got, rays):
+                raise RuntimeError(f"bounce_bin {label}: class {name} differs from the plain "
+                                   f"version ({counts[c]} rays, {rays.numel()} expected)")
+        if any(counts[len(want):]):
+            raise RuntimeError(f"bounce_bin {label}: counts beyond the classes {counts}")
+        dead = ~(saved.active & saved.hit)
+        if not all(torch.equal(o[dead], g[dead]) for o, g in zip(outs[:3], gouts[:3])):
+            raise RuntimeError(f"bounce_bin {label}: a dead lane's gradient is not passed through")
+        return counts
 
     @torch.no_grad()  # as in a backward: the saved rays require grad
     def timed(label, check):
         saved, gouts = check.last
         rays = saved.ray_o.shape[0]
+        counts = bin_check(label, saved, gouts)
         k_ms, p_ms, own_ms = graph_device_ms(
-            f"bounce_backward {label} bounce 0, {rays} rays", kernel_symbol("shade_backward"),
+            f"bounce_backward {label} bounce 0, {rays} rays (the binning, the reverse and the "
+            "sums' zero fill)", kernel_symbol("shade_backward"),
             lambda: shade.bounce_backward(saved, gouts),
             lambda: shade.bounce_backward_plain(saved, gouts), plain_reps=3, same=False)
         host_ms, _ = cuda_ms(lambda: shade.bounce_backward(saved, gouts))
         log(f"time bounce_backward {label} bounce 0, {rays} rays, calls one after another (the "
             f"host's rate): {host_ms:.4f} ms a call")
+        bin_ms, _, _ = graph_device_ms(
+            f"bounce_bin {label} bounce 0, {rays} rays (the binning and the zero fill; its "
+            "plain stand-in: itself, once)", kernel_symbol("shade_bin"),
+            lambda: shade.bounce_bin(saved, gouts)[-2:],
+            lambda: shade.bounce_bin(saved, gouts)[-2:], plain_reps=1, same=False)
+        bin_plain_ms, _ = cuda_ms(lambda: shade.bounce_bin_plain(saved), reps=5)
+        log(f"time bounce_bin_plain {label} bounce 0 (eager, CUDA events; it syncs): "
+            f"{bin_plain_ms:.4f} ms; class counts "
+            + ", ".join(f"{n} {c}" for n, c in zip(shade.RAY_CLASSES, counts)))
         pending = shade.shade_bounce(saved.scene, saved.ray_o, saved.ray_d, saved.idx, saved.hit,
                                      saved.active, saved.throughput, saved.radiance,
                                      saved.inside, saved.prev_diffuse, saved.u,
@@ -3818,15 +4016,20 @@ def phase_shade_grad(device, scenes, results) -> None:
         log(f"bounce_backward bound {label} bounce 0: {bb['bound_ms']:.4f} ms ({bb['bound_by']}; "
             f"{bb['ops']:.4g} slots, {bb['bytes']:.4g} bytes; live lanes by lobe {bb['lanes']}, "
             f"{bb['visible']} visible shadow hits) = {bb['bound_ms'] / k_ms:.1%} of its time")
-        return k_ms, p_ms, bb
+        nb = shade_bin_bound(saved)
+        log(f"bounce_bin bound {label} bounce 0: {nb['bound_ms']:.5f} ms ({nb['bound_by']}; "
+            f"{nb['bytes']:.4g} bytes) = {nb['bound_ms'] / bin_ms:.1%} of its time")
+        return k_ms, p_ms, bb, bin_ms, bin_plain_ms, nb
 
     for label in ("hero", "demo"):  # the kernels line takes the demo's
-        k_ms, p_ms, bb = timed(label, checks[label])
+        k_ms, p_ms, bb, bin_ms, bin_plain_ms, nb = timed(label, checks[label])
     rays = checks["demo"].last[0].ray_o.shape[0]
     results["shade_backward"] = {
         "max_abs_err": max(max(c.errs.values()) for c in checks.values()), "ms": k_ms,
         "plain_ms": p_ms, **{k: v for k, v in bb.items() if k not in ("lanes", "visible")},
-        "shape": f"{rays} rays, the demo's bounce 0 at 512x512"}
+        "shape": f"{rays} rays, the demo's bounce 0 at 512x512 (both kernels of a call)"}
+    results["shade_bin"] = {"max_abs_err": 0.0, "ms": bin_ms, "plain_ms": bin_plain_ms, **nb,
+                            "shape": f"{rays} rays, the demo's bounce 0 at 512x512"}
 
 
 def main() -> int:
@@ -4370,7 +4573,7 @@ def main() -> int:
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved before the runs (the demo's "
             f"and the hero's graphs cached); the hero with MXU blocks "
             f"{'freed with its graphs' if hero_mxu_ref() is None else 'still alive'}")
-        bwd_launches = 0  # the backward kernel's, over the fwd+bwd runs (eager)
+        bwd_launches = bin_launches = 0  # the backward's kernels, over the fwd+bwd runs (eager)
         for label, scene, (w, h, b), chunks, sort in (
             ("demo", demo, (512, 512, 8), (0, defaults.ray_chunk), "morton"),
             ("hero", hero, (HERO_W, HERO_H, HERO_BOUNCES), (0, defaults.ray_chunk), "morton"),
@@ -4385,6 +4588,7 @@ def main() -> int:
                 if out["launches"][kernel] == 0:
                     raise RuntimeError(f"grad {label}: the {kernel} kernel did not launch")
                 bwd_launches += out["launches"]["shade_backward"]
+                bin_launches += out["launches"]["shade_bin"]
                 if sort == "block":
                     first_blocks_launches = (out["launches"]["first_blocks"],) * 2  # eager
                     if first_blocks_launches[0] == 0:
@@ -4414,7 +4618,8 @@ def main() -> int:
                 "null": (null_launches,) * 2, "kd": results["kd"]["launches"],
                 "brute": results["brute"]["launches"], "sampler": sampler_launches,
                 "tri_consts": results["tri_consts"]["launches"], **shade_launches,
-                "shade_backward": (bwd_launches,) * 2}  # the grad phase's fwd+bwd, eager
+                "shade_backward": (bwd_launches,) * 2,  # the grad phase's fwd+bwd, eager
+                "shade_bin": (bin_launches,) * 2}
     # the CUDA kernel of each entry and the TPU kernel it replaces
     pallas = "isaklm_raytracer_tpu/kernels/intersect.py:"
     kernels = {
@@ -4440,9 +4645,12 @@ def main() -> int:
         # the reverse of that body (jax.grad through the lax.scan)
         "shade_backward": ("bounce_backward",
                            "isaklm_raytracer_tpu/integrator/path_trace.py:61"),
+        # its binning pass, which sorts the rays by lobe for that reverse
+        "shade_bin": ("bounce_bin", "isaklm_raytracer_tpu/integrator/path_trace.py:61"),
     }
     # the source of each kernel that is not csrc/<name>.cu
-    sources = {"finish_bounce": "shade_bounce", "bounce_backward": "shade_backward"}
+    sources = {"finish_bounce": "shade_bounce", "bounce_backward": "shade_backward",
+               "bounce_bin": "shade_backward"}
     for k, r in results.items():
         log(f"kernels line, {kernels[k][0]}: ms and plain_ms at {r['shape']}; launches: the "
             f"kernels the card ran in its main-path run, measured by torch.profiler where the "

@@ -1,5 +1,5 @@
-// The reverse mode of a bounce's shading for Hopper (sm_90a): one kernel,
-// one thread a ray.
+// The reverse mode of a bounce's shading for Hopper (sm_90a): a binning
+// pass and the reverse itself, one thread a ray.
 //
 // Replaces no Pallas kernel. It computes the gradient of the JAX package's
 // bounce body (isaklm_raytracer_tpu/integrator/path_trace.py:61-131) but
@@ -18,7 +18,7 @@
 // plain versions when it requires grad).
 //
 // There is no intersector call between the two halves of the reverse
-// pass, so one kernel runs both: a thread recomputes its ray's forward in
+// pass, so one thread runs both: it recomputes its ray's forward in
 // registers with the forward's own helpers (shade_common.cuh, bit for bit
 // the forward kernels' values, so every branch and selection is the
 // forward's), then runs the reverse pass by hand, op for op the derivative
@@ -31,27 +31,54 @@
 // infinite local derivative the plain version gives NaN and this kernel
 // a finite value (ROADMAP.md section C lists the cases).
 //
-// The material and texel gradients are sums over the rays. Every ray of a
-// warp that hits one material would otherwise add to the same few
-// addresses: a warp first groups its lanes by material (and by texel) with
-// __match_any_sync, a group of one adds its values itself, a larger group
-// sums them by shuffles and its first lane adds the sum, one atomic a
-// (group, field). The order of the atomics differs from run to run, so
-// these sums are not bit for bit the same from run to run; they are kept in
-// float64 (one rounding to float32 at the end), since a float32 sum drifts
-// where one term is added tens of thousands of times (the plain version's
-// index_add over a 512x512 wavefront: up to 7e-4 of the light's emittance
-// gradient on the H100).
-//
 // What bounds it on the H100: operations. At the demo's bounce 0 (262,144
 // rays) a call must move about 37 MB (a ray's state, uniforms, shadow hit
 // and output gradients in, three gradients out: 11 us at the HBM rate) and
 // issue about 5e8 slots (the forward again and its reverse, 1,700-2,700 a
 // live ray by its lobe and shadow hit: 15 us; chip_smoke.py
-// shade_backward_bound). The design is shade_bounce.cu's: one thread a
-// ray, all in registers, nothing staged; the reverse needs the forward's
-// intermediates at once, 180 registers a thread, which leaves few warps an
-// SM to hide latency (a first kernel: about ten times that bound).
+// shade_backward_bound). Three things held a first kernel (one thread a
+// ray in pixel order, sums by global atomics) at a tenth of that:
+//
+// - Divergence. Each lobe's reverse and the direct light's are long
+//   branches, and the lobe is drawn per ray: a warp ran several. So
+//   bounce_bin_kernel first sorts the live rays by class (RayClass: the
+//   lobe the forward chose, which the forward's next inside and
+//   prev_diffuse flags record, the metal's from its material, and for a
+//   diffuse lobe whether its shadow ray sees the picked light) into one
+//   segment of a ray list each, by a block-local counting sort and one
+//   global atomic a (block, class); it writes the pass-through gradients
+//   of the dead lanes. bounce_backward_kernel's warps then take 32
+//   consecutive entries of one segment: a warp runs one lobe's code.
+// - Registers. The reverse needs the forward's intermediates at once (the
+//   first kernel: 180 registers a thread, 8 warps an SM). The code after
+//   the lobe choice is one inlined tail a lobe (lobe_reverse), so no lobe
+//   holds another's values; the direct light, which only the diffuse tail
+//   runs, was the peak, so that tail reads the throughput and the material
+//   again after it and computes the half vector again, and every tail
+//   reads the ray origin and the triangle again for the geometry's
+//   reverse, behind a compiler barrier (READ_AGAIN) so that the values
+//   are not kept. __launch_bounds__ then holds a thread to 128 registers
+//   without spills (2 blocks of 256 an SM, 16 warps) to hide the loads of
+//   the hit's row, its material, texels and uniforms.
+// - The sums. The material and texel gradients are sums over the rays,
+//   and every ray that hits one material adds to the same few addresses. A
+//   warp adds one sum a run of neighbouring lanes with one material (and
+//   texel) and field, by a segmented scan of shuffles (warp_add). The
+//   kernel's blocks are persistent (as many as stay resident, each walking
+//   the list), and each keeps an (M, 12) float64 table in shared memory (9
+//   material fields, the light's emittance 3) that takes its warps' sums
+//   and is flushed once, one global atomic a non-zero (block, row, field).
+//   Above kTableRows materials the warps' sums go to device memory as they
+//   come. The texel sums (thousands of addresses) go to device memory by
+//   the warps' runs. The order of the atomics differs from run to run, so these sums are
+//   not bit for bit the same from run to run; they are kept in float64
+//   (one rounding to float32 at the end), since a float32 sum drifts where one term is added tens of thousands
+//   of times (the plain version's index_add over a 512x512 wavefront: up
+//   to 7e-4 of the light's emittance gradient on the H100).
+//
+// Each ray's arithmetic is that of the first kernel op for op, so its
+// gradients are too: only which lanes share a warp, how many registers a
+// thread holds and how the sums reach device memory changed.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -72,6 +99,8 @@ struct BackwardArgs {
   const float* u;  // (9, R) the bounce's uniforms, rows u_stride apart
   const int32_t* shadow_idx;  // (R,) the shadow rays' hit ids; null without lights
   const uint8_t* shadow_hit;
+  const uint8_t* next_inside;  // (R,) bool, the forward's next inside and prev_diffuse
+  const uint8_t* next_diffuse;  // (the Pending state's): the lobe it chose
   const float* g_ray_o;  // (R, 3) the gradients of the bounce's outputs
   const float* g_ray_d;
   const float* g_throughput;
@@ -81,8 +110,11 @@ struct BackwardArgs {
   float* o_throughput;
   double* o_material;  // (M, 9) added to: albedo, emittance, roughness, ior, extinction; or null
   double* o_texels;  // (P, 3) added to; or null
+  int32_t* ray_list;  // (kLiveClasses, R): the live rays of each class, the binning's output
+  int32_t* class_counts;  // (kClassCounts,) zeros on entry: the rays of each live class
   int64_t u_stride;
   int32_t num_rays;
+  int32_t num_materials;
   int32_t roulette;  // bounce >= rr_start_bounce
   int32_t lobe_ratio_grad;
 };
@@ -426,83 +458,197 @@ __device__ __forceinline__ V3 texture_bwd(const ShadeScene& s, int tex_id, V3 co
   return mul(g, load3(s.texels, *texel));
 }
 
-// One ray's reverse pass: writes its ray gradients, fills its additions.
-__device__ void bounce_backward_ray(const ShadeScene& s, const BackwardArgs& a, int64_t r,
-                                    Contrib& out) {
-  const V3 o = load3(a.ray_o, r), d = load3(a.ray_d, r);
-  const V3 throughput = load3(a.throughput, r);
+
+// The classes the binning sorts the rays into: the live ones by the lobe
+// the forward chose and, for a diffuse lobe, by whether its shadow ray saw
+// the picked light, the costliest first (the order of the ray list's
+// segments, which the kernel's warps take in turns); and the dead.
+enum RayClass : int {
+  kDiffuseVisible = 0,  // a diffuse lobe and its direct light
+  kTransmission,
+  kSpecular,  // a dielectric's reflection from outside
+  kMetal,
+  kSpecularInside,
+  kDiffuseDark,  // a diffuse lobe without a visible light
+  kLiveClasses,
+  kDead = kLiveClasses,  // inactive or missed: the state passes through
+};
+constexpr int kClassCounts = 8;  // class_counts' words: a live class's each, and padding
+
+// The light nee.shadow_rays picked from the uniform u5.
+__device__ __forceinline__ int picked_light(const ShadeScene& s, float u5) {
+  const int n = s.num_lights;
+  int pick = static_cast<int>(u5 * static_cast<float>(n));
+  pick = pick < 0 ? 0 : (pick > n - 1 ? n - 1 : pick);
+  return s.light_indices[pick];
+}
+
+// Ray r's class, from its flags, the forward's next flags (a transmission
+// flips inside, a diffuse lobe sets prev_diffuse), its material (a metal)
+// and its shadow hit; as the kernel's own lobe choice and direct light
+// decide it, since the forward computed the flags with the same helpers.
+// Every read comes first, none behind a branch on another, so that their
+// latencies overlap.
+__device__ __forceinline__ int ray_class(const ShadeScene& s, const BackwardArgs& a, int64_t r) {
+  const bool live = (a.active[r] != 0) & (a.hit[r] != 0);
+  const bool diffuse = a.next_diffuse[r] != 0, inside = a.inside[r] != 0;
+  const bool flips = (a.next_inside[r] != 0) != inside;
+  const bool lit = s.has_lights != 0;
+  const bool shadow_hit = lit ? a.shadow_hit[r] != 0 : false;
+  const int shadow_idx = lit ? a.shadow_idx[r] : -1;
+  const int light = picked_light(s, a.u[r + 5 * a.u_stride]);
   const int idx = a.idx[r];
-  const bool hit = a.hit[r] != 0, live = (a.active[r] != 0) && hit;
-  const bool inside = a.inside[r] != 0, prev_diffuse = a.prev_diffuse[r] != 0;
+  const int64_t i = idx > 0 ? idx : 0;
+  const int mat = s.table != nullptr ? static_cast<int>(s.table[32 * i + 24]) : s.mat_id[i];
+  const bool metal = s.extinction[mat] > 0.0f;
+  if (!live) return kDead;
+  if (diffuse) return shadow_hit && shadow_idx == light ? kDiffuseVisible : kDiffuseDark;
+  if (flips) return kTransmission;
+  if (metal) return kMetal;
+  return inside ? kSpecularInside : kSpecular;
+}
+
+// A dead lane's state passes through.
+__device__ __forceinline__ void pass_through(const BackwardArgs& a, int64_t r) {
+  store3(a.o_ray_o, r, load3(a.g_ray_o, r));
+  store3(a.o_ray_d, r, load3(a.g_ray_d, r));
+  store3(a.o_throughput, r, load3(a.g_throughput, r));
+}
+
+// A compiler barrier: what the code reads from memory after it is read
+// again rather than kept in registers since before (a value read or
+// computed again by the same operations is the same, bit for bit, and a
+// register held through a long stretch of code costs resident warps).
+#define READ_AGAIN() asm volatile("" ::: "memory")
+
+// The GGX half vector's terms (scatter's) from its two uniforms and the
+// roughness.
+struct HalfTerms {
+  float u0, z, denom, y, cos_t, x, sin_t, cp, sp;
+};
+
+__device__ __forceinline__ HalfTerms half_terms(float u0, float u1, float rough) {
+  HalfTerms h;
+  const float tau = F(2.0 * kPi);
+  h.u0 = u0;
+  const float a2 = rough * rough;
+  h.z = u0 * (a2 - 1.0f) + 1.0f;
+  h.denom = clamp_min(h.z, F(1e-12));
+  h.y = (1.0f - u0) / h.denom;
+  h.cos_t = sqrtf(clamp(h.y, 0.0f, 1.0f));
+  h.x = 1.0f - h.cos_t * h.cos_t;
+  h.sin_t = sqrtf(clamp_min(h.x, F(1e-12)));
+  const float phi = u1 * tau;
+  h.cp = cosf(phi);
+  h.sp = sinf(phi);
+  return h;
+}
+
+// shade_bounce_kernel's forward on a live lane up to the choice of the
+// lobe: what the lobes' tails read.
+struct Front {
+  V3 d, throughput;
+  int tri_id, mat;  // the hit's row, read again for the geometry's reverse, and material
+  bool inside, emit;
+  Geometry g;
+  Material m;
+  V3 wi, half;
+  float n1, n2, f;  // a dielectric's indices and Fresnel term
+};
+
+enum Lobe { kMetalLobe, kSpecularLobe, kTransmissionLobe, kDiffuseLobe };
+
+// The reverse of the GGX half vector and of the hit's geometry from the
+// gradients the lobe's tail gathered; writes the ray's gradients and fills
+// its additions of the hit's material and texel.
+__device__ __forceinline__ void front_reverse(const ShadeScene& s, const BackwardArgs& a, int64_t r,
+                                              const Front& fr, V3 g_half, V3 g_tangent,
+                                              V3 g_normal, V3 g_bitangent, float g_rough,
+                                              V3 g_position, V3 g_wi, V3 g_throughput,
+                                              V3 g_albedo, V3 g_emittance, float g_ior,
+                                              float g_ext, float rough, Contrib& out) {
+  READ_AGAIN();  // the half vector's terms and the ray and triangle again
+  const HalfTerms h = half_terms(a.u[r], a.u[r + a.u_stride], rough);
+  g_tangent = g_tangent + (h.sin_t * h.cp) * g_half;
+  g_normal = g_normal + h.cos_t * g_half;
+  g_bitangent = g_bitangent + (h.sin_t * h.sp) * g_half;
+  const float g_sin_t = dotg(g_half, fr.g.tangent) * h.cp + dotg(g_half, fr.g.bitangent) * h.sp;
+  float g_cos_t = dotg(g_half, fr.g.normal);
+  const float g_x = h.x >= F(1e-12) ? sqrt_bwd(g_sin_t, h.sin_t) : 0.0f;
+  g_cos_t -= 2.0f * g_x * h.cos_t;
+  const float g_y = (h.y >= 0.0f && h.y <= 1.0f) ? sqrt_bwd(g_cos_t, h.cos_t) : 0.0f;
+  const float g_denom = -g_y * (h.y / h.denom);
+  const float g_a2 = h.z >= F(1e-12) ? g_denom * h.u0 : 0.0f;
+  g_rough += 2.0f * g_a2 * rough;
+
+  const V3 o = load3(a.ray_o, r);
+  const Tri tri = load_tri(s, fr.tri_id);
+  const GeometryGrad gg = hit_geometry_bwd(tri, o, fr.d, true, g_position, g_normal, g_tangent,
+                                           g_bitangent, true);
+  store3(a.o_ray_o, r, gg.o);
+  store3(a.o_ray_d, r, gg.d - g_wi);
+  store3(a.o_throughput, r, g_throughput);
+
+  out.mat = tri.mat;
+  const int tex = s.tex_id[tri.mat];
+  const V3 albedo_color = load3(s.albedo, tri.mat), em_color = load3(s.emittance, tri.mat);
+  float tg[3] = {0.0f, 0.0f, 0.0f};
+  const V3 ga = texture_bwd(s, tex, albedo_color, fr.g.u, fr.g.v, g_albedo, &out.texel,
+                            out.texel_g);
+  const V3 ge = texture_bwd(s, tex, em_color, fr.g.u, fr.g.v, g_emittance, &out.texel, tg);
+  for (int k = 0; k < 3; ++k) out.texel_g[k] += tg[k];
+  const float vals[9] = {ga.x, ga.y, ga.z, ge.x, ge.y, ge.z, g_rough, g_ior, g_ext};
+  for (int k = 0; k < 9; ++k) out.mat_g[k] = vals[k];
+}
+
+// The rest of a live lane's reverse pass once its lobe is known: the
+// lobe's forward, finish_bounce_kernel's reverse (Russian roulette; the
+// direct light on a diffuse lobe), then shade_bounce_kernel's (the state,
+// the emission, the lobe). One inlined copy a lobe, so no lobe holds
+// another's values.
+template <int kLobe>
+__device__ __forceinline__ void lobe_reverse(const ShadeScene& s, const BackwardArgs& a, int64_t r,
+                                             const Front& fr, Contrib& out) {
   const float* u = a.u + r;
   const int64_t stride = a.u_stride;
-  const V3 g_o_out = load3(a.g_ray_o, r), g_d_out = load3(a.g_ray_d, r);
-  const V3 g_t_out = load3(a.g_throughput, r), g_rad = load3(a.g_radiance, r);
-  if (!live) {  // the state passes through; nothing of the surface is taken
-    store3(a.o_ray_o, r, g_o_out);
-    store3(a.o_ray_d, r, g_d_out);
-    store3(a.o_throughput, r, g_t_out);
-    return;
-  }
-
-  // --- the forward of shade_bounce_kernel on a live lane
-  const Tri tri = load_tri(s, idx > 0 ? idx : 0);
-  const Geometry g = hit_geometry(tri, o, d, hit);
-  const Material m = material(s, tri.mat, g.u, g.v);
-  const bool emit = !prev_diffuse;
-  const float tau = F(2.0 * kPi);
-  const V3 wi = neg(d);
-  const float rough = m.roughness;
-  const float u0 = u[0], u1 = u[stride];
-  const float a2 = rough * rough;
-  const float z = u0 * (a2 - 1.0f) + 1.0f;
-  const float denom = clamp_min(z, F(1e-12));
-  const float y = (1.0f - u0) / denom;
-  const float cos_t = sqrtf(clamp(y, 0.0f, 1.0f));
-  const float x = 1.0f - cos_t * cos_t;
-  const float sin_t = sqrtf(clamp_min(x, F(1e-12)));
-  const float phi = u1 * tau;
-  const float cp = cosf(phi), sp = sinf(phi);
-  const V3 half = (sin_t * cp) * g.tangent + cos_t * g.normal + (sin_t * sp) * g.bitangent;
-
-  enum Lobe { kMetal, kSpecular, kTransmission, kDiffuse } lobe;
-  float n1 = 1.0f, n2 = 1.0f, f = 0.0f, ratio_spec = 1.0f, ratio_rest = 1.0f;
   const bool lrg = a.lobe_ratio_grad != 0;
-  V3 direction, weight;
-  float sw = 1.0f, fc = 0.0f;
-  if (m.extinction > 0.0f) {
-    lobe = kMetal;
+  const Geometry& g = fr.g;
+  // the material, the throughput and the half vector: the diffuse tail reads
+  // them again after the direct light rather than hold them through it
+  Material m = fr.m;
+  V3 throughput = fr.throughput, half = fr.half;
+  const V3 wi = fr.wi;
+  const float rough = m.roughness;
+
+  // --- the lobe's forward: ratio is ratio_spec of a specular lobe,
+  // ratio_rest of a transmission or a diffuse one
+  float sw = 1.0f, fc = 0.0f, ratio = 1.0f;
+  V3 direction = {0.0f, 0.0f, 0.0f}, weight;
+  if constexpr (kLobe == kMetalLobe) {
     fc = fresnel_conductor(wi, half, m.ior, m.extinction);
     direction = reflect(wi, half);
     sw = specular_weight(wi, direction, half, g.normal, rough);
     weight = (sw * fc) * m.albedo;
+  } else if constexpr (kLobe == kSpecularLobe) {
+    ratio = lrg ? fr.f / clamp_min(fr.f, F(1e-12)) : 1.0f;
+    direction = reflect(wi, half);
+    if (!fr.inside) sw = specular_weight(wi, direction, half, g.normal, rough);
+    const float w = (sw * ratio) * 1.0f;
+    weight = {w, w, w};
   } else {
-    const float ior = clamp_min(m.ior, F(1e-6));
-    n1 = inside ? ior : 1.0f;
-    n2 = inside ? 1.0f : ior;
-    f = fresnel_dielectric(wi, half, n1, n2);
-    ratio_spec = lrg ? f / clamp_min(f, F(1e-12)) : 1.0f;
-    ratio_rest = lrg ? (1.0f - f) / clamp_min(1.0f - f, F(1e-12)) : 1.0f;
-    if (u[2 * stride] < f) {
-      lobe = kSpecular;
-      direction = reflect(wi, half);
-      if (!inside) sw = specular_weight(wi, direction, half, g.normal, rough);
-      const float w = (sw * ratio_spec) * 1.0f;
-      weight = {w, w, w};
-    } else if (m.transparent > 0.5f) {
-      lobe = kTransmission;
-      direction = refract(wi, half, n1, n2);
+    ratio = lrg ? (1.0f - fr.f) / clamp_min(1.0f - fr.f, F(1e-12)) : 1.0f;
+    if constexpr (kLobe == kTransmissionLobe) {
+      direction = refract(wi, half, fr.n1, fr.n2);
       sw = specular_weight(wi, direction, half, g.normal, rough);
-      weight = (sw * ratio_rest) * m.albedo;
+      weight = (sw * ratio) * m.albedo;
     } else {
-      lobe = kDiffuse;
-      weight = ratio_rest * m.albedo;
+      weight = ratio * m.albedo;
     }
   }
   const V3 next_t = mul(throughput, weight);
-  const bool diffuse = lobe == kDiffuse;
 
   // --- finish_bounce_kernel's reverse: Russian roulette, then the direct light
+  const V3 g_t_out = load3(a.g_throughput, r);
   V3 g_next_t = g_t_out;
   if (a.roulette != 0) {
     float survival = next_t.x;
@@ -513,83 +659,89 @@ __device__ void bounce_backward_ray(const ShadeScene& s, const BackwardArgs& a, 
       g_next_t = {g_t_out.x / p, g_t_out.y / p, g_t_out.z / p};
     }
   }
-  V3 g_position = g_o_out, g_normal = {0.0f, 0.0f, 0.0f};
-  if (s.has_lights && diffuse && a.shadow_hit[r] != 0) {
-    const int n = s.num_lights;
-    int pick = static_cast<int>(u[5 * stride] * static_cast<float>(n));
-    pick = pick < 0 ? 0 : (pick > n - 1 ? n - 1 : pick);
-    const int light = s.light_indices[pick];
-    if (a.shadow_idx[r] == light) {  // visible: the direct light and its reverse
-      const V3 p1 = load3(s.vertices, 3 * static_cast<int64_t>(light));
-      const V3 p2 = load3(s.vertices, 3 * static_cast<int64_t>(light) + 1);
-      const V3 p3 = load3(s.vertices, 3 * static_cast<int64_t>(light) + 2);
-      const float sqrt_x = sqrtf(u[6 * stride]);
-      const float bu = 1.0f - sqrt_x;
-      const float bv = u[7 * stride] * sqrt_x;
-      const float bw = 1.0f - bu - bv;
-      const V3 point = bu * p1 + bv * p2 + bw * p3;
-      const V3 to_light = point - g.position;
-      const float dist_sq = dot(to_light, to_light);
-      const V3 dir = normalize(to_light);
-      const Tri lt = load_tri(s, light);
-      const Geometry lg = hit_geometry(lt, g.position, dir, true);
-      const int ltex = s.tex_id[lt.mat];
-      const V3 em_color = load3(s.emittance, lt.mat);
-      const V3 em = sample_texture(s, ltex, em_color, lg.u, lg.v);
-      const V3 e = cross(p2 - p1, p3 - p1);
-      const float light_area = 0.5f * sqrtf(dot(e, e));
-      const float nd1 = -dot(dir, lg.normal);
-      const float cos1 = clamp_min(nd1, 0.0f);
-      const float d2 = dot(dir, g.normal);
-      const float cos2 = clamp_min(d2, 0.0f);
-      const float den_raw = dist_sq * F(kPi);
-      const float den = clamp_min(den_raw, F(0.001));
-      const float s0 = light_area * static_cast<float>(n);
-      const float s1 = s0 * cos1, s2 = s1 * cos2;
-      const float scale = s2 / den;
-      const V3 direct = scale * em;
-      // radiance + direct * next_t
-      g_next_t = g_next_t + mul(g_rad, direct);
-      const V3 g_direct = mul(g_rad, next_t);
-      const V3 g_em = scale * g_direct;
-      const float g_scale = dotg(g_direct, em);
-      const float g_s2 = g_scale / den;
-      const float g_den = den_raw >= F(0.001) ? -g_scale * (scale / den) : 0.0f;
-      const float g_cos2 = g_s2 * s1, g_s1 = g_s2 * cos2;
-      const float g_cos1 = g_s1 * s0;
-      const float g_dist_sq = g_den * F(kPi);
-      const float g_d1 = nd1 >= 0.0f ? -g_cos1 : 0.0f;  // cos1 = clamp_min(-dot, 0)
-      const float g_d2 = d2 >= 0.0f ? g_cos2 : 0.0f;
-      V3 g_dir = g_d1 * lg.normal + g_d2 * g.normal;
-      g_normal = g_d2 * dir;
-      const GeometryGrad lgg = hit_geometry_bwd(lt, g.position, dir, true, {0.0f, 0.0f, 0.0f},
-                                                g_d1 * dir, {0.0f, 0.0f, 0.0f},
-                                                {0.0f, 0.0f, 0.0f}, false);
-      g_dir = g_dir + lgg.d;
-      const V3 g_to_light = normalize_bwd(to_light, g_dir) + (2.0f * g_dist_sq) * to_light;
-      g_position = g_position + lgg.o - g_to_light;
-      out.light_mat = lt.mat;
-      const V3 g_em_color = texture_bwd(s, ltex, em_color, lg.u, lg.v, g_em, &out.light_texel,
-                                        out.light_texel_g);
-      out.light_g[0] = g_em_color.x;
-      out.light_g[1] = g_em_color.y;
-      out.light_g[2] = g_em_color.z;
+  const V3 g_rad = load3(a.g_radiance, r);
+  V3 g_position = load3(a.g_ray_o, r), g_normal = {0.0f, 0.0f, 0.0f};
+  if constexpr (kLobe == kDiffuseLobe) {
+    if (s.has_lights && a.shadow_hit[r] != 0) {
+      const int light = picked_light(s, u[5 * stride]);
+      if (a.shadow_idx[r] == light) {  // visible: the direct light and its reverse
+        const V3 p1 = load3(s.vertices, 3 * static_cast<int64_t>(light));
+        const V3 p2 = load3(s.vertices, 3 * static_cast<int64_t>(light) + 1);
+        const V3 p3 = load3(s.vertices, 3 * static_cast<int64_t>(light) + 2);
+        const float sqrt_x = sqrtf(u[6 * stride]);
+        const float bu = 1.0f - sqrt_x;
+        const float bv = u[7 * stride] * sqrt_x;
+        const float bw = 1.0f - bu - bv;
+        const V3 point = bu * p1 + bv * p2 + bw * p3;
+        const V3 to_light = point - g.position;
+        const float dist_sq = dot(to_light, to_light);
+        const V3 dir = normalize(to_light);
+        const Tri lt = load_tri(s, light);
+        const Geometry lg = hit_geometry(lt, g.position, dir, true);
+        const int ltex = s.tex_id[lt.mat];
+        const V3 em_color = load3(s.emittance, lt.mat);
+        const V3 em = sample_texture(s, ltex, em_color, lg.u, lg.v);
+        const V3 e = cross(p2 - p1, p3 - p1);
+        const float light_area = 0.5f * sqrtf(dot(e, e));
+        const float nd1 = -dot(dir, lg.normal);
+        const float cos1 = clamp_min(nd1, 0.0f);
+        const float d2 = dot(dir, g.normal);
+        const float cos2 = clamp_min(d2, 0.0f);
+        const float den_raw = dist_sq * F(kPi);
+        const float den = clamp_min(den_raw, F(0.001));
+        const float s0 = light_area * static_cast<float>(s.num_lights);
+        const float s1 = s0 * cos1, s2 = s1 * cos2;
+        const float scale = s2 / den;
+        const V3 direct = scale * em;
+        // radiance + direct * next_t
+        g_next_t = g_next_t + mul(g_rad, direct);
+        const V3 g_direct = mul(g_rad, next_t);
+        const V3 g_em = scale * g_direct;
+        const float g_scale = dotg(g_direct, em);
+        const float g_s2 = g_scale / den;
+        const float g_den = den_raw >= F(0.001) ? -g_scale * (scale / den) : 0.0f;
+        const float g_cos2 = g_s2 * s1, g_s1 = g_s2 * cos2;
+        const float g_cos1 = g_s1 * s0;
+        const float g_dist_sq = g_den * F(kPi);
+        const float g_d1 = nd1 >= 0.0f ? -g_cos1 : 0.0f;  // cos1 = clamp_min(-dot, 0)
+        const float g_d2 = d2 >= 0.0f ? g_cos2 : 0.0f;
+        V3 g_dir = g_d1 * lg.normal + g_d2 * g.normal;
+        g_normal = g_d2 * dir;
+        const GeometryGrad lgg = hit_geometry_bwd(lt, g.position, dir, true, {0.0f, 0.0f, 0.0f},
+                                                  g_d1 * dir, {0.0f, 0.0f, 0.0f},
+                                                  {0.0f, 0.0f, 0.0f}, false);
+        g_dir = g_dir + lgg.d;
+        const V3 g_to_light = normalize_bwd(to_light, g_dir) + (2.0f * g_dist_sq) * to_light;
+        g_position = g_position + lgg.o - g_to_light;
+        out.light_mat = lt.mat;
+        const V3 g_em_color = texture_bwd(s, ltex, em_color, lg.u, lg.v, g_em, &out.light_texel,
+                                          out.light_texel_g);
+        out.light_g[0] = g_em_color.x;
+        out.light_g[1] = g_em_color.y;
+        out.light_g[2] = g_em_color.z;
+      }
     }
+    READ_AGAIN();
+    throughput = load3(a.throughput, r);
+    m = material(s, fr.mat, g.u, g.v);
+    const HalfTerms h = half_terms(u[0], u[stride], m.roughness);
+    half = (h.sin_t * h.cp) * g.tangent + h.cos_t * g.normal + (h.sin_t * h.sp) * g.bitangent;
+    weight = ratio * m.albedo;
   }
 
   // --- shade_bounce_kernel's reverse: the state, the emission, the lobe
   V3 g_throughput = mul(g_next_t, weight);
   const V3 g_weight = mul(g_next_t, throughput);
   V3 g_emittance = {0.0f, 0.0f, 0.0f};
-  if (emit) {  // radiance + emittance * throughput
+  if (fr.emit) {  // radiance + emittance * throughput
     g_emittance = mul(g_rad, throughput);
     g_throughput = g_throughput + mul(g_rad, m.emittance);
   }
   V3 g_albedo = {0.0f, 0.0f, 0.0f}, g_wi = {0.0f, 0.0f, 0.0f}, g_half = {0.0f, 0.0f, 0.0f};
   V3 g_tangent = {0.0f, 0.0f, 0.0f}, g_bitangent = {0.0f, 0.0f, 0.0f};
   float g_rough = 0.0f, g_f = 0.0f, g_n1 = 0.0f, g_n2 = 0.0f, g_ior = 0.0f, g_ext = 0.0f;
-  const V3 g_dir = g_d_out;
-  if (lobe == kMetal) {
+  const V3 g_dir = load3(a.g_ray_d, r);
+  if constexpr (kLobe == kMetalLobe) {
     g_albedo = (sw * fc) * g_weight;
     const float g_swfc = dotg(g_weight, m.albedo);
     const SpecularGrad sg = specular_weight_bwd(wi, direction, half, g.normal, rough,
@@ -602,29 +754,29 @@ __device__ void bounce_backward_ray(const ShadeScene& s, const BackwardArgs& a, 
     g_rough = sg.roughness;
     g_ior = cg.n;
     g_ext = cg.k;
-  } else if (lobe == kSpecular) {
+  } else if constexpr (kLobe == kSpecularLobe) {
     const float g_w = sum3(g_weight);
     V3 g_refl = g_dir;
-    if (!inside) {
+    if (!fr.inside) {
       const SpecularGrad sg = specular_weight_bwd(wi, direction, half, g.normal, rough,
-                                                  g_w * ratio_spec);
+                                                  g_w * ratio);
       g_wi = sg.wi;
       g_half = sg.half;
       g_normal = g_normal + sg.normal;
       g_rough = sg.roughness;
       g_refl = g_refl + sg.wo;
     }
-    if (lrg) g_f = (g_w * sw) / clamp_min(f, F(1e-12));
+    if (lrg) g_f = (g_w * sw) / clamp_min(fr.f, F(1e-12));
     const PairGrad rg = reflect_bwd(wi, half, g_refl);
     g_wi = g_wi + rg.wi;
     g_half = g_half + rg.half;
-  } else if (lobe == kTransmission) {
-    g_albedo = (sw * ratio_rest) * g_weight;
+  } else if constexpr (kLobe == kTransmissionLobe) {
+    g_albedo = (sw * ratio) * g_weight;
     const float g_swr = dotg(g_weight, m.albedo);
     const SpecularGrad sg = specular_weight_bwd(wi, direction, half, g.normal, rough,
-                                                g_swr * ratio_rest);
-    const RefractGrad rg = refract_bwd(wi, half, n1, n2, g_dir + sg.wo);
-    if (lrg) g_f = -((g_swr * sw) / clamp_min(1.0f - f, F(1e-12)));
+                                                g_swr * ratio);
+    const RefractGrad rg = refract_bwd(wi, half, fr.n1, fr.n2, g_dir + sg.wo);
+    if (lrg) g_f = -((g_swr * sw) / clamp_min(1.0f - fr.f, F(1e-12)));
     g_wi = sg.wi + rg.wi;
     g_half = sg.half + rg.half;
     g_normal = g_normal + sg.normal;
@@ -632,54 +784,72 @@ __device__ void bounce_backward_ray(const ShadeScene& s, const BackwardArgs& a, 
     g_n1 = rg.n1;
     g_n2 = rg.n2;
   } else {  // diffuse: the cosine hemisphere's frame
-    g_albedo = ratio_rest * g_weight;
-    if (lrg) g_f = -(dotg(g_weight, m.albedo) / clamp_min(1.0f - f, F(1e-12)));
+    g_albedo = ratio * g_weight;
+    if (lrg) g_f = -(dotg(g_weight, m.albedo) / clamp_min(1.0f - fr.f, F(1e-12)));
+    const float tau = F(2.0 * kPi);
     const float phi_d = u[3 * stride] * tau, u4 = u[4 * stride];
     const float sq = sqrtf(u4), ct = sqrtf(1.0f - u4);
     g_tangent = (sq * cosf(phi_d)) * g_dir;
     g_normal = g_normal + ct * g_dir;
     g_bitangent = (sq * sinf(phi_d)) * g_dir;
   }
-  if (lobe != kMetal) {
+  if constexpr (kLobe != kMetalLobe) {
     if (lrg) {
-      const FresnelGrad fg = fresnel_dielectric_bwd(wi, half, n1, n2, g_f);
+      const FresnelGrad fg = fresnel_dielectric_bwd(wi, half, fr.n1, fr.n2, g_f);
       g_wi = g_wi + fg.wi;
       g_half = g_half + fg.half;
       g_n1 += fg.n1;
       g_n2 += fg.n2;
     }
     // n1 = where(inside, ior, 1), n2 = where(inside, 1, ior), ior = clamp_min(ior, 1e-6)
-    const float g_ior_c = inside ? g_n1 : g_n2;
+    const float g_ior_c = fr.inside ? g_n1 : g_n2;
     g_ior = m.ior >= F(1e-6) ? g_ior_c : 0.0f;
   }
-  // the GGX half vector
-  g_tangent = g_tangent + (sin_t * cp) * g_half;
-  g_normal = g_normal + cos_t * g_half;
-  g_bitangent = g_bitangent + (sin_t * sp) * g_half;
-  const float g_sin_t = dotg(g_half, g.tangent) * cp + dotg(g_half, g.bitangent) * sp;
-  float g_cos_t = dotg(g_half, g.normal);
-  const float g_x = x >= F(1e-12) ? sqrt_bwd(g_sin_t, sin_t) : 0.0f;
-  g_cos_t -= 2.0f * g_x * cos_t;
-  const float g_y = (y >= 0.0f && y <= 1.0f) ? sqrt_bwd(g_cos_t, cos_t) : 0.0f;
-  const float g_denom = -g_y * (y / denom);
-  const float g_a2 = z >= F(1e-12) ? g_denom * u0 : 0.0f;
-  g_rough += 2.0f * g_a2 * rough;
+  front_reverse(s, a, r, fr, g_half, g_tangent, g_normal, g_bitangent, g_rough, g_position, g_wi,
+                g_throughput, g_albedo, g_emittance, g_ior, g_ext, m.roughness, out);
+}
 
-  const GeometryGrad gg = hit_geometry_bwd(tri, o, d, hit, g_position, g_normal, g_tangent,
-                                           g_bitangent, true);
-  store3(a.o_ray_o, r, gg.o);
-  store3(a.o_ray_d, r, gg.d - g_wi);
-  store3(a.o_throughput, r, g_throughput);
-
-  out.mat = tri.mat;
-  const int tex = s.tex_id[tri.mat];
-  const V3 albedo_color = load3(s.albedo, tri.mat), em_color = load3(s.emittance, tri.mat);
-  float tg[3] = {0.0f, 0.0f, 0.0f};
-  const V3 ga = texture_bwd(s, tex, albedo_color, g.u, g.v, g_albedo, &out.texel, out.texel_g);
-  const V3 ge = texture_bwd(s, tex, em_color, g.u, g.v, g_emittance, &out.texel, tg);
-  for (int k = 0; k < 3; ++k) out.texel_g[k] += tg[k];
-  const float vals[9] = {ga.x, ga.y, ga.z, ge.x, ge.y, ge.z, g_rough, g_ior, g_ext};
-  for (int k = 0; k < 9; ++k) out.mat_g[k] = vals[k];
+// One live ray's reverse pass: writes its ray gradients, fills its
+// additions. (A dead ray's state passes through: pass_through.)
+__device__ void bounce_backward_ray(const ShadeScene& s, const BackwardArgs& a, int64_t r,
+                                    Contrib& out) {
+  // --- the forward of shade_bounce_kernel on a live lane (hit is true)
+  Front fr;
+  const V3 o = load3(a.ray_o, r);
+  fr.d = load3(a.ray_d, r);
+  fr.throughput = load3(a.throughput, r);
+  const int idx = a.idx[r];
+  fr.tri_id = idx > 0 ? idx : 0;
+  fr.inside = a.inside[r] != 0;
+  fr.emit = a.prev_diffuse[r] == 0;
+  const Tri tri = load_tri(s, fr.tri_id);
+  fr.g = hit_geometry(tri, o, fr.d, true);
+  fr.mat = tri.mat;
+  fr.m = material(s, tri.mat, fr.g.u, fr.g.v);
+  const float* u = a.u + r;
+  const int64_t stride = a.u_stride;
+  fr.wi = neg(fr.d);
+  const HalfTerms h = half_terms(u[0], u[stride], fr.m.roughness);
+  fr.half = (h.sin_t * h.cp) * fr.g.tangent + h.cos_t * fr.g.normal +
+            (h.sin_t * h.sp) * fr.g.bitangent;
+  // --- the lobe, chosen as the forward chose it
+  fr.n1 = fr.n2 = 1.0f;
+  fr.f = 0.0f;
+  if (fr.m.extinction > 0.0f) {
+    lobe_reverse<kMetalLobe>(s, a, r, fr, out);
+    return;
+  }
+  const float ior = clamp_min(fr.m.ior, F(1e-6));
+  fr.n1 = fr.inside ? ior : 1.0f;
+  fr.n2 = fr.inside ? 1.0f : ior;
+  fr.f = fresnel_dielectric(fr.wi, fr.half, fr.n1, fr.n2);
+  if (u[2 * stride] < fr.f) {
+    lobe_reverse<kSpecularLobe>(s, a, r, fr, out);
+  } else if (fr.m.transparent > 0.5f) {
+    lobe_reverse<kTransmissionLobe>(s, a, r, fr, out);
+  } else {
+    lobe_reverse<kDiffuseLobe>(s, a, r, fr, out);
+  }
 }
 
 }  // namespace
@@ -689,92 +859,286 @@ __device__ void bounce_backward_ray(const ShadeScene& s, const BackwardArgs& a, 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
+constexpr int kBinThreads = 256;  // rays a block of the binning
+constexpr int kBinWarps = kBinThreads / 32;
+// The reverse: blocks of kBackwardThreads, at least kBackwardMinBlocks of
+// them resident an SM, so at most 65,536 / (256 x 2) = 128 registers a
+// thread and 16 warps an SM.
+constexpr int kBackwardThreads = 256, kBackwardMinBlocks = 2;
+constexpr int kBackwardWarps = kBackwardThreads / 32;
+// The material sums' table in shared memory: 9 fields and the light's
+// emittance a material, at most kTableRows materials (24 KB).
+constexpr int kTableCols = 12, kTableRows = 256;
+constexpr size_t kTableBytes = sizeof(double) * kTableCols * kTableRows;
 
 // Adds each lane's n values at dst + key * stride (key < 0: nothing), one
-// atomic a (group of lanes with one key, value). Every lane of the warp
-// calls it.
+// atomic a (run of neighbouring lanes with one key, value): an inclusive
+// scan of shuffles within each run, whose last lane adds the sum (the
+// binning keeps a segment in ray order, so neighbouring lanes are
+// neighbouring pixels, most often on one material and one texel). Every
+// lane of the warp calls it. dst is device or shared memory.
 template <int N>
 __device__ __forceinline__ void warp_add(int key, const float* v, double* dst, int stride) {
+  if (__all_sync(kFull, key < 0)) return;
   const int lane = threadIdx.x & 31;
-  const bool has = key >= 0;
-  const unsigned peers = __match_any_sync(kFull, key);
-  const bool alone = __popc(peers) == 1;
-  if (has && alone) {
+  const int prev = __shfl_up_sync(kFull, key, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || key != prev);
+  const int start = 31 - __clz(heads & (kFull >> (31 - lane)));  // the run's first lane
+  const bool last = lane == 31 || ((heads >> (lane + 1)) & 1u) != 0;
+  // the fields' scans side by side (independent chains of shuffles), then
+  // the atomics
+  double sum[N];
+  for (int f = 0; f < N; ++f) sum[f] = v[f];
+  for (int d = 1; d < 32; d <<= 1) {
     for (int f = 0; f < N; ++f) {
-      atomicAdd(dst + static_cast<int64_t>(key) * stride + f, static_cast<double>(v[f]));
+      const double up = __shfl_up_sync(kFull, sum[f], d);
+      if (lane - d >= start) sum[f] += up;
     }
   }
-  unsigned todo = __ballot_sync(kFull, has && !alone);
-  while (todo != 0) {
-    const int leader = __ffs(todo) - 1;
-    const int k = __shfl_sync(kFull, key, leader);
-    const bool mine = key == k;
-    for (int f = 0; f < N; ++f) {
-      const double sum = warp_sum(mine ? v[f] : 0.0f);
-      if (lane == leader) atomicAdd(dst + static_cast<int64_t>(k) * stride + f, sum);
-    }
-    todo &= ~__ballot_sync(kFull, mine);
+  if (last && key >= 0) {
+    for (int f = 0; f < N; ++f) atomicAdd(dst + static_cast<int64_t>(key) * stride + f, sum[f]);
   }
 }
 
-__global__ void __launch_bounds__(kShadeThreads)
+// One thread a ray: its class; a dead ray's pass-through; a live ray's
+// place in its class's segment of the ray list (ray order within a block,
+// the blocks' parts in the order of their atomics).
+__global__ void __launch_bounds__(kBinThreads) bounce_bin_kernel(const ShadeScene s,
+                                                                 const BackwardArgs a) {
+  __shared__ int offset[kBinWarps][kLiveClasses];  // a warp's count, then its offset
+  __shared__ int base[kLiveClasses];  // the block's first entry of each segment
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kBinThreads + threadIdx.x;
+  int c = kDead;
+  if (r < a.num_rays) {
+    c = ray_class(s, a, r);
+    if (c == kDead) pass_through(a, r);
+  }
+  const unsigned peers = __match_any_sync(kFull, c);
+  if (lane < kLiveClasses) offset[warp][lane] = 0;
+  __syncwarp();
+  if (c != kDead && lane == __ffs(peers) - 1) offset[warp][c] = __popc(peers);
+  __syncthreads();
+  if (threadIdx.x < kLiveClasses) {
+    const int k = threadIdx.x;
+    int sum = 0;
+    for (int w = 0; w < kBinWarps; ++w) {
+      const int n = offset[w][k];
+      offset[w][k] = sum;
+      sum += n;
+    }
+    base[k] = sum > 0 ? atomicAdd(a.class_counts + k, sum) : 0;
+  }
+  __syncthreads();
+  if (c != kDead) {
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    a.ray_list[static_cast<int64_t>(c) * a.num_rays + base[c] + offset[warp][c] + rank] =
+        static_cast<int32_t>(r);
+  }
+}
+
+// Persistent blocks over the ray list: a warp task is 32 consecutive
+// entries of one class's segment, the tasks of all segments taken in turns
+// (warp w of the grid's W: tasks w, w + W, ...). With kSharedSums the
+// material sums go to the block's table in shared memory, flushed at its
+// end; without, to device memory.
+template <bool kSharedSums>
+__global__ void __launch_bounds__(kBackwardThreads, kBackwardMinBlocks)
 bounce_backward_kernel(const ShadeScene s, const BackwardArgs a) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kShadeThreads + threadIdx.x;
-  Contrib c;
-  if (r < a.num_rays) bounce_backward_ray(s, a, r, c);
-  // every lane of the warp takes part in the sums
-  if (a.o_material != nullptr) {
-    warp_add<9>(c.mat, c.mat_g, a.o_material, 9);
-    warp_add<3>(c.light_mat, c.light_g, a.o_material + 3, 9);
+  extern __shared__ double table[];  // (M, kTableCols) with kSharedSums
+  __shared__ int first[kLiveClasses + 1];  // the warp tasks before each segment
+  __shared__ int count[kLiveClasses];
+  if (threadIdx.x == 0) {
+    int tasks = 0;
+    for (int c = 0; c < kLiveClasses; ++c) {
+      count[c] = a.class_counts[c];
+      first[c] = tasks;
+      tasks += (count[c] + 31) / 32;
+    }
+    first[kLiveClasses] = tasks;
   }
-  if (a.o_texels != nullptr) {
-    warp_add<3>(c.texel, c.texel_g, a.o_texels, 3);
-    warp_add<3>(c.light_texel, c.light_texel_g, a.o_texels, 3);
+  __syncthreads();
+  const int tasks = first[kLiveClasses];
+  if (static_cast<int>(blockIdx.x) * kBackwardWarps >= tasks) return;  // no task of its own
+  const int cells = kSharedSums ? a.num_materials * kTableCols : 0;
+  for (int i = threadIdx.x; i < cells; i += kBackwardThreads) table[i] = 0.0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int t = blockIdx.x * kBackwardWarps + (threadIdx.x >> 5); t < tasks;
+       t += gridDim.x * kBackwardWarps) {
+    int c = 0;
+    while (t >= first[c + 1]) ++c;
+    const int j = (t - first[c]) * 32 + lane;
+    Contrib ct;
+    if (j < count[c]) {
+      bounce_backward_ray(s, a, a.ray_list[static_cast<int64_t>(c) * a.num_rays + j], ct);
+    }
+    // every lane of the warp takes part in the sums
+    if constexpr (kSharedSums) {
+      warp_add<9>(ct.mat, ct.mat_g, table, kTableCols);
+      warp_add<3>(ct.light_mat, ct.light_g, table + 9, kTableCols);
+    } else if (a.o_material != nullptr) {
+      warp_add<9>(ct.mat, ct.mat_g, a.o_material, 9);
+      warp_add<3>(ct.light_mat, ct.light_g, a.o_material + 3, 9);
+    }
+    if (a.o_texels != nullptr) {
+      warp_add<3>(ct.texel, ct.texel_g, a.o_texels, 3);
+      warp_add<3>(ct.light_texel, ct.light_texel_g, a.o_texels, 3);
+    }
   }
+  if constexpr (kSharedSums) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cells; i += kBackwardThreads) {
+      const double v = table[i];
+      const int row = i / kTableCols, col = i - row * kTableCols;
+      // columns 9-11, the light's emittance, add to the material's 3-5
+      if (v != 0.0) atomicAdd(a.o_material + 9 * row + (col < 9 ? col : col - 6), v);
+    }
+  }
+}
+
+// The kernels' resident blocks an SM and the SMs of each card, read once.
+struct Residency {
+  int sms = 0, blocks[2] = {0, 0};  // blocks: the device-sums and the shared-table kernel
+};
+
+cudaError_t residency(int device, Residency* out) {
+  static Residency known[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  Residency& k = known[device];
+  if (k.sms == 0) {
+    Residency fresh;
+    cudaError_t err = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &fresh.blocks[0], bounce_backward_kernel<false>, kBackwardThreads, 0);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &fresh.blocks[1], bounce_backward_kernel<true>, kBackwardThreads, kTableBytes);
+    }
+    if (err != cudaSuccess) return err;
+    k = fresh;
+  }
+  *out = k;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Launches on `stream` of `device` and returns cudaGetLastError() (0 =
-// launched). The structs are host memory, copied into the launch's
-// parameters. Allocates nothing and does not synchronise; o_material and
-// o_texels must hold zeros (or sums to add to).
-extern "C" int bounce_backward(int device, const ShadeScene* scene, const BackwardArgs* args,
-                               void* stream) {
+// Both entry points launch on `stream` of `device` and return
+// cudaGetLastError() (0 = launched). The structs are host memory, copied
+// into the launch's parameters. They allocate nothing and do not
+// synchronise.
+
+// The binning: class_counts must hold zeros; writes the ray list, the
+// counts and the dead rays' gradients.
+extern "C" int bounce_bin(int device, const ShadeScene* scene, const BackwardArgs* args,
+                          void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (args->num_rays > 0) {
-    const dim3 grid((args->num_rays + kShadeThreads - 1) / kShadeThreads);
-    bounce_backward_kernel<<<grid, kShadeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        *scene, *args);
+    const dim3 grid((args->num_rays + kBinThreads - 1) / kBinThreads);
+    bounce_bin_kernel<<<grid, kBinThreads, 0, static_cast<cudaStream_t>(stream)>>>(*scene, *args);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-#else  // a host build of the same per-ray code, for the CPU tests
+// The reverse of the live rays the binning listed (bounce_bin first, on
+// the same stream, with the same args); o_material and o_texels must hold
+// zeros (or sums to add to). The grid: as many blocks as stay resident, no
+// more than the most warp tasks the rays can give.
+extern "C" int bounce_backward(int device, const ShadeScene* scene, const BackwardArgs* args,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (args->num_rays <= 0) return static_cast<int>(cudaGetLastError());
+  Residency res;
+  err = residency(device, &res);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool shared = args->o_material != nullptr && args->num_materials <= kTableRows;
+  const int64_t tasks = (static_cast<int64_t>(args->num_rays) + 31) / 32 + kLiveClasses;
+  const int64_t needed = (tasks + kBackwardWarps - 1) / kBackwardWarps;
+  const int64_t resident = static_cast<int64_t>(res.sms) * res.blocks[shared ? 1 : 0];
+  const dim3 grid(static_cast<unsigned>(needed < resident ? needed : resident));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shared) {
+    const size_t bytes = sizeof(double) * kTableCols * args->num_materials;
+    bounce_backward_kernel<true><<<grid, kBackwardThreads, bytes, st>>>(*scene, *args);
+  } else {
+    bounce_backward_kernel<false><<<grid, kBackwardThreads, 0, st>>>(*scene, *args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
-// The kernel's arithmetic ray after ray on the host, the sums in ray
-// order (in float64, as the kernel's). Returns 0.
-extern "C" int bounce_backward_host(const ShadeScene* scene, const BackwardArgs* args) {
-  for (int64_t r = 0; r < args->num_rays; ++r) {
-    Contrib c;
-    bounce_backward_ray(*scene, *args, r, c);
-    if (args->o_material != nullptr) {
-      if (c.mat >= 0)
-        for (int f = 0; f < 9; ++f) args->o_material[9 * c.mat + f] += c.mat_g[f];
-      if (c.light_mat >= 0)
-        for (int f = 0; f < 3; ++f) args->o_material[9 * c.light_mat + 3 + f] += c.light_g[f];
+// The attributes of the backward's three kernels on `device` (the
+// binning, the reverse with device sums, the reverse with the shared
+// table), four words each into `out`: registers a thread, local memory
+// bytes a thread (stack and spills), resident warps an SM (at the table's
+// largest size) and threads a block. Returns a CUDA error (0 = none).
+extern "C" int bounce_backward_attributes(int device, int32_t* out) {
+  cudaError_t err = cudaSetDevice(device);
+  const void* kernels[3] = {reinterpret_cast<const void*>(bounce_bin_kernel),
+                            reinterpret_cast<const void*>(bounce_backward_kernel<false>),
+                            reinterpret_cast<const void*>(bounce_backward_kernel<true>)};
+  const int threads[3] = {kBinThreads, kBackwardThreads, kBackwardThreads};
+  const size_t shared[3] = {0, 0, kTableBytes};
+  for (int k = 0; k < 3 && err == cudaSuccess; ++k) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernels[k]);
+    int blocks = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[k], threads[k],
+                                                          shared[k]);
     }
-    if (args->o_texels != nullptr) {
-      if (c.texel >= 0)
-        for (int f = 0; f < 3; ++f) args->o_texels[3 * c.texel + f] += c.texel_g[f];
-      if (c.light_texel >= 0)
-        for (int f = 0; f < 3; ++f) args->o_texels[3 * c.light_texel + f] += c.light_texel_g[f];
+    out[4 * k] = attr.numRegs;
+    out[4 * k + 1] = static_cast<int32_t>(attr.localSizeBytes);
+    out[4 * k + 2] = blocks * threads[k] / 32;
+    out[4 * k + 3] = threads[k];
+  }
+  return static_cast<int>(err);
+}
+
+#else  // a host build of the same code, for the CPU tests
+
+// bounce_bin_kernel on the host: the rays in order, each live one appended
+// to its class's segment. Returns 0.
+extern "C" int bounce_bin_host(const ShadeScene* scene, const BackwardArgs* args) {
+  for (int64_t r = 0; r < args->num_rays; ++r) {
+    const int c = ray_class(*scene, *args, r);
+    if (c == kDead) {
+      pass_through(*args, r);
+    } else {
+      args->ray_list[static_cast<int64_t>(c) * args->num_rays + args->class_counts[c]++] =
+          static_cast<int32_t>(r);
+    }
+  }
+  return 0;
+}
+
+// The kernels' arithmetic on the host: the binning, then each segment's
+// rays in list order, the sums in that order (in float64, as the
+// kernel's). class_counts must hold zeros. Returns 0.
+extern "C" int bounce_backward_host(const ShadeScene* scene, const BackwardArgs* args) {
+  bounce_bin_host(scene, args);
+  for (int c = 0; c < kLiveClasses; ++c) {
+    for (int j = 0; j < args->class_counts[c]; ++j) {
+      Contrib ct;
+      bounce_backward_ray(*scene, *args,
+                          args->ray_list[static_cast<int64_t>(c) * args->num_rays + j], ct);
+      if (args->o_material != nullptr) {
+        if (ct.mat >= 0)
+          for (int f = 0; f < 9; ++f) args->o_material[9 * ct.mat + f] += ct.mat_g[f];
+        if (ct.light_mat >= 0)
+          for (int f = 0; f < 3; ++f) args->o_material[9 * ct.light_mat + 3 + f] += ct.light_g[f];
+      }
+      if (args->o_texels != nullptr) {
+        if (ct.texel >= 0)
+          for (int f = 0; f < 3; ++f) args->o_texels[3 * ct.texel + f] += ct.texel_g[f];
+        if (ct.light_texel >= 0)
+          for (int f = 0; f < 3; ++f)
+            args->o_texels[3 * ct.light_texel + f] += ct.light_texel_g[f];
+      }
     }
   }
   return 0;

@@ -80,9 +80,10 @@ which one it went through.
 ``SOURCES`` also lists the sampler's kernel (``csrc/threefry_uniforms.cu``,
 wrapped by ``kernels/sampler.py`` for ``math.rng.uniforms``), the two
 shading kernels of a bounce (``csrc/shade_bounce.cu``) and their backward
-(``csrc/shade_backward.cu``), all three wrapped by ``kernels/shade.py``,
-which share this module's build, launch route and ``COUNTS`` (``sampler``;
-``shade``, ``shade_finish`` and ``shade_backward``).
+(``csrc/shade_backward.cu``: its binning and its reverse), all wrapped by
+``kernels/shade.py``, which share this module's build, launch route and
+``COUNTS`` (``sampler``; ``shade``, ``shade_finish``, ``shade_bin`` and
+``shade_backward``).
 """
 
 from __future__ import annotations
@@ -138,7 +139,8 @@ class LaunchCounts:
     """Kernel launches and plain-version calls on CUDA tensors."""
 
     KERNELS = ("flat", "queue", "blk", "first_blocks", "hbm", "flat_mxu", "blk_mxu", "null",
-               "kd", "brute", "sampler", "tri_consts", "shade", "shade_finish", "shade_backward")
+               "kd", "brute", "sampler", "tri_consts", "shade", "shade_finish", "shade_bin",
+               "shade_backward")
 
     def __init__(self) -> None:
         self.reset()
@@ -201,10 +203,12 @@ _ENTRY_ARGS = {
     "shade_bounce": [_P, _P],
     "finish_bounce": [_P, _P],
     # the ShadeScene and BackwardArgs structs (kernels/shade.py)
+    "bounce_bin": [_P, _P],
     "bounce_backward": [_P, _P],
 }
 # entry points whose source is not <name>.cu
-_SOURCE = {"finish_bounce": "shade_bounce.cu", "bounce_backward": "shade_backward.cu"}
+_SOURCE = {"finish_bounce": "shade_bounce.cu", "bounce_bin": "shade_backward.cu",
+           "bounce_backward": "shade_backward.cu"}
 # the COUNTS attribute prefix of each entry point
 _COUNTER = {
     "flat_intersect": "flat",
@@ -221,6 +225,7 @@ _COUNTER = {
     "tri_consts": "tri_consts",
     "shade_bounce": "shade",
     "finish_bounce": "shade_finish",
+    "bounce_bin": "shade_bin",
     "bounce_backward": "shade_backward",
 }
 

@@ -24,7 +24,8 @@ Gradients: ``bounce`` runs a whole bounce (both halves and the NEE
 intersector call between them) as one ``BounceFunction``, a node autograd
 records. Its forward is the two kernels (on CPU tensors the plain
 versions); its backward is ``bounce_backward``, the kernel of
-``csrc/shade_backward.cu`` (one thread a ray: the forward recomputed in
+``csrc/shade_backward.cu`` (a binning pass that sorts the live rays by the
+lobe the forward chose, then one thread a ray: the forward recomputed in
 registers, then its reverse), on CPU tensors ``bounce_backward_plain``
 (autograd of the plain versions recomputed on the saved inputs). It
 differentiates the rays, the throughput and radiance, the six float
@@ -37,9 +38,10 @@ tensor requires grad or on CPU tensors (``path_trace.shade_route``).
 
 On CUDA tensors the wrappers launch their kernel or raise, and count in
 ``kernels.intersect.COUNTS`` (``shade``, ``shade_finish``,
-``shade_backward``); on CPU tensors they raise (the render calls the plain
-versions there). The plain versions count their calls on CUDA tensors
-(``shade_plain_cuda``, ``shade_finish_plain_cuda``,
+``shade_backward`` and its binning's ``shade_bin``); on CPU tensors they
+raise (the render calls the plain versions there). The plain versions
+count their calls on CUDA tensors (``shade_plain_cuda``,
+``shade_finish_plain_cuda``, ``shade_bin_plain_cuda``,
 ``shade_backward_plain_cuda``). A launch makes no host sync and no copy
 from the host, so a CUDA graph capture records it.
 """
@@ -48,6 +50,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
+import typing
 from typing import Optional
 
 import torch
@@ -55,6 +60,7 @@ import torch
 from isaklm_raytracer_tpu_torch.accel.traverse import hit_attributes
 from isaklm_raytracer_tpu_torch.integrator.bsdf import scatter
 from isaklm_raytracer_tpu_torch.integrator.nee import ShadowRays, direct_from_hit, shadow_rays
+from isaklm_raytracer_tpu_torch.kernels import build
 from isaklm_raytracer_tpu_torch.kernels.intersect import COUNTS, _launch
 from isaklm_raytracer_tpu_torch.scene.types import Scene
 
@@ -426,6 +432,10 @@ class BounceSaved:
     shadow_hit: Optional[torch.Tensor]  # (R,) bool
     lobe_ratio_grad: bool
     roulette: bool
+    # the forward's next inside and prev_diffuse (Pending's): the lobe it
+    # chose, by which the kernel's binning sorts the rays
+    next_inside: torch.Tensor  # (R,) bool
+    next_diffuse: torch.Tensor
 
 
 def _differentiable(saved: BounceSaved) -> list:
@@ -472,20 +482,66 @@ def bounce_backward_plain(saved: BounceSaved, grad_outputs, needs=None) -> list:
 class BackwardArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "ray_o", "ray_d", "idx", "hit", "active", "throughput", "inside", "prev_diffuse", "u",
-        "shadow_idx", "shadow_hit", "g_ray_o", "g_ray_d", "g_throughput", "g_radiance",
-        "o_ray_o", "o_ray_d", "o_throughput", "o_material", "o_texels")] + [
-        ("u_stride", _I64), ("num_rays", _I32), ("roulette", _I32), ("lobe_ratio_grad", _I32)]
+        "shadow_idx", "shadow_hit", "next_inside", "next_diffuse", "g_ray_o", "g_ray_d",
+        "g_throughput", "g_radiance", "o_ray_o", "o_ray_d", "o_throughput", "o_material",
+        "o_texels", "ray_list", "class_counts")] + [
+        ("u_stride", _I64), ("num_rays", _I32), ("num_materials", _I32), ("roulette", _I32),
+        ("lobe_ratio_grad", _I32)]
+
+
+# the classes the backward's binning sorts the live rays into, in the order
+# of the ray list's segments (csrc/shade_backward.cu RayClass), and the
+# words of its class counts
+RAY_CLASSES = ("diffuse visible", "transmission", "specular", "metal", "specular inside",
+               "diffuse dark")
+_CLASS_COUNTS = 8
+
+
+class BackwardOutputs(typing.NamedTuple):
+    """What a backward launch writes: the gradients of the bounce's ray
+    origin, direction and throughput; the (M, 9) material and (P, 3) texel
+    sums (float64, from zeros; None where left out), views of ``sums``, one
+    flat tensor; the binning's ray list, (len(RAY_CLASSES), R) int32,
+    segment c's first ``class_counts[c]`` entries the rays of class c; the
+    (8,) int32 class counts; and (M,) float32 zeros, transparent's
+    gradient."""
+
+    ray_o: torch.Tensor
+    ray_d: torch.Tensor
+    throughput: torch.Tensor
+    material: Optional[torch.Tensor]
+    texels: Optional[torch.Tensor]
+    sums: Optional[torch.Tensor]
+    ray_list: torch.Tensor
+    class_counts: torch.Tensor
+    zeros: torch.Tensor
+
+
+def _zeroed(device, material_shape, texel_shape, num_materials: int) -> tuple:
+    """From one zeroed buffer (one fill on the card): the flat float64 sums
+    (None if both shapes are), the material and texel sums as views of it
+    (each None where its shape is), the int32 class counts and
+    ``num_materials`` float32 zeros."""
+    sizes = [0 if shape is None else math.prod(shape) for shape in (material_shape, texel_shape)]
+    at = 8 * sum(sizes)
+    buf = torch.zeros(at + 4 * (_CLASS_COUNTS + num_materials), dtype=torch.uint8, device=device)
+    flat = buf[:at].view(torch.float64)
+    views = [None if shape is None else flat[start:start + n].view(shape)
+             for shape, start, n in zip((material_shape, texel_shape), (0, sizes[0]), sizes)]
+    counts = buf[at:at + 4 * _CLASS_COUNTS].view(torch.int32)
+    zeros = buf[at + 4 * _CLASS_COUNTS:].view(torch.float32)
+    return (flat if sum(sizes) else None), *views, counts, zeros
 
 
 def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
                   texels: bool = True):
-    """(the tensors a launch reads, the (ray_o, ray_d, throughput, (M, 9)
-    material sums or None, (P, 3) texel sums or None) it writes, its
-    ``ShadeSceneArgs`` and ``BackwardArgs``) of ``bounce_backward``, every
-    input checked as ``kernel_args`` checks. ``grad_outputs`` are the
-    gradients of the next (ray_o, ray_d, throughput, radiance), contiguous.
-    The sums are float64 and start at zero; ``materials`` and ``texels``
-    False leave them out (a null pointer)."""
+    """(the tensors a launch reads, the ``BackwardOutputs`` it writes, its
+    ``ShadeSceneArgs`` and ``BackwardArgs``) of ``bounce_bin`` and
+    ``bounce_backward``, every input checked as ``kernel_args`` checks.
+    ``grad_outputs`` are the gradients of the next (ray_o, ray_d,
+    throughput, radiance), contiguous. The sums are float64 and start at
+    zero; ``materials`` and ``texels`` False leave them out (null
+    pointers)."""
     device = saved.ray_o.device
     num_rays = saved.ray_o.shape[0]
     if num_rays >= 2**31:
@@ -494,8 +550,12 @@ def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
     for name in ("ray_o", "ray_d", "throughput"):
         _check(name, getattr(saved, name), torch.float32, vec, device)
     _check("idx", saved.idx, torch.int32, one, device)
+    if saved.next_inside is None or saved.next_diffuse is None:
+        raise ValueError("the forward's next inside and prev_diffuse flags expected "
+                         "(BounceSaved.next_inside, next_diffuse)")
     flags = {name: _bool_ptr(name, getattr(saved, name), one, device)
-             for name in ("hit", "active", "inside", "prev_diffuse")}
+             for name in ("hit", "active", "inside", "prev_diffuse", "next_inside",
+                          "next_diffuse")}
     u = saved.u
     if u.dim() != 2 or u.shape[0] < BOUNCE_UNIFORMS:
         raise ValueError(f"u must be (n >= {BOUNCE_UNIFORMS}, R), got {tuple(u.shape)}")
@@ -506,7 +566,7 @@ def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
         raise ValueError("the shadow rays' (idx, hit) go with a scene that has lights, and "
                          "only with one")
     reads = [saved.ray_o, saved.ray_d, saved.idx, saved.hit, saved.active, saved.throughput,
-             saved.inside, saved.prev_diffuse, u]
+             saved.inside, saved.prev_diffuse, saved.next_inside, saved.next_diffuse, u]
     shadow = {"shadow_idx": None, "shadow_hit": None}
     if lights:
         _check("shadow_idx", saved.shadow_idx, torch.int32, one, device)
@@ -522,9 +582,12 @@ def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
     tables, s_args = scene_args(scene, device)
     (o_ray_o, o_ray_d, o_throughput), _, _ = _planes(device, num_rays, 3, 0, 0)
     n_mat = scene.materials.albedo.shape[0]
-    o_material = torch.zeros((n_mat, 9), dtype=torch.float64, device=device) if materials else None
-    o_texels = (torch.zeros(scene.textures.buffer.shape, dtype=torch.float64, device=device)
-                if texels else None)
+    sums, o_material, o_texels, counts, zeros = _zeroed(
+        device, (n_mat, 9) if materials else None,
+        tuple(scene.textures.buffer.shape) if texels else None, n_mat)
+    ray_list = torch.empty((len(RAY_CLASSES), num_rays), dtype=torch.int32, device=device)
+    outs = BackwardOutputs(o_ray_o, o_ray_d, o_throughput, o_material, o_texels, sums, ray_list,
+                           counts, zeros)
     args = BackwardArgs(
         ray_o=saved.ray_o.data_ptr(), ray_d=saved.ray_d.data_ptr(), idx=saved.idx.data_ptr(),
         throughput=saved.throughput.data_ptr(), u=u.data_ptr(), **flags, **shadow,
@@ -533,43 +596,121 @@ def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
         o_throughput=o_throughput.data_ptr(),
         o_material=None if o_material is None else o_material.data_ptr(),
         o_texels=None if o_texels is None else o_texels.data_ptr(),
-        u_stride=u.shape[1], num_rays=num_rays, roulette=int(bool(saved.roulette)),
-        lobe_ratio_grad=int(bool(saved.lobe_ratio_grad)))
-    return (reads + list(grad_outputs[:4]) + tables,
-            (o_ray_o, o_ray_d, o_throughput, o_material, o_texels), s_args, args)
+        ray_list=ray_list.data_ptr(), class_counts=counts.data_ptr(),
+        u_stride=u.shape[1], num_rays=num_rays, num_materials=n_mat,
+        roulette=int(bool(saved.roulette)), lobe_ratio_grad=int(bool(saved.lobe_ratio_grad)))
+    return reads + list(grad_outputs[:4]) + tables, outs, s_args, args
 
 
-def material_grads(sums: Optional[torch.Tensor], scene: Scene, needs) -> list:
+def material_grads(sums: Optional[torch.Tensor], scene: Scene, needs, zeros=None) -> list:
     """The six material fields' float32 gradients from the kernel's (M, 9)
-    float64 sums (None where not needed; transparent's zeros)."""
+    sums (None where not needed; transparent's zeros, ``zeros`` where
+    given)."""
     out = []
     sums = None if sums is None else sums.to(torch.float32)
     for f, need in zip(MATERIAL_FIELDS, needs):
         if not need:
             out.append(None)
         elif f == "transparent":
-            out.append(torch.zeros_like(scene.materials.transparent))
+            out.append(torch.zeros_like(scene.materials.transparent) if zeros is None else zeros)
         else:
             out.append(sums[:, _MATERIAL_COLUMNS[f]])
     return out
 
 
+def bounce_bin_plain(saved: BounceSaved) -> list:
+    """The binning's classes in plain PyTorch: for each of RAY_CLASSES the
+    ids of its live rays, ascending (int64). A live lane's class is the
+    lobe its forward chose (``next_diffuse``: diffuse; ``next_inside`` !=
+    ``inside``: transmission; a material with extinction: metal; else a
+    specular reflection, from inside or not) and, for a diffuse lobe,
+    whether its shadow ray hit the light it picked."""
+    if saved.ray_o.is_cuda:
+        COUNTS.shade_bin_plain_cuda += 1
+    scene, live = saved.scene, saved.active & saved.hit
+    safe = saved.idx.clamp_min(0).long()
+    if scene.shade_table is not None:
+        mat = scene.shade_table[safe, 24].to(torch.int32).long()
+    else:
+        mat = scene.mat_id[safe].long()
+    diffuse = live & saved.next_diffuse
+    trans = live & ~saved.next_diffuse & (saved.next_inside != saved.inside)
+    metal = live & ~saved.next_diffuse & ~trans & (scene.materials.extinction[mat] > 0)
+    spec = live & ~saved.next_diffuse & ~trans & ~metal
+    if scene.has_lights:
+        n = scene.num_lights
+        pick = torch.clamp((saved.u[5] * n).to(torch.int32), 0, n - 1)
+        visible = saved.shadow_hit & (saved.shadow_idx == scene.light_indices[pick.long()])
+    else:
+        visible = torch.zeros_like(live)
+    masks = (diffuse & visible, trans, spec & ~saved.inside, metal, spec & saved.inside,
+             diffuse & ~visible)
+    return [torch.nonzero(m).flatten() for m in masks]
+
+
+def _backward_launch(names, saved: BounceSaved, grads, materials: bool, texels: bool):
+    """Launch the entry points ``names`` on one ``backward_args``; returns
+    its ``BackwardOutputs``."""
+    # reads stay referenced until the launches: the kernels read them
+    reads, outs, s_args, args = backward_args(saved, grads, materials, texels)
+    if saved.ray_o.shape[0]:  # an empty grid is an invalid launch
+        for name in names:
+            _launch(name, saved.ray_o, ctypes.addressof(s_args), ctypes.addressof(args))
+    return outs
+
+
+def bounce_bin(saved: BounceSaved, grad_outputs) -> BackwardOutputs:
+    """The backward's binning alone (its kernel, ``bounce_bin``): the ray
+    list and class counts (each segment's order is the atomics' and the
+    blocks'; ``bounce_bin_plain`` gives its rays ascending) and the dead
+    lanes' gradients (the live lanes' left unwritten); CUDA tensors only."""
+    _cuda_only("bounce_bin", saved.ray_o)
+    return _backward_launch(("bounce_bin",), saved, [g.contiguous() for g in grad_outputs[:4]],
+                            False, False)
+
+
 def bounce_backward(saved: BounceSaved, grad_outputs, needs=None) -> list:
-    """``bounce_backward_plain`` by the ``bounce_backward`` kernel (within
-    float32 rounding: the per-ray gradients in another order of the same
-    derivative rules, the material and texel sums by atomics); CUDA tensors
-    only."""
+    """``bounce_backward_plain`` by the backward's two kernels, the binning
+    and the reverse (within float32 rounding: the per-ray gradients in
+    another order of the same derivative rules, the material and texel
+    sums by atomics); CUDA tensors only."""
     _cuda_only("bounce_backward", saved.ray_o)
     if needs is None:
         needs = [True] * 11
     grads = [g.contiguous() for g in grad_outputs[:4]]
-    # reads stay referenced until the launch: the kernel reads them
-    reads, (g_o, g_d, g_t, sums, texels), s_args, args = backward_args(
-        saved, grads, materials=any(needs[4:9]), texels=needs[10])
-    if saved.ray_o.shape[0]:  # an empty grid is an invalid launch
-        _launch("bounce_backward", saved.ray_o, ctypes.addressof(s_args), ctypes.addressof(args))
-    return [g_o, g_d, g_t, grads[3], *material_grads(sums, saved.scene, needs[4:10]),
-            None if texels is None else texels.to(torch.float32)]
+    outs = _backward_launch(("bounce_bin", "bounce_backward"), saved, grads, any(needs[4:9]),
+                            needs[10])
+    # both tables rounded to float32 by one conversion
+    flat = None if outs.sums is None else outs.sums.to(torch.float32)
+    n = 0 if outs.material is None else outs.material.numel()
+    material = None if outs.material is None else flat[:n].view(outs.material.shape)
+    texels = None if outs.texels is None else flat[n:].view(outs.texels.shape)
+    return [outs.ray_o, outs.ray_d, outs.throughput, grads[3],
+            *material_grads(material, saved.scene, needs[4:10], outs.zeros), texels]
+
+
+@functools.cache
+def _attributes_fn():
+    fn = build.load("shade_backward.cu").bounce_backward_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def backward_attributes(device) -> dict:
+    """The attributes of the backward's kernels on a card, as the card's
+    runtime reports them (``bounce_backward_attributes`` of
+    ``csrc/shade_backward.cu``): {kernel: {"registers", "local_bytes",
+    "resident_warps", "threads"}} for ``bounce_bin_kernel`` and the reverse
+    with device sums and with the shared table."""
+    fn = _attributes_fn()
+    out = (ctypes.c_int32 * 12)()
+    err = fn(torch.device(device).index or 0, out)
+    if err != 0:
+        raise RuntimeError(f"bounce_backward_attributes failed: CUDA error {err}")
+    keys = ("registers", "local_bytes", "resident_warps", "threads")
+    return {name: dict(zip(keys, out[4 * k:4 * k + 4])) for k, name in enumerate(
+        ("bounce_bin_kernel", "bounce_backward_kernel<false>", "bounce_backward_kernel<true>"))}
 
 
 class BounceFunction(torch.autograd.Function):
@@ -592,17 +733,20 @@ class BounceFunction(torch.autograd.Function):
             _, shadow_idx, shadow_hit = trace_fn(pending.ray_o, pending.shadow_dir,
                                                  active=pending.nee_mask, t_max=pending.window)
         out = finish_fn(scene, pending, shadow_idx, shadow_hit, u[BOUNCE_UNIFORMS - 1], roulette)
-        # the backward draws u again (redraw) rather than keep it
+        # the backward draws u again (redraw) rather than keep it; the next
+        # inside and prev_diffuse flags (out[4:6], the next bounce's inputs)
+        # record the lobe each ray took
         ctx.save_for_backward(ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
-                              prev_diffuse, shadow_idx, shadow_hit)
+                              prev_diffuse, shadow_idx, shadow_hit, *out[4:6])
         ctx.scene, ctx.flags, ctx.redraw = scene, (lobe, roulette), redraw
         ctx.mark_non_differentiable(*out[4:])
         return out
 
     @staticmethod
     def backward(ctx, g_ray_o, g_ray_d, g_throughput, g_radiance, *_):
-        *state, shadow_idx, shadow_hit = ctx.saved_tensors
-        saved = BounceSaved(ctx.scene, *state, ctx.redraw(), shadow_idx, shadow_hit, *ctx.flags)
+        *state, shadow_idx, shadow_hit, next_inside, next_diffuse = ctx.saved_tensors
+        saved = BounceSaved(ctx.scene, *state, ctx.redraw(), shadow_idx, shadow_hit, *ctx.flags,
+                            next_inside, next_diffuse)
         fn = bounce_backward if g_ray_o.is_cuda else bounce_backward_plain
         grads = fn(saved, (g_ray_o, g_ray_d, g_throughput, g_radiance), ctx.needs_input_grad[1:])
         return (None, *grads)

@@ -33,13 +33,33 @@ bounces, the blocked kernel), with the bench camera, each child reports
   CUDA records and their device time, the backward shading kernel's
   (``bounce_backward_kernel``; none where the checkout differentiates the
   shading one tensor op at a time);
+- a fwd+bwd sample whose leaves are every float material field, the
+  texel atlas and the camera position (as ``chip_smoke.py`` phase
+  shade_grad) at ``ray_chunk`` 0 and 16384, through a stand-in for
+  ``kernels.shade.bounce_backward`` that records each call: the SHA-256
+  of its per-ray gradients (ray origin, direction, throughput) and its
+  material gradients; the texel gradients summed over the calls (to a
+  file beside the child's script); the loss's SHA-256; at 0 the device
+  time of a ``bounce_backward`` call on bounce 0's saved inputs (a CUDA
+  graph of 20 calls, replayed three times between CUDA events), and of
+  three probes of what holds it: the rays sorted by class first (metal,
+  specular, specular inside, transmission, diffuse with its shadow ray
+  on the light, diffuse without, dead), no material or texel sums, and,
+  where the checkout's ``csrc/shade_backward.cu`` launches one kernel with
+  ``__launch_bounds__(kShadeThreads)``, that source built here with a
+  minimum of 3 and 4 resident blocks (ptxas's registers and spills
+  printed);
 - two ranks on this card over gloo (``dist.launch`` with ``cuda:0``):
   each rank's seconds a full step of ``render_sharded`` on a (2, 1) mesh
   in one pass (two timed steps after one; a rank's steps run eagerly),
   and the SHA-256 of the gathered G-buffer.
 
-Every G-buffer digest and every fwd+bwd loss digest must be equal in all
-four runs (the checkouts render the same bits), else the tool exits 1. It prints one line per run, the
+Every G-buffer digest, every fwd+bwd loss digest and every backward call's
+per-ray digest must be equal in all four runs (the checkouts render and
+differentiate the same bits), and the material and texel gradients must
+agree within tests/test_torch_shade_grad.py's sum tolerance (rtol 1e-4,
+atol 1e-6: atomics add them in another order each run), else the tool
+exits 1. It prints one line per run, the
 card's name and power limit as ``nvidia-smi`` gives them, and, as its last
 line, the runs as JSON.
 """
@@ -57,6 +77,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 CHILD = r'''
+import ctypes
 import hashlib
 import json
 import os
@@ -70,6 +91,7 @@ from isaklm_raytracer_tpu_torch.accel import prepare_scene
 from isaklm_raytracer_tpu_torch.camera import Camera
 from isaklm_raytracer_tpu_torch.config import RenderConfig
 from isaklm_raytracer_tpu_torch.integrator import render as R
+from isaklm_raytracer_tpu_torch.kernels import shade
 from isaklm_raytracer_tpu_torch.math import rng
 from isaklm_raytracer_tpu_torch.scene import procedural
 from isaklm_raytracer_tpu_torch.scene.types import GBuffer
@@ -207,6 +229,130 @@ def fwd_bwd(label, scene, camera, chunk):
     return out
 
 
+def graph_ms(fn, reps=20):
+    """Device ms a call of fn: captured reps times into a CUDA graph, the
+    graph replayed three times between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (3 * reps)
+
+
+def class_order(saved):
+    """The rays of a backward call by class (metal, specular from outside,
+    from inside, transmission, diffuse seeing the light, diffuse not, dead),
+    ray order within a class: the forward recomputed for its lobes."""
+    p = shade.shade_bounce(saved.scene, saved.ray_o, saved.ray_d, saved.idx, saved.hit,
+                           saved.active, saved.throughput, saved.radiance, saved.inside,
+                           saved.prev_diffuse, saved.u, saved.lobe_ratio_grad)
+    scene, live = saved.scene, saved.active & saved.hit
+    safe = saved.idx.clamp_min(0).long()
+    mat = (scene.shade_table[safe, 24].long() if scene.shade_table is not None
+           else scene.mat_id[safe].long())
+    metal = live & (scene.materials.extinction[mat] > 0)
+    diffuse = live & p.prev_diffuse
+    trans = live & (p.inside != saved.inside)
+    spec = live & ~metal & ~diffuse & ~trans
+    visible = diffuse & saved.shadow_hit & (saved.shadow_idx == p.light_idx)
+    cls = torch.full_like(saved.idx, 6)
+    for k, m in enumerate((metal, spec & ~saved.inside, spec & saved.inside, trans, visible,
+                           diffuse & ~visible)):
+        cls[m] = k
+    return torch.sort(cls, stable=True).indices
+
+
+def permuted(saved, grads, order):
+    """A backward call's saved inputs and output gradients in ``order``."""
+    n = saved.ray_o.shape[0]
+    kw = {}
+    for f, v in vars(saved).items():
+        if isinstance(v, torch.Tensor) and f == "u":
+            v = v[:, order].contiguous()
+        elif isinstance(v, torch.Tensor) and v.shape[:1] == (n,):
+            v = v[order].contiguous()
+        kw[f] = v
+    return type(saved)(**kw), [g[order].contiguous() for g in grads]
+
+
+def variant_call(path):
+    """A call of the checkout's bounce_backward entry point in the library
+    at ``path`` (its own source built with other launch bounds)."""
+    fn = ctypes.CDLL(path).bounce_backward
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(saved, grads):
+        made = shade.backward_args(saved, grads)
+        s_args, args = made[-2], made[-1]
+        err = fn(saved.ray_o.device.index or 0, ctypes.addressof(s_args), ctypes.addressof(args),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the variant at {path} failed to launch: CUDA error {err}")
+        return made
+
+    return call
+
+
+def backward_calls(label, scene, camera, chunk):
+    """One fwd+bwd sample with every float material field, the atlas and
+    the camera position as leaves, each bounce_backward call recorded."""
+    import dataclasses
+
+    config = config_of(label, chunk)
+    real = shade.bounce_backward
+    calls, texels, last = [], [], {}
+
+    def recorded(saved, grad_outputs, needs=None):
+        got = real(saved, grad_outputs, needs)
+        calls.append({"rays": int(saved.ray_o.shape[0]), "sha": sha(*got[:3]),
+                      "material": [g.double().cpu().tolist() for g in got[4:9]]})
+        texels.append(got[10].double().cpu())
+        last["saved"], last["grads"] = saved, [g.contiguous() for g in grad_outputs[:4]]
+        return got
+
+    m = scene.materials
+    leaves = [getattr(m, f).detach().clone().requires_grad_(True) for f in shade.MATERIAL_FIELDS]
+    atlas = scene.textures.buffer.detach().clone().requires_grad_(True)
+    position = camera.position.detach().clone().requires_grad_(True)
+    s = scene.replace(materials=m.replace(**dict(zip(shade.MATERIAL_FIELDS, leaves))),
+                      textures=dataclasses.replace(scene.textures, buffer=atlas))
+    shade.bounce_backward = recorded
+    try:
+        loss = R.render_sample(s, camera.replace(position=position), (3, 4), config).mean()
+        torch.autograd.grad(loss, [*leaves, atlas, position])
+    finally:
+        shade.bounce_backward = real
+    torch.cuda.synchronize()
+    out = {"calls": calls, "loss_sha": sha(loss.detach())}
+    path = os.path.join(os.environ["COMPARE_RENDER_DIR"], f"texels_{label}_{chunk}.npy")
+    np.save(path, torch.stack(texels).sum(dim=0).numpy())
+    out["texels"] = path
+    if not chunk:  # bounce 0's inputs: the last call
+        saved, grads = last["saved"], last["grads"]
+        with torch.no_grad():
+            out["bounce_backward_ms"] = graph_ms(lambda: shade.bounce_backward(saved, grads))
+            ps, pg = permuted(saved, grads, class_order(saved))
+            out["sorted_ms"] = graph_ms(lambda: shade.bounce_backward(ps, pg))
+            no_sums = [True] * 4 + [False] * 7
+            out["no_sums_ms"] = graph_ms(lambda: shade.bounce_backward(saved, grads, no_sums))
+            variants = json.loads(os.environ.get("COMPARE_RENDER_VARIANTS", "{}"))
+            for blocks, path in variants.items():
+                call = variant_call(path)
+                out[f"min_blocks_{blocks}_ms"] = graph_ms(lambda: call(saved, grads))
+    return out
+
+
 def sharded_rank(rank, world, label):
     import torch.distributed as dist
 
@@ -237,7 +383,9 @@ def main():
         scene = scene_of(label, device)
         out["presets"][label] = {
             "steps": {chunk: steps(label, scene, camera, chunk) for chunk in (0, 16384)},
-            "fwd_bwd": {chunk: fwd_bwd(label, scene, camera, chunk) for chunk in (0, 16384)}}
+            "fwd_bwd": {chunk: fwd_bwd(label, scene, camera, chunk) for chunk in (0, 16384)},
+            "backward": {chunk: backward_calls(label, scene, camera, chunk)
+                         for chunk in (0, 16384)}}
         del scene
     from isaklm_raytracer_tpu_torch.dist.launch import launch
 
@@ -256,8 +404,41 @@ BUILD = ("from isaklm_raytracer_tpu_torch.kernels import build, intersect as ki;
          "build.build_all(ki.SOURCES)")
 
 
-def run_child(tree: Path, script: str) -> dict:
-    env = {**os.environ, "PYTHONPATH": str(tree),
+def launch_bound_variants(tree: Path, tmp: str) -> tuple:
+    """({minimum blocks: library}, ptxas lines) of ``tree``'s
+    csrc/shade_backward.cu built with ``__launch_bounds__(kShadeThreads,
+    n)`` for n = 3, 4 (this checkout's nvcc flags), where that source
+    launches one kernel with ``__launch_bounds__(kShadeThreads)``; else
+    none."""
+    sys.path.insert(0, str(REPO))
+    from isaklm_raytracer_tpu_torch.kernels import build
+
+    src = tree / "isaklm_raytracer_tpu_torch" / "csrc" / "shade_backward.cu"
+    text, pattern = src.read_text(), "__launch_bounds__(kShadeThreads)"
+    libs, lines = {}, []
+    if pattern not in text:
+        return libs, lines
+    for blocks in (3, 4):
+        d = Path(tmp) / f"min_blocks_{blocks}"
+        d.mkdir(parents=True)
+        (d / "shade_backward.cu").write_text(
+            text.replace(pattern, f"__launch_bounds__(kShadeThreads, {blocks})"))
+        lib = d / "libshade_backward.so"
+        proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o",
+                               str(lib), str(d / "shade_backward.cu")], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src} with {blocks} blocks:\n{proc.stderr}")
+        lines.append(f"{src} with __launch_bounds__(kShadeThreads, {blocks}): " + "; ".join(
+            ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "registers" in ln or "spill" in ln))
+        libs[blocks] = str(lib)
+    return libs, lines
+
+
+def run_child(tree: Path, script: str, out_dir: str, variants: dict) -> dict:
+    env = {**os.environ, "PYTHONPATH": str(tree), "COMPARE_RENDER_DIR": out_dir,
+           "COMPARE_RENDER_VARIANTS": json.dumps(variants),
            "COMPARE_RENDER_PROFILING": str(REPO / "isaklm_raytracer_tpu_torch/tools/profiling.py")}
     proc = subprocess.run([sys.executable, script], cwd=tree, env=env, capture_output=True,
                           text=True, timeout=3000)
@@ -281,7 +462,36 @@ def digests(run: dict) -> dict:
             out[f"{label} sharded rank {rank}"] = r["sha"]
         for chunk, fb in preset["fwd_bwd"].items():
             out[f"{label} {chunk} fwd+bwd loss"] = fb["loss_sha"]
+        for chunk, bw in preset["backward"].items():
+            out[f"{label} {chunk} all-leaves loss"] = bw["loss_sha"]
+            for k, call in enumerate(bw["calls"]):
+                out[f"{label} {chunk} backward call {k}"] = call["sha"]
     return out
+
+
+# tests/test_torch_shade_grad.py SUM_RTOL, SUM_ATOL: the material and texel sums
+SUM_RTOL, SUM_ATOL = 1e-4, 1e-6
+
+
+def sums_differ(run: dict, first: dict) -> list:
+    """Where ``run``'s material and texel gradients leave the sum tolerance
+    of ``first``'s: [(what, max |difference|)]."""
+    import numpy as np
+
+    off = []
+    for label, preset in run["presets"].items():
+        for chunk, bw in preset["backward"].items():
+            ref = first["presets"][label]["backward"][chunk]
+            pairs = [(f"{label} {chunk} texels", np.load(bw["texels"]), np.load(ref["texels"]))]
+            pairs += [(f"{label} {chunk} call {k} materials",
+                       np.array([x for f in call["material"] for x in np.ravel(f)]),
+                       np.array([x for f in want["material"] for x in np.ravel(f)]))
+                      for k, (call, want) in enumerate(zip(bw["calls"], ref["calls"]))]
+            for what, got, want in pairs:
+                err = np.abs(got - want)
+                if got.shape != want.shape or (err > SUM_ATOL + SUM_RTOL * np.abs(want)).any():
+                    off.append((what, float(err.max()) if got.shape == want.shape else None))
+    return off
 
 
 def summary(run: dict) -> str:
@@ -310,6 +520,13 @@ def summary(run: dict) -> str:
                                       f"{bp['kernel_s'] * 1e3:.3f} ms, bounce_backward "
                                       f"{bp['bounce_backward_records']} records "
                                       f"{bp['bounce_backward_s'] * 1e3:.3f} ms" if bp else ""))
+        for chunk, bw in preset["backward"].items():
+            probes = "; ".join(f"{k[:-3].replace('_', ' ')} {v:.5f}" for k, v in bw.items()
+                               if k.endswith("_ms") and k != "bounce_backward_ms")
+            parts.append(f"{label} {chunk} all-leaves fwd+bwd: {len(bw['calls'])} bounce_backward "
+                         "calls" + (f", bounce 0's call {bw['bounce_backward_ms']:.5f} ms device "
+                                    f"time (CUDA graph of 20; probes: {probes})"
+                                    if "bounce_backward_ms" in bw else ""))
         parts.append(f"{label} sharded (2, 1) on one card, s/sample rank 0/1: "
                      + "/".join(f"{r['s_per_sample']:.4f}" for r in preset["sharded"]))
     return "\n  ".join(parts)
@@ -330,21 +547,32 @@ def main(argv) -> int:
         print(f"kernels of {tree} built in {time.perf_counter() - t0:.1f} s", flush=True)
     runs = []
     with tempfile.TemporaryDirectory(prefix="compare_render_") as tmp:
+        variants = {}
+        for name, tree in (("other", other), ("this", REPO)):
+            variants[name], lines = launch_bound_variants(tree, os.path.join(tmp, name))
+            for line in lines:
+                print(f"{line} [{card}]", flush=True)
         script = os.path.join(tmp, "child.py")  # a file: the sharded ranks re-import it
         with open(script, "w") as f:
             f.write(CHILD)
-        for label, tree in (("other", other), ("this", REPO), ("this", REPO), ("other", other)):
-            r = run_child(tree, script)
+        for k, (label, tree) in enumerate((("other", other), ("this", REPO), ("this", REPO),
+                                           ("other", other))):
+            run_dir = os.path.join(tmp, f"run{k}")
+            os.makedirs(run_dir)
+            r = run_child(tree, script, run_dir, variants[label])
             r["tree"] = label
             runs.append(r)
             print(f"{label} ({tree}), {r['wall_s']:.1f} s [{card}]:\n  {summary(r)}", flush=True)
-    first = digests(runs[0])
-    same = all(digests(r) == first for r in runs)
-    print(f"G-buffer and loss digests of the four runs {'equal' if same else 'DIFFER'}: "
-          f"{first}", flush=True)
+        first = digests(runs[0])
+        same = all(digests(r) == first for r in runs)
+        off = [x for r in runs[1:] for x in sums_differ(r, runs[0])]
+    print(f"G-buffer, loss and backward-call digests of the four runs "
+          f"{'equal' if same else 'DIFFER'}: {first}", flush=True)
+    print(f"material and texel gradients of the four runs within rtol {SUM_RTOL:g} atol "
+          f"{SUM_ATOL:g} of the first run's: {'yes' if not off else off}", flush=True)
     print(card, flush=True)
     print(json.dumps(runs), flush=True)
-    return 0 if same else 1
+    return 0 if same and not off else 1
 
 
 if __name__ == "__main__":

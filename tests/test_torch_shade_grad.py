@@ -19,12 +19,22 @@ layouts). Tolerances:
   ``jax.grad`` (run op by op under ``jax.disable_jit``):
   ``tests/test_torch_grad.py``'s rtol 1e-4 plus atol 1e-6;
 - the kernel's per-ray arithmetic (``csrc/shade_backward.cu`` built for
-  the host with g++, its sums in ray order) and, on the card, the kernel
-  against ``bounce_backward_plain``: the per-ray gradients within rtol
-  1e-4 plus atol 1e-6 x the field's largest magnitude (the kernel applies
-  the same derivative rules in another order of additions); the material
-  and texel sums within rtol 1e-4 plus atol 1e-6 (the card's adds them
-  with atomics); non-finite values at the same places.
+  the host with g++, its sums in the binning's order) and, on the card,
+  the kernel against ``bounce_backward_plain``: the per-ray gradients
+  within rtol 1e-4 plus atol 1e-6 x the field's largest magnitude (the
+  kernel applies the same derivative rules in another order of
+  additions); the material and texel sums within rtol 1e-4 plus atol 1e-6
+  (the card's adds them with atomics); non-finite values at the same
+  places. The host build's per-ray gradients are also held to SHA-256
+  digests of the first kernel's (the one-thread-a-ray kernel in pixel
+  order that the binned one replaced), bit for bit;
+- the binning (``bounce_bin_host``): every ray once, in the class that
+  ``chip_smoke.backward_classes`` derives from the forward and that
+  ``shade.bounce_bin_plain`` gives, the dead lanes' gradients passed
+  through bit for bit;
+- ``float64_recheck`` (phase shade_grad's check of the per-ray values
+  beyond the tolerance) on a small triangle far from the origin, where
+  float32 cancels.
 
 The ``cuda`` test runs on the card (``python3 chip_smoke.py``, phase
 shade_grad). This module imports JAX only inside the tests that compare
@@ -33,6 +43,8 @@ with it, so that test runs on a machine without JAX.
 
 import ctypes
 import dataclasses
+import hashlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -71,13 +83,29 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def saved_bounce(scene, inp, lobe_ratio_grad: bool, roulette: bool) -> shade.BounceSaved:
+STATE = ("ray_o", "ray_d", "idx", "hit", "active", "throughput", "radiance", "inside",
+         "prev_diffuse", "u")
+
+
+@torch.no_grad()
+def next_flags(scene, inp, lobe_ratio_grad: bool) -> tuple:
+    """The forward's next (inside, prev_diffuse) of a bounce's inputs: the
+    shade_bounce kernel's on the card, the plain version's on the CPU."""
+    forward = shade.shade_bounce if inp["ray_o"].is_cuda else shade.shade_bounce_plain
+    pending = forward(scene, *(inp[k] for k in STATE), lobe_ratio_grad)
+    return pending.inside, pending.prev_diffuse
+
+
+def saved_bounce(scene, inp, lobe_ratio_grad: bool, roulette: bool,
+                 flags=None) -> shade.BounceSaved:
+    """The saved inputs of a bounce as ``BounceFunction`` keeps them; the
+    forward's next flags computed unless given."""
     lit = scene.has_lights
+    if flags is None:
+        flags = next_flags(scene, inp, lobe_ratio_grad)
     return shade.BounceSaved(
-        scene, *(inp[k] for k in ("ray_o", "ray_d", "idx", "hit", "active", "throughput",
-                                  "radiance", "inside", "prev_diffuse", "u")),
-        inp["shadow_idx"] if lit else None, inp["shadow_hit"] if lit else None,
-        lobe_ratio_grad, roulette)
+        scene, *(inp[k] for k in STATE), inp["shadow_idx"] if lit else None,
+        inp["shadow_hit"] if lit else None, lobe_ratio_grad, roulette, *flags)
 
 
 def grad_outputs(n: int, seed: int, device="cpu") -> list:
@@ -162,6 +190,96 @@ def check_backward(label: str, got, want, share: float = 0.0) -> dict:
                                f"{float(err.max()):.3e}; the worst (kernel, plain) {worst}")
         errs[name] = float(err.max()) if err.numel() else 0.0
     return errs
+
+
+# A per-ray value beyond the strict tolerance (phase shade_grad) is recomputed
+# in float64 (float64_recheck). Kernel and plain version round the same
+# cancelling terms in float32 in another order, so each lands some ulps of
+# the largest term away from the float64 value, neither always nearer: over
+# a call's rechecked values of a field, the kernel's largest distance may
+# be at most this many times the plain version's (plus the strict atol).
+RECHECK_FACTOR = 8.0
+
+
+def beyond_rays(got, want) -> torch.Tensor:
+    """The rays with a per-ray gradient beyond the strict tolerance of
+    ``check_backward`` (ascending ids)."""
+    bad = None
+    for g, w in zip(got[:3], want[:3]):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        finite = torch.isfinite(w)
+        atol = RAY_ATOL_SHARE * float(w[finite].abs().max()) if finite.any() else 0.0
+        off = ((g - w).abs() > atol + RAY_RTOL * w.abs()) & finite
+        bad = off.any(dim=1) if bad is None else bad | off.any(dim=1)
+    return torch.nonzero(bad).flatten()
+
+
+def float64_bounce(saved: shade.BounceSaved, gouts, rays: torch.Tensor):
+    """(the saved inputs, the output gradients) of ``rays`` as float64 CPU
+    copies, on a scene of the triangles they read (their hits and the
+    lights; a shadow hit elsewhere becomes -2, which no light is) with its
+    float tables in float64."""
+    scene = saved.scene
+    rays = rays.to(saved.ray_o.device)
+    idx = saved.idx[rays]
+    rows = torch.unique(torch.cat([idx.clamp_min(0), scene.light_indices.to(idx.dtype)]))
+
+    def new_id(ids):
+        at = torch.searchsorted(rows, ids).clamp_max(rows.numel() - 1)
+        return torch.where(rows[at] == ids, at, torch.full_like(ids, -2)).to(torch.int32).cpu()
+
+    def f64(t):
+        return t.detach().cpu().double() if t.is_floating_point() else t.detach().cpu()
+
+    m, tex = scene.materials, scene.textures
+    small = scene.replace(
+        vertices=f64(scene.vertices[rows]), normals=f64(scene.normals[rows]),
+        uvs=f64(scene.uvs[rows]), mat_id=f64(scene.mat_id[rows]),
+        light_indices=new_id(scene.light_indices.to(idx.dtype)),
+        materials=m.replace(**{f.name: f64(getattr(m, f.name)) for f in dataclasses.fields(m)}),
+        textures=dataclasses.replace(tex, **{f.name: f64(getattr(tex, f.name))
+                                             for f in dataclasses.fields(tex)}),
+        kd=None, wkd=None, cbvh=None,
+        shade_table=None if scene.shade_table is None else f64(scene.shade_table[rows]))
+    kw = {}
+    for f, v in vars(saved).items():
+        if f == "scene":
+            v = small
+        elif f == "idx":
+            v = torch.where(idx < 0, idx, new_id(idx.clamp_min(0)).to(idx.device)).cpu()
+        elif f == "shadow_idx" and v is not None:
+            v = new_id(v[rays])
+        elif isinstance(v, torch.Tensor):
+            v = f64(v[:, rays] if f == "u" else v[rays])
+        kw[f] = v
+    return shade.BounceSaved(**kw), [f64(g[rays]) for g in gouts[:4]]
+
+
+def float64_recheck(label: str, saved: shade.BounceSaved, gouts, got, want, rays) -> dict:
+    """The per-ray gradients of ``rays`` recomputed in float64 (the plain
+    versions on ``float64_bounce``'s copies) against the kernel's ``got``
+    and the float32 plain version's ``want``: raises where, over a field's
+    finite values, the kernel's largest distance from the float64 values
+    exceeds RECHECK_FACTOR times the plain version's plus the strict atol.
+    Returns each side's largest distance over the three per-ray fields, and
+    the rays."""
+    saved64, gouts64 = float64_bounce(saved, gouts, rays)
+    ref = shade.bounce_backward_plain(saved64, gouts64)
+    out = {"rays": int(rays.numel()), "kernel": 0.0, "plain": 0.0}
+    for name, g, w, r in zip(PER_RAY, got[:3], want[:3], ref[:3]):
+        cut = rays.to(g.device)
+        finite = torch.isfinite(r)
+        if not finite.any():
+            continue
+        dk = float((g[cut].detach().cpu().double() - r)[finite].abs().max())
+        dp = float((w[cut].detach().cpu().double() - r)[finite].abs().max())
+        atol = RAY_ATOL_SHARE * float(w.detach().double().abs().max())
+        assert dk <= RECHECK_FACTOR * dp + atol, (
+            f"{label} {name}: over {out['rays']} rays the kernel lies up to {dk:.3e} from the "
+            f"float64 values, farther than {RECHECK_FACTOR:g}x the plain version's {dp:.3e} "
+            f"plus atol {atol:.3e}")
+        out["kernel"], out["plain"] = max(out["kernel"], dk), max(out["plain"], dp)
+    return out
 
 
 # --- the Function on CPU tensors --------------------------------------------
@@ -367,17 +485,29 @@ def test_backward_args_point_at_the_tensors(edge_scenes):
     saved = saved_bounce(scene, inp, True, False)
     gouts = grad_outputs(64, seed=2)
     reads, outs, s_args, args = shade.backward_args(saved, gouts)
-    o, d, t, sums, tex = outs
-    assert (args.ray_o, args.u, args.shadow_idx, args.g_radiance, args.o_throughput) == (
+    assert (args.ray_o, args.u, args.shadow_idx, args.g_radiance, args.o_throughput,
+            args.next_inside, args.next_diffuse) == (
         inp["ray_o"].data_ptr(), inp["u"].data_ptr(), inp["shadow_idx"].data_ptr(),
-        gouts[3].data_ptr(), t.data_ptr())
-    assert (args.num_rays, args.u_stride, args.roulette, args.lobe_ratio_grad) == (64, 64, 0, 1)
-    assert sums.shape == (scene.materials.albedo.shape[0], 9) and not sums.any()
+        gouts[3].data_ptr(), outs.throughput.data_ptr(), saved.next_inside.data_ptr(),
+        saved.next_diffuse.data_ptr())
+    n_mat = scene.materials.albedo.shape[0]
+    assert (args.num_rays, args.u_stride, args.roulette, args.lobe_ratio_grad,
+            args.num_materials) == (64, 64, 0, 1, n_mat)
+    sums, tex = outs.material, outs.texels
+    assert sums.shape == (n_mat, 9) and not sums.any()
     assert sums.dtype == tex.dtype == torch.float64
     assert tex.shape == scene.textures.buffer.shape and args.o_texels == tex.data_ptr()
+    assert args.o_material == sums.data_ptr() == outs.sums.data_ptr()
+    assert outs.sums.numel() == sums.numel() + tex.numel()  # one flat table: one conversion
+    assert outs.ray_list.shape == (len(shade.RAY_CLASSES), 64)
+    assert outs.ray_list.dtype == outs.class_counts.dtype == torch.int32
+    assert not outs.class_counts.any() and args.class_counts == outs.class_counts.data_ptr()
+    assert args.ray_list == outs.ray_list.data_ptr()
     assert s_args.has_lights == 1 and s_args.table == scene.shade_table.data_ptr()
     _, outs, _, args = shade.backward_args(saved, gouts, materials=False, texels=False)
-    assert outs[3] is None and outs[4] is None and args.o_material is None and not args.o_texels
+    assert outs.material is None and outs.texels is None
+    assert args.o_material is None and not args.o_texels and not outs.class_counts.any()
+    assert outs.sums is None
     dark = edge_scenes[0]
     inp = bounce_inputs(dark, seed=1, n=16)
     _, _, s_args, args = shade.backward_args(saved_bounce(dark, inp, False, True),
@@ -387,11 +517,13 @@ def test_backward_args_point_at_the_tensors(edge_scenes):
 
 @pytest.mark.parametrize("fault", ["dtype", "shape", "device", "contiguity", "uniform rows",
                                    "grad shape", "no shadow hits", "shadow hits without lights",
-                                   "grad outputs missing", "requires grad under grad mode"])
+                                   "grad outputs missing", "requires grad under grad mode",
+                                   "no next flags", "next flags' shape"])
 def test_backward_args_refuse(edge_scenes, fault):
     scene = edge_scenes[1]
     inp = bounce_inputs(scene, seed=2, n=32)
     gouts = grad_outputs(32, seed=4)
+    flags = next_flags(scene, inp, True)
     if fault == "dtype":
         inp["ray_d"] = inp["ray_d"].double()
     elif fault == "shape":
@@ -411,7 +543,11 @@ def test_backward_args_refuse(edge_scenes, fault):
         gouts = gouts[:3]
     elif fault == "requires grad under grad mode":
         inp["throughput"] = inp["throughput"].requires_grad_(True)
-    saved = saved_bounce(scene, inp, True, True)
+    elif fault == "next flags' shape":
+        flags = (flags[0][:16], flags[1])
+    saved = saved_bounce(scene, inp, True, True, flags)
+    if fault == "no next flags":
+        saved.next_inside = None
     if fault == "no shadow hits":
         saved.shadow_idx = saved.shadow_hit = None
     if fault == "shadow hits without lights":
@@ -442,28 +578,52 @@ def host_backward(tmp_path_factory):
     subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
                     "-x", "c++", str(build.CSRC / "shade_backward.cu"), "-o", str(lib)],
                    check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).bounce_backward_host
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fns = {}
+    for name in ("bounce_backward_host", "bounce_bin_host"):
+        fns[name] = getattr(ctypes.CDLL(str(lib)), name)
+        fns[name].argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fns[name].restype = ctypes.c_int
 
     def run(saved, gouts):
-        reads, (o, d, t, sums, tex), s_args, args = shade.backward_args(saved, gouts)
-        assert fn(ctypes.addressof(s_args), ctypes.addressof(args)) == 0
-        return [o, d, t, gouts[3], *shade.material_grads(sums, saved.scene, [True] * 6),
-                tex.to(torch.float32)]
+        reads, outs, s_args, args = shade.backward_args(saved, gouts)
+        assert fns["bounce_backward_host"](ctypes.addressof(s_args), ctypes.addressof(args)) == 0
+        return [outs.ray_o, outs.ray_d, outs.throughput, gouts[3],
+                *shade.material_grads(outs.material, saved.scene, [True] * 6),
+                outs.texels.to(torch.float32)]
 
+    def binning(saved, gouts):
+        """The binning alone: its ``BackwardOutputs`` (the live lanes'
+        gradients left NaN)."""
+        reads, outs, s_args, args = shade.backward_args(saved, gouts)
+        for t in outs[:3]:
+            t.fill_(float("nan"))
+        assert fns["bounce_bin_host"](ctypes.addressof(s_args), ctypes.addressof(args)) == 0
+        return outs
+
+    run.binning = binning
     return run
 
 
-@pytest.mark.parametrize("lights,table,lobe_ratio_grad,roulette", [
-    (0, True, True, True), (1, False, True, True), (1, True, False, False),
-    (2, True, True, False), (2, False, False, True), ("demo", True, True, True)])
-def test_host_build_of_the_kernel_equals_plain(edge_scenes, host_backward, lights, table,
-                                               lobe_ratio_grad, roulette):
-    if lights == "demo":
-        scene = prepare_scene(procedural.material_demo_scene(textured=True), "cpu")
-    else:
-        scene = edge_scenes[lights]
+# SHA-256 of the per-ray gradients (ray_o, ray_d, throughput) that the first
+# kernel's host build (one thread a ray in pixel order, before the binning)
+# gave on test_host_build_of_the_kernel_equals_plain's cases
+HOST_DIGESTS = {
+    (0, True, True, True): "03671ad914135179", (1, False, True, True): "0d8e20e4b2802753",
+    (1, True, False, False): "095cd93c91e68806", (2, True, True, False): "71f2cd75240db82b",
+    (2, False, False, True): "c02bf1cb6b02d28f", ("demo", True, True, True): "08dcd698f8d1f588"}
+
+
+@pytest.fixture(scope="module")
+def textured_demo():
+    return prepare_scene(procedural.material_demo_scene(textured=True), "cpu")
+
+
+@pytest.mark.parametrize("lights,table,lobe_ratio_grad,roulette", list(HOST_DIGESTS))
+def test_host_build_of_the_kernel_equals_plain(edge_scenes, textured_demo, host_backward, lights,
+                                               table, lobe_ratio_grad, roulette):
+    """Within the tolerances of the plain version, and the per-ray
+    gradients bit for bit the first kernel's."""
+    scene = textured_demo if lights == "demo" else edge_scenes[lights]
     if not table:
         scene = scene.replace(shade_table=None)
     n = 2000 if lights == "demo" else N
@@ -475,6 +635,107 @@ def test_host_build_of_the_kernel_equals_plain(edge_scenes, host_backward, light
     check_backward(f"host {lights} {table}", got, want)
     assert all(float(g.abs().max()) > 0 for g in got[:3])
     assert float(got[4].abs().max()) > 0 and float(got[10].abs().max()) > 0
+    digest = hashlib.sha256()
+    for g in got[:3]:
+        digest.update(g.numpy().tobytes())
+    assert digest.hexdigest()[:16] == HOST_DIGESTS[(lights, table, lobe_ratio_grad, roulette)]
+
+
+def _chip_smoke():
+    """chip_smoke.py of the repository's root, loaded from its file (its
+    ``backward_classes``, the bound's classes)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("lights,table", [(0, True), (1, False), (2, True), ("demo", True),
+                                          ("demo", False)])
+def test_binning_lists_every_ray_once_in_the_bounds_class(edge_scenes, textured_demo,
+                                                          host_backward, lights, table):
+    scene = textured_demo if lights == "demo" else edge_scenes[lights]
+    if not table:
+        scene = scene.replace(shade_table=None)
+    n = 2000 if lights == "demo" else N
+    inp = bounce_inputs(scene, seed=23, n=n)
+    saved = saved_bounce(scene, inp, True, True)
+    gouts = grad_outputs(n, seed=24)
+    outs = host_backward.binning(saved, gouts)
+    counts = outs.class_counts.tolist()
+    lists = [outs.ray_list[c, :counts[c]] for c in range(len(shade.RAY_CLASSES))]
+    assert counts[len(shade.RAY_CLASSES):] == [0] * (len(counts) - len(shade.RAY_CLASSES))
+    live = inp["active"] & inp["hit"]
+    listed = torch.cat(lists).long()
+    assert listed.numel() == int(live.sum()) and torch.unique(listed).numel() == listed.numel()
+    assert bool(live[listed].all())
+    with torch.no_grad():
+        pending = shade.shade_bounce_plain(scene, *(inp[k] for k in STATE), True)
+    bound = _chip_smoke().backward_classes(saved, pending)
+    plain = shade.bounce_bin_plain(saved)
+    for c, name in enumerate(shade.RAY_CLASSES):
+        want = torch.nonzero(bound[name]).flatten()
+        assert torch.equal(lists[c].long(), want) and torch.equal(plain[c], want), name
+    dead = ~live
+    for g, o in zip(gouts[:3], outs[:3]):
+        assert torch.equal(_bits(o[dead]), _bits(g[dead]))
+        assert torch.isnan(o[live]).all()
+    assert sum(counts) > 0 and sum(c > 0 for c in counts) >= (3 if lights else 2)
+
+
+def _far_small_triangle_scene():
+    """A 1e-3 wide triangle 1,000 units from the origin and a light above
+    it: hit_geometry's barycentrics subtract coordinates near 1e3 that
+    differ in their last float32 bits, so the gradients of rays hitting
+    it cancel."""
+    b = procedural.SceneBuilder()
+    glossy = b.add_material(albedo=(0.6, 0.5, 0.4), roughness=0.3, ior=1.5)
+    light = b.add_material(albedo=(0.0, 0.0, 0.0), emittance=(5.0, 5.0, 5.0), ior=1.0)
+    c = np.array([1000.0, 1000.0, 1000.0])
+    b.add_quad(tuple(c + (-5e-4, 0, -5e-4)), tuple(c + (5e-4, 0, -5e-4)),
+               tuple(c + (5e-4, 0, 5e-4)), tuple(c + (-5e-4, 0, 5e-4)), glossy)
+    b.add_quad(tuple(c + (-1, 2, -1)), tuple(c + (1, 2, -1)), tuple(c + (1, 2, 1)),
+               tuple(c + (-1, 2, 1)), light)
+    return prepare_scene(b.build(), "cpu")
+
+
+def test_float64_recheck_on_a_small_triangle_far_from_the_origin(host_backward):
+    scene = _far_small_triangle_scene()
+    n = 256
+    r = np.random.default_rng(41)
+    inp = bounce_inputs(scene, seed=42, n=n)
+    verts = scene.vertices.numpy()
+    small = np.nonzero(np.abs(verts[:, :, 1] - 1000.0).max(axis=1) < 1e-2)[0]
+    assert small.size == 2  # the small quad's two triangles
+    tri = r.choice(small, n)
+    verts = verts[tri]
+    point = np.einsum("nk,nkc->nc", r.dirichlet((1.0, 1.0, 1.0), n), verts)
+    d = np.stack([r.normal(0, 0.3, n), -np.ones(n), r.normal(0, 0.3, n)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    inp["ray_o"] = torch.from_numpy((point - 0.5 * d).astype(np.float32))
+    inp["ray_d"] = torch.from_numpy(d.astype(np.float32))
+    inp["idx"] = torch.from_numpy(tri.astype(np.int32))
+    inp["hit"] = inp["active"] = torch.ones(n, dtype=torch.bool)
+    saved = saved_bounce(scene, inp, True, True)
+    gouts = grad_outputs(n, seed=43)
+    got = host_backward(saved, gouts)
+    want = shade.bounce_backward_plain(saved, gouts)
+    rays = torch.arange(n)
+    out = float64_recheck("far small triangle", saved, gouts, got, want, rays)
+    assert out["rays"] == n and 0.0 < out["kernel"] and 0.0 < out["plain"]
+    # the case is ill-conditioned: float32 lands far from the float64 value
+    saved64, gouts64 = float64_bounce(saved, gouts, rays)
+    ref = shade.bounce_backward_plain(saved64, gouts64)
+    rel = ((want[0].double() - ref[0]).abs() / ref[0].abs().clamp_min(1e-30)).max()
+    assert float(rel) > RAY_RTOL
+    assert beyond_rays(got, want).numel() <= n
+    # a kernel far off the float64 values where the plain version is near them fails
+    bad = [g.clone() for g in got]
+    bad[0][0] = (ref[0][0] + 100.0 * (out["plain"] + 1.0)).float()
+    with pytest.raises(AssertionError, match="farther"):
+        float64_recheck("far small triangle, off", saved, gouts, bad, want, rays)
 
 
 def _grazing_miss_scene(device="cpu"):
@@ -554,9 +815,10 @@ def test_cuda_bounce_backward_equals_plain():
     scenes = {f"edge{k}": prepare_scene(edge_scene(procedural, ptexture, k), dev)
               for k in (0, 1, 2)}
     scenes["demo"] = prepare_scene(procedural.material_demo_scene(textured=True), dev)
-    before = ki.COUNTS.shade_backward_kernel
+    before = (ki.COUNTS.shade_backward_kernel, ki.COUNTS.shade_bin_kernel)
     cases = check_kernel_against_plain(dev, scenes)
-    assert cases == 24 and ki.COUNTS.shade_backward_kernel - before == cases
+    assert cases == 24 and ki.COUNTS.shade_backward_kernel - before[0] == cases
+    assert ki.COUNTS.shade_bin_kernel - before[1] == cases
     check_kernel_against_plain(dev, {"edge2": scenes["edge2"]}, n=1)
     scene, inp = _grazing_miss_scene(dev)
     saved = saved_bounce(scene, inp, True, True)

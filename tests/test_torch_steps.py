@@ -23,7 +23,12 @@ sync-free pieces under them.
   graph calls faked, and the graph cache's key: a changed
   ``ISAKLM_INTERSECTOR`` or ``ISAKLM_BLK_SORT``, another scene or another
   variant gets a fresh step; a dead scene's graphs are dropped. The real capture runs on the card
-  (``chip_smoke.py`` phase graphs).
+  (``chip_smoke.py`` phase graphs);
+- ``GraphStep._capture``'s garbage collection, with the graph calls faked:
+  a collection runs before the capture, none can run during it (the
+  collector is off while the captured function runs), and the collector
+  is back on afterwards, also when the capture raises, unless it was off
+  before.
 """
 
 import contextlib
@@ -342,6 +347,41 @@ def test_graph_step_warms_up_captures_and_counts_replays(fake_cuda):
     np.testing.assert_array_equal(g.static_in[1].numpy(), (y + 3).numpy())
     COUNTS.reset()
     R.GraphStep.reset_tallies()
+
+
+@pytest.mark.parametrize("enabled,raises", [(True, False), (True, True), (False, False),
+                                            (False, True)])
+def test_graph_step_capture_collects_before_and_not_during(fake_cuda, monkeypatch, enabled,
+                                                          raises):
+    events, armed = [], []
+    monkeypatch.setattr(R.gc, "collect", lambda *a: events.append("collect") or 0)
+
+    def fn(x):
+        events.append(("captured", gc.isenabled()))
+        if armed:
+            raise RuntimeError("capture failed")
+        return (x + 1,)
+
+    g = R.GraphStep(torch.device("cpu"))
+    g(fn, [torch.zeros(2)])  # warm-up: eager, no capture
+    events.clear()
+    if raises:
+        armed.append(True)
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        if raises:
+            with pytest.raises(RuntimeError, match="capture failed"):
+                g(fn, [torch.ones(2)])
+        else:
+            out = g(fn, [torch.ones(2)])
+            np.testing.assert_array_equal(out[0].numpy(), [2.0, 2.0])
+        after = gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert events == ["collect", ("captured", False)]
+    assert after == enabled
+    assert (g.graph is None) == raises
 
 
 def test_graph_cache_keys_on_scene_intersector_order_and_variant(scenes, monkeypatch):
