@@ -160,26 +160,40 @@ raising on failure:
    samples writes ANSI frames and returns a finite image;
 17. sharded: ``dist.sharding`` on the card, two ranks on this one card
    over gloo (``dist.launch`` with device cuda:0; NCCL refuses two ranks on
-   one card): ``render_sharded`` on a (2, 1) mesh of the demo (flat) and
-   hero20k (queue) at 512x512x8 with 4 adaptive samples and of the hero
-   (blk) at 640x360x6 with 2, in one pass, each G-buffer bit-equal to the
-   single-process ``render`` on the card, each rank launching the path's
-   kernel, with each rank's s/sample of two full steps (both ranks at
-   once; a rank's steps are eager) beside one process's (two replays of
-   ``render``'s graph, after its eager call and its capture); the tail mode at the demo's width from a
-   95%-converged G-buffer (tail steps counted on each rank), bit-equal;
+   one card). A rank's steps replay CUDA graphs after their eager call and
+   their capture, and every rank's run is counted by the profiler
+   (``device_launches``): ``render_sharded`` on a (2, 1) mesh of the demo
+   (flat) and hero20k (queue) at 512x512x8 with 4 adaptive samples and of
+   the hero (blk) at 640x360x6 with 2, in one pass, each G-buffer bit-equal
+   to the single-process ``render`` on the card, each rank launching the
+   path's kernel, with each rank's seconds of a full step's eager call and
+   capturing call and s/sample of two replayed full steps (both ranks at
+   once) beside one process's (two replays of ``render``'s graph, after its
+   eager call and its capture), and the graph's capture record; the tail
+   mode at the demo's width from a 95%-converged G-buffer (tail steps
+   counted on each rank, the bucket's graph replayed), bit-equal;
    ``sharded_value_and_grad_fn`` of the demo on a (1, 2) mesh with the
-   decorrelated gradient against the single-process hand-built estimator
-   (the loss and grads within rtol 1e-4, atol 1e-6), grads bit-identical on
-   both ranks, and three ``sharded_train_step_fn`` steps (finite params,
-   s a step), both shading through the kernels and the backward kernel;
-   the CLI with the demo, checkpointed, under the two ranks'
-   group: both PNGs byte-equal to one process's; the ms of the G-buffer
-   all_gather and of the grad all_reduce. Then NCCL at world size 1 in
-   this process: ``render_sharded`` of the demo on a (1, 1) mesh bit-equal
-   to ``render``, ``unshard_gbuffer`` and the grad all_reduce through NCCL,
-   and their ms. The collectives' times on one card are no multi-card
-   scaling numbers;
+   decorrelated gradient, three calls on one key (eager, capture, replay):
+   each replay's loss bit-equal to the eager call's and its grads within
+   rtol 1e-4, atol 1e-6 of them, every call within the same of the
+   single-process hand-built estimator, grads bit-identical on both ranks,
+   each call's seconds and the graphs' capture record; three
+   ``sharded_train_step_fn`` steps (replays of the same graphs; finite
+   params, s a step), both shading through the kernels and the backward's
+   two; the CLI with the demo, checkpointed, under the two ranks' group:
+   both PNGs byte-equal to one process's; the ms of the G-buffer all_gather
+   and of the grad all_reduce. Then NCCL at world size 1 in this process:
+   ``render_sharded`` of the demo on a (1, 1) mesh bit-equal to ``render``,
+   ``unshard_gbuffer`` and the grad all_reduce through NCCL, and their ms;
+   ``sharded_value_and_grad_fn`` of the demo at 512x512x8 and of the hero
+   at 640x360x6 (``ray_chunk`` 0), five calls on one key: the eager call's,
+   the capturing call's and the replays' seconds, the capture,
+   instantiation and pool of the forward and backward graphs, each replay
+   held to the eager call (the demo's also to the hand-built estimator),
+   and one profiled replay: the path's intersector, the sampler, both
+   shading kernels and both backward kernels, the backward's two once a
+   bounce, no plain version on CUDA, its records and busy share. The
+   collectives' times on one card are no multi-card scaling numbers;
 18. kd: the KD tree's walk kernel (csrc/kd_intersect.cu, both layouts)
    and the brute-force kernel (csrc/brute_intersect.cu). The demo, the 20k
    hero and ``hero_scene(300_000)`` (KD_BUILD_LIMIT; its cluster path is
@@ -1442,23 +1456,32 @@ def device_records(prof):
     return profiling.device_records(prof)
 
 
+class Ran(dict):
+    """``device_launches``'s measurement: the kernels the card ran by name,
+    and ``records``, the profile's CUDA records (``device_records``)."""
+
+    records = ()
+
+
 @contextlib.contextmanager
 def device_launches(counts):
     """The kernels the card ran in the block, measured: the counts are
     zeroed, the block runs under torch.profiler, whose CUPTI records hold
     every kernel the card ran, those of a CUDA graph's replays among them;
     on exit the yielded dict holds the records of each kernel of
-    ``counts.KERNELS`` (by ``kernel_symbol``). Raises unless each equals
+    ``counts.KERNELS`` (by ``kernel_symbol``), and its ``records`` the
+    profile's CUDA records. Raises unless each equals
     what the wrappers launched eagerly plus what the replays issued
     (``COUNTS - GraphStep.recorded + GraphStep.replayed``): so a replay ran
     the kernels its capture recorded."""
     from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
 
     zero_counts(counts)
-    ran = {}
+    ran = Ran()
     with cuda_profile() as prof:
         yield ran
-    names = collections.Counter(name for name, _, _ in device_records(prof))
+    ran.records = device_records(prof)
+    names = collections.Counter(name for name, _, _ in ran.records)
     for k in counts.KERNELS:
         ran[k] = sum(n for name, n in names.items() if kernel_symbol(k) in name)
     attr = {k: f"{k}_kernel" for k in counts.KERNELS}
@@ -2151,11 +2174,55 @@ def hand_built_grads(scene, camera, config, params, target, key, streams: int):
         for name, g, x in zip(names, grads, floats + pose)}
 
 
+def graph_stats(step) -> dict:
+    """A graph step's capture record (``graph_record``'s numbers)."""
+    return {"capture_s": step.capture_s, "instantiate_s": step.instantiate_s,
+            "pool_bytes": step.pool_bytes, "replays": step.replays}
+
+
+def vg_calls(vg, params, camera, target, key, calls: int = 3) -> dict:
+    """``calls`` calls of a ``sharded_value_and_grad_fn`` on the same inputs
+    (on a fresh key: its eager call, its capture, then replays), each
+    timed by the host clock around a synchronise: their seconds, losses and
+    grads (numpy), and the gradient graph step's capture record."""
+    seconds, losses, grads = [], [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = vg(params, camera, target, key)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        grads.append({k: v.cpu().numpy() for k, v in g.items()})
+    return {"seconds": seconds, "losses": losses, "grads": grads,
+            "graph": graph_stats(vg.graphs.last)}
+
+
+def replays_against_eager(label, out: dict) -> float:
+    """Raises unless every replayed call of ``vg_calls`` has its eager
+    call's loss bit for bit and its grads within CARD_VS_CPU_RTOL and
+    CARD_VS_CPU_ATOL (the backward's float64 atomics add in another order
+    each call); returns the largest grad difference."""
+    worst = 0.0
+    for loss, grads in zip(out["losses"][1:], out["grads"][1:]):
+        if loss != out["losses"][0]:
+            raise RuntimeError(f"{label}: a replayed loss {loss!r} against the eager call's "
+                               f"{out['losses'][0]!r}")
+        for f, g in out["grads"][0].items():
+            worst = max(worst, float(np.abs(grads[f] - g).max()))
+            if not np.allclose(grads[f], g, rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL):
+                raise RuntimeError(f"{label}: replayed {f} grads {grads[f]} against the eager "
+                                   f"call's {g}")
+    return worst
+
+
 def sharded_rank(rank: int, world: int, spec: dict) -> dict:
     """One of the ranks of phase sharded (the module docstring, 17), all on
     the parent's card over gloo: each path through render_sharded, the
-    tail mode, the train step on a (1, 2) mesh, the collectives' times and
-    the CLI under this group."""
+    tail mode, value_and_grad and the train step on a (1, 2) mesh, the
+    collectives' times and the CLI under this group. A rank's steps replay
+    CUDA graphs, so every run is counted by the profiler
+    (``device_launches``)."""
     global CARD
     CARD = spec["card"]
     import torch.distributed as dist
@@ -2172,8 +2239,14 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
     sync = torch.cuda.synchronize
     counts = ki.COUNTS
 
-    def launched(kernel, label, grad=False):  # a rank's steps run eagerly
-        return check_only(counts, kernel, f"rank {rank} {label}", grad=grad)[0]
+    @contextlib.contextmanager
+    def launched(kernel, label, grad=False):
+        """The block's kernels the card ran, eager and replayed, held by
+        ``check_only``; yields a dict that holds the launches after it."""
+        got = {}
+        with device_launches(counts) as ran:
+            yield got
+        got["launches"] = check_only(counts, kernel, f"rank {rank} {label}", ran, grad=grad)[0]
 
     tile = sharding.make_render_mesh(world, 1, device=device)
     streams = sharding.make_render_mesh(1, world, device=device)
@@ -2183,19 +2256,29 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
         camera = Camera.create(eye, pitch=pitch, fov=np.pi / 2, device=device)
         config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
         dist.barrier()
-        zero_counts(counts)
-        t0 = time.perf_counter()
-        gb = sharding.render_sharded(scene, camera, config, samples, tile, adaptive=True)
-        sync()
-        wall = time.perf_counter() - t0
-        launches = launched(kernel, f"sharded {label}")
+        with launched(kernel, f"sharded {label}") as got:
+            t0 = time.perf_counter()
+            gb = sharding.render_sharded(scene, camera, config, samples, tile, adaptive=True)
+            sync()
+            wall = time.perf_counter() - t0
         arrays = gbuffer_arrays(sharding.unshard_gbuffer(gb, config, tile))
-        dist.barrier()  # full steps, warm, every rank at once
+        # full steps: the eager call and the capture, then two timed replays,
+        # every rank at once
+        first = []
+        for offset in (samples, samples + 1):
+            dist.barrier()
+            t0 = time.perf_counter()
+            sharding.render_sharded(scene, camera, config, 1, tile, sample_offset=offset)
+            sync()
+            first.append(time.perf_counter() - t0)
+        dist.barrier()
         t0 = time.perf_counter()
-        sharding.render_sharded(scene, camera, config, 2, tile, sample_offset=samples)
+        sharding.render_sharded(scene, camera, config, 2, tile, sample_offset=samples + 2)
         sync()
         out["paths"][label] = {
-            "launches": launches, "wall": wall, "s_per_sample": (time.perf_counter() - t0) / 2,
+            "launches": got["launches"], "wall": wall, "eager_s": first[0],
+            "capture_call_s": first[1], "s_per_sample": (time.perf_counter() - t0) / 2,
+            "graph": graph_stats(sharding._rank_steps(config).step.graphs.last),
             "digest": digest(arrays), "arrays": arrays if rank == 0 else None}
         if label == "demo":
             demo, demo_camera, demo_config = scene, camera, config
@@ -2213,45 +2296,46 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
         return real_tail(*a, **kw)
 
     sharding._sharded_tail_step = counting_tail
-    zero_counts(counts)
     try:
-        gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, tile, seed=7,
-                                     adaptive=True, gbuffer=gb0)
+        with launched("flat", "sharded tail") as got:
+            gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, tile, seed=7,
+                                         adaptive=True, gbuffer=gb0)
     finally:
         sharding._sharded_tail_step = real_tail
     arrays = gbuffer_arrays(sharding.unshard_gbuffer(gb, demo_config, tile))
-    out["tail"] = {"calls": calls["n"], "launches": launched("flat", "sharded tail"),
+    tail = sharding._rank_steps(demo_config).tail.graphs.last
+    out["tail"] = {"calls": calls["n"], "launches": got["launches"], "replays": tail.replays,
                    "digest": digest(arrays), "arrays": arrays if rank == 0 else None}
 
-    # the train step on a (1, world) mesh: every rank renders the whole image
+    # value_and_grad and the train step on a (1, world) mesh: every rank
+    # renders the whole image; its eager call, its capture, a replay
     target = torch.from_numpy(spec["target"]).to(device)
     params = demo.materials.replace(albedo=demo.materials.albedo * 0.6)
     vg = sharding.sharded_value_and_grad_fn(demo, demo_config, streams, decorrelate=True)
-    zero_counts(counts)
     dist.barrier()
-    t0 = time.perf_counter()
-    loss, grads = vg(params, demo_camera, target, SHARDED_KEY)
-    sync()
-    out["vg"] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
-                 "grads": {k: v.cpu().numpy() for k, v in grads.items()},
-                 "launches": launched("flat", "sharded value_and_grad", grad=True)}
+    with launched("flat", "sharded value_and_grad", grad=True) as got:
+        out["vg"] = vg_calls(vg, params, demo_camera, target, SHARDED_KEY)
+    out["vg"]["launches"] = got["launches"]
+    out["vg"]["worst"] = replays_against_eager(f"rank {rank} sharded value_and_grad", out["vg"])
     step = sharding.sharded_train_step_fn(demo, demo_config, streams)
     p, losses = params, []
-    zero_counts(counts)
     dist.barrier()
-    t0 = time.perf_counter()
-    for i in range(3):
-        p, loss = step(p, demo_camera, target, rng.fold_in(SHARDED_KEY, 10 + i))
-        losses.append(float(loss))
-    sync()
-    out["train"] = {"s_per_step": (time.perf_counter() - t0) / 3, "losses": losses,
+    with launched("flat", "sharded train step", grad=True) as got:
+        t0 = time.perf_counter()
+        for i in range(3):
+            p, loss = step(p, demo_camera, target, rng.fold_in(SHARDED_KEY, 10 + i))
+            losses.append(float(loss))
+        sync()
+        seconds = (time.perf_counter() - t0) / 3
+    out["train"] = {"s_per_step": seconds, "losses": losses, "launches": got["launches"],
+                    "replays": step.graphs.last.replays,
                     "finite": all(bool(torch.isfinite(getattr(p, f)).all())
-                                  for f in sharding.FLOAT_FIELDS),
-                    "launches": launched("flat", "sharded train step", grad=True)}
+                                  for f in sharding.FLOAT_FIELDS)}
 
     # the collectives alone
     shard = sharding.shard_gbuffer(GBuffer.create(n, device), demo_config, tile)
-    flat = torch.zeros(1 + sum(g.numel() for g in grads.values()), device=device)
+    flat = torch.zeros(1 + sum(g.size for g in out["vg"]["grads"][0].values()),
+                       device=device)
     out["all_gather_ms"] = collective_ms(
         lambda: sharding.unshard_gbuffer(shard, demo_config, tile), sync)
     out["all_reduce_ms"] = collective_ms(lambda: dist.all_reduce(flat), sync)
@@ -2259,11 +2343,11 @@ def sharded_rank(rank: int, world: int, spec: dict) -> dict:
 
     # the CLI under this group, checkpointed
     png = os.path.join(spec["tmp"], f"sharded_cli_r{rank}.png")
-    zero_counts(counts)
-    rc = cli.main([*spec["cli_argv"], "--checkpoint",
-                   os.path.join(spec["tmp"], "sharded_cli.npz"), "--out", png])
+    with launched("flat", "sharded CLI") as got:
+        rc = cli.main([*spec["cli_argv"], "--checkpoint",
+                       os.path.join(spec["tmp"], "sharded_cli.npz"), "--out", png])
     with open(png, "rb") as f:
-        out["cli"] = {"rc": rc, "png": f.read(), "launches": launched("flat", "sharded CLI")}
+        out["cli"] = {"rc": rc, "png": f.read(), "launches": got["launches"]}
     return out
 
 
@@ -2338,46 +2422,69 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
             raise RuntimeError(f"sharded {label}: differs from one process (max |d| {err:.3e})")
         return err
 
+    def graph_line(g) -> str:
+        return (f"capture {g['capture_s']:.3f} s, instantiation {g['instantiate_s']:.3f} s, "
+                f"graph pool {g['pool_bytes'] / 2**20:.1f} MiB, {g['replays']} replays")
+
     for label, kernel, (w, h, b), samples, *_ in paths:
         want, one_s = refs[label]
         r = [out["paths"][label] for out in ranks]
         same(label, r[0]["arrays"], want)
         if r[1]["digest"] != r[0]["digest"]:
             raise RuntimeError(f"sharded {label}: the ranks gathered different G-buffers")
+        if min(x["graph"]["replays"] for x in r) < 3:
+            raise RuntimeError(f"sharded {label}: a rank's full step did not replay its graph")
         log(f"sharded {label} {w}x{h}x{b} ray_chunk 0, (2, 1) mesh, {samples} adaptive "
             f"samples: G-buffer bit-equal to one process's render on both ranks; {kernel} "
-            f"launches {r[0]['launches']}/{r[1]['launches']} (rank 0/1), "
-            f"{r[0]['wall']:.3f}/{r[1]['wall']:.3f} s with the first call; full steps "
+            f"kernels the card ran {r[0]['launches']}/{r[1]['launches']} (rank 0/1), "
+            f"{r[0]['wall']:.3f}/{r[1]['wall']:.3f} s with the first calls; a full step's "
+            f"eager call {r[0]['eager_s']:.4f}/{r[1]['eager_s']:.4f} s, its capturing call "
+            f"{r[0]['capture_call_s']:.4f}/{r[1]['capture_call_s']:.4f} s, replays "
             f"{r[0]['s_per_sample']:.4f}/{r[1]['s_per_sample']:.4f} s/sample a rank, both "
-            f"ranks at once (eager steps), against {one_s:.4f} for one process (replays)")
+            f"ranks at once, against {one_s:.4f} for one process (replays); rank 0's graph: "
+            f"{graph_line(r[0]['graph'])}")
     t = [out["tail"] for out in ranks]
     same("tail", t[0]["arrays"], tail_ref)
     log(f"sharded tail mode, demo from a 95%-converged G-buffer, (2, 1) mesh: "
-        f"{t[0]['calls']}/{t[1]['calls']} tail steps (rank 0/1), flat launches "
+        f"{t[0]['calls']}/{t[1]['calls']} tail steps (rank 0/1), the last bucket's graph "
+        f"replayed {t[0]['replays']}/{t[1]['replays']} times, flat kernels the card ran "
         f"{t[0]['launches']}/{t[1]['launches']}, bit-equal to one process")
     if min(x["calls"] for x in t) == 0 or t[1]["digest"] != t[0]["digest"]:
         raise RuntimeError("sharded tail mode did not engage on every rank, or ranks differ")
+    if min(x["replays"] for x in t) == 0:
+        raise RuntimeError("sharded tail mode: a rank's tail step did not replay its graph")
 
     v = [out["vg"] for out in ranks]
-    for f, g in v[0]["grads"].items():
-        if not np.array_equal(v[1]["grads"][f], g):
-            raise RuntimeError(f"sharded value_and_grad: the {f} grads differ across ranks")
+    for k, grads in enumerate(v[0]["grads"]):
+        for f, g in grads.items():
+            if not np.array_equal(v[1]["grads"][k][f], g):
+                raise RuntimeError(f"sharded value_and_grad: the {f} grads of call {k} differ "
+                                   "across ranks")
     loss_ref, grads_ref = vg_ref
     worst = 0.0
-    for f, g in grads_ref.items():
-        got = v[0]["grads"][f]
-        worst = max(worst, float(np.abs(got - g).max()))
-        if not np.allclose(got, g, rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL):
-            raise RuntimeError(f"sharded value_and_grad {f}: {got} against one process's {g}")
-    if not np.isclose(v[0]["loss"], loss_ref, rtol=CARD_VS_CPU_RTOL, atol=0.0):
-        raise RuntimeError(f"sharded loss {v[0]['loss']} against one process's {loss_ref}")
+    for k, (loss, grads) in enumerate(zip(v[0]["losses"], v[0]["grads"])):
+        for f, g in grads_ref.items():
+            worst = max(worst, float(np.abs(grads[f] - g).max()))
+            if not np.allclose(grads[f], g, rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL):
+                raise RuntimeError(f"sharded value_and_grad call {k} {f}: {grads[f]} against "
+                                   f"one process's {g}")
+        if not np.isclose(loss, loss_ref, rtol=CARD_VS_CPU_RTOL, atol=0.0):
+            raise RuntimeError(f"sharded loss {loss} against one process's {loss_ref}")
+    if v[0]["graph"]["replays"] != 2 or min(x["replays"] for x in [out["train"] for out in
+                                                                   ranks]) != 5:
+        raise RuntimeError("sharded value_and_grad: the calls after the eager one did not "
+                           "replay its graphs, or the train step did not replay them")
     tr = [out["train"] for out in ranks]
-    log(f"sharded value_and_grad, demo, (1, 2) mesh, decorrelated: loss {v[0]['loss']:.6f} "
-        f"(one process {loss_ref:.6f}), grads bit-identical on both ranks, within rtol "
-        f"{CARD_VS_CPU_RTOL:g} atol {CARD_VS_CPU_ATOL:g} of one process's hand-built "
-        f"estimator (max |d| {worst:.3e}); {v[0]['seconds']:.4f}/{v[1]['seconds']:.4f} s with "
-        f"the first call, flat launches {v[0]['launches']}/{v[1]['launches']}; three train "
-        f"steps {tr[0]['s_per_step']:.4f}/{tr[1]['s_per_step']:.4f} s a step (fwd+bwd of one "
+    log(f"sharded value_and_grad, demo, (1, 2) mesh, decorrelated, three calls (eager, "
+        f"capture, replay): losses {v[0]['losses']} (one process {loss_ref:.6f}), bit-equal "
+        f"to the eager call's, grads within rtol {CARD_VS_CPU_RTOL:g} atol "
+        f"{CARD_VS_CPU_ATOL:g} of it (max |d| {max(x['worst'] for x in v):.3e}) and of one "
+        f"process's hand-built estimator (max |d| {worst:.3e}), bit-identical on both "
+        f"ranks; seconds a call rank 0 {[round(x, 4) for x in v[0]['seconds']]}, rank 1 "
+        f"{[round(x, 4) for x in v[1]['seconds']]}; rank 0's graphs: "
+        f"{graph_line(v[0]['graph'])}; flat kernels the card ran "
+        f"{v[0]['launches']}/{v[1]['launches']}; three train steps (replays) "
+        f"{tr[0]['s_per_step']:.4f}/{tr[1]['s_per_step']:.4f} s a step (fwd+bwd of one "
         f"sample a rank), losses {tr[0]['losses']}, params finite {tr[0]['finite']}")
     if not all(x["finite"] for x in tr) or not np.isfinite(tr[0]["losses"]).all():
         raise RuntimeError("sharded train step: non-finite params or loss")
@@ -2386,7 +2493,8 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
     log(f"sharded CLI, demo {demo_config.width}x{demo_config.height}x"
         f"{demo_config.max_bounces} checkpointed, two ranks under the caller's gloo group: "
         f"PNG {'byte-equal' if all(x['png'] == cli_ref for x in c) else 'DIFFERENT'} to one "
-        f"process's on both ranks; flat launches {c[0]['launches']}/{c[1]['launches']}")
+        f"process's on both ranks; flat kernels the card ran {c[0]['launches']}/"
+        f"{c[1]['launches']}")
     if any(x["rc"] != 0 or x["png"] != cli_ref for x in c):
         raise RuntimeError("sharded CLI: a rank's PNG differs from one process's")
     log(f"collectives, gloo, 2 ranks on one card (not multi-card scaling): G-buffer "
@@ -2399,31 +2507,92 @@ def phase_sharded(cli, counts, scenes, device, tmp, paths=SHARDED_PATHS,
                             world_size=1, rank=0, device_id=device)
     try:
         mesh = sharding.make_render_mesh(1, 1, device=device)
-        zero_counts(counts)
-        gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, mesh, adaptive=True)
-        launches = launched("flat", "render_sharded (1, 1) over NCCL")[0]
+        with device_launches(counts) as ran:
+            gb = sharding.render_sharded(demo, demo_camera, demo_config, 4, mesh, adaptive=True)
+        launches = launched("flat", "render_sharded (1, 1) over NCCL", ran)[0]
         same("NCCL (1, 1)", gbuffer_arrays(sharding.unshard_gbuffer(gb, demo_config, mesh)),
              refs["demo"][0])
-        loss, grads = sharding.sharded_value_and_grad_fn(demo, demo_config, mesh)(
-            params, demo_camera, target, SHARDED_KEY)
+        vg = sharding.sharded_value_and_grad_fn(demo, demo_config, mesh)
+        with device_launches(counts) as ran:
+            demo_vg = vg_calls(vg, params, demo_camera, target, SHARDED_KEY, calls=5)
+        launched("flat", "value_and_grad (1, 1) over NCCL", ran, grad=True)
         loss_1, grads_1 = hand_built_grads(demo, demo_camera, demo_config, params, target,
                                            SHARDED_KEY, 1)
-        for f, g in grads_1.items():
-            if not np.allclose(grads[f].cpu().numpy(), g, rtol=CARD_VS_CPU_RTOL,
-                               atol=CARD_VS_CPU_ATOL):
-                raise RuntimeError(f"NCCL (1, 1) value_and_grad {f} differs")
-        flat = torch.zeros(1 + sum(g.numel() for g in grads.values()), device=device)
+        for k, grads in enumerate(demo_vg["grads"]):
+            for f, g in grads_1.items():
+                if not np.allclose(grads[f], g, rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL):
+                    raise RuntimeError(f"NCCL (1, 1) value_and_grad call {k} {f} differs from "
+                                       "the hand-built estimator's")
+        demo_worst = replays_against_eager("NCCL (1, 1) value_and_grad, demo", demo_vg)
+        flat = torch.zeros(1 + sum(g.size for g in demo_vg["grads"][0].values()),
+                           device=device)
         shard = sharding.shard_gbuffer(GBuffer.create(n, device), demo_config, mesh)
         gather_ms = collective_ms(lambda: sharding.unshard_gbuffer(shard, demo_config, mesh),
                                   sync)
         reduce_ms = collective_ms(lambda: dist.all_reduce(flat), sync)
+        profiled = {"demo": profile_replayed_vg("demo", "flat", vg, params, demo_camera, target,
+                                                demo_config, counts)}
+        # the hero at full width: its eager call, its capture, replays
+        _, kernel, (w, h, b), _, eye, pitch = next(x for x in paths if x[0] == "hero")
+        hero, hero_camera = scenes["hero"], Camera.create(eye, pitch=pitch, fov=np.pi / 2,
+                                                          device=device)
+        hero_config = RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0)
+        with torch.no_grad():
+            hero_target = render_sample(hero, hero_camera, rng.fold_in(SHARDED_KEY, 0),
+                                        hero_config)
+        hero_params = hero.materials.replace(albedo=hero.materials.albedo * 0.6)
+        vg = sharding.sharded_value_and_grad_fn(hero, hero_config, mesh)
+        with device_launches(counts) as ran:
+            hero_vg = vg_calls(vg, hero_params, hero_camera, hero_target, SHARDED_KEY, calls=5)
+        launched(kernel, "value_and_grad (1, 1) over NCCL, hero", ran, grad=True)
+        hero_worst = replays_against_eager("NCCL (1, 1) value_and_grad, hero", hero_vg)
+        profiled["hero"] = profile_replayed_vg("hero", kernel, vg, hero_params, hero_camera,
+                                               hero_target, hero_config, counts)
+        del vg
     finally:
         dist.destroy_process_group()
     log(f"sharded NCCL world 1: render_sharded of the demo on a (1, 1) mesh bit-equal to "
-        f"one process's render (flat launches {launches}); unshard_gbuffer through NCCL; "
-        f"value_and_grad loss {float(loss):.6f} (hand-built {loss_1:.6f}), grads within rtol "
-        f"{CARD_VS_CPU_RTOL:g}; collectives (world 1, not scaling): G-buffer all_gather "
+        f"one process's render (flat kernels the card ran {launches}); unshard_gbuffer "
+        f"through NCCL; collectives (world 1, not scaling): G-buffer all_gather "
         f"{gather_ms:.3f} ms, grad all_reduce {reduce_ms:.3f} ms")
+    for label, config, out, worst in (("demo", demo_config, demo_vg, demo_worst),
+                                      ("hero", hero_config, hero_vg, hero_worst)):
+        log(f"sharded NCCL world 1 value_and_grad {label} {config.width}x{config.height}x"
+            f"{config.max_bounces} ray_chunk 0, (1, 1) mesh, five calls on one key: seconds "
+            f"eager {out['seconds'][0]:.4f}, capturing call {out['seconds'][1]:.4f}, replays "
+            f"{', '.join(f'{x:.4f}' for x in out['seconds'][2:])}; {graph_line(out['graph'])}; "
+            f"losses bit-equal to the eager call's ({out['losses'][0]!r}), grads within rtol "
+            f"{CARD_VS_CPU_RTOL:g} atol {CARD_VS_CPU_ATOL:g} (max |d| {worst:.3e})"
+            + (f", and of the hand-built estimator (its loss {loss_1:.6f})"
+               if label == "demo" else "") + f"; a profiled replay: {profiled[label]}")
+
+
+def profile_replayed_vg(label, kernel, vg, params, camera, target, config, counts) -> str:
+    """One replayed call of ``vg`` under ``device_launches``: the path's
+    intersector, the sampler, both shading kernels and both backward
+    kernels must have run, the backward's two once a bounce, and no plain
+    version on CUDA (``check_only``); returns the records, kernel time and
+    busy share of the profile as a line."""
+    with device_launches(counts) as ran:
+        vg(params, camera, target, SHARDED_KEY)
+    launched = check_only(counts, kernel, f"a profiled replayed value_and_grad, {label}", ran,
+                          grad=True)[0]
+    if vg.graphs.last.replays < 2 or counts.shade_backward_kernel:
+        raise RuntimeError(f"value_and_grad {label}: the profiled call did not replay")
+    for k in ("shade", "shade_finish", "shade_bin", "shade_backward"):
+        if ran[k] != config.max_bounces:
+            raise RuntimeError(f"value_and_grad {label}: {ran[k]} {k} kernels in a replay of "
+                               f"{config.max_bounces} bounces")
+    records = ran.records
+    n, busy_s, span_s = trace_share(records)
+    backward = sum(d for name, _, d in records
+                   if kernel_symbol("shade_backward") in name or kernel_symbol("shade_bin") in name)
+    return (f"{n} CUDA records, device kernel time {busy_s * 1e3:.3f} ms in a device span of "
+            f"{span_s * 1e3:.3f} ms (busy {busy_s / span_s:.1%}); {kernel} {ran[kernel]} "
+            f"(wrapper launches {launched}), sampler {ran['sampler']}, shade_bounce "
+            f"{ran['shade']}, finish_bounce {ran['shade_finish']}, bounce_bin {ran['shade_bin']}"
+            f", bounce_backward {ran['shade_backward']} ({backward / 1e6:.3f} ms), one each a "
+            f"bounce")
 
 
 # Phase kd: the KD tree's walk kernel and the brute-force kernel. Issue

@@ -15,6 +15,13 @@ and the ranks meet in the default process group, which the caller sets up.
 - Training (inverse rendering): each rank takes the loss over its own
   pixels and runs its backward locally; the loss and the gradients of the
   replicated parameters are then summed over every rank by one all_reduce.
+- Steps: where the JAX package jits a step, a rank on the card replays
+  CUDA graphs (``_RankSteps``): the render and tail steps and the
+  sharded sample as ``integrator.render``'s graph steps, the gradient as
+  a forward and a backward graph. Every collective runs between the
+  replays, never inside a capture (gloo cannot be captured). The active
+  counts, the progress reductions and the train step's update stay
+  eager.
 
 The collectives are the list forms that both gloo and NCCL take, on
 tensors on the rank's device; nothing here picks a backend.
@@ -23,6 +30,7 @@ tensors on the rank's device; nothing here picks a backend.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -33,11 +41,17 @@ from isaklm_raytracer_tpu_torch.camera.camera import Camera
 from isaklm_raytracer_tpu_torch.config import RenderConfig, resolve_device
 from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
 from isaklm_raytracer_tpu_torch.integrator.render import (
+    _grad_graph_steps,
+    _graph_steps,
+    _graph_tensors,
+    add_sample,
     candidates,
     compact_bucket,
-    make_trace_fn,
     render_sample,
     render_step,
+    scatter_sample,
+    step_radiance,
+    tail_radiance,
     tail_step,
 )
 from isaklm_raytracer_tpu_torch.math import rng
@@ -162,18 +176,64 @@ def unshard_gbuffer(gbuffer: GBuffer, config: RenderConfig, mesh: RenderMesh) ->
                      for x in (gbuffer.frame, gbuffer.sq_luminance, gbuffer.count)))
 
 
+class _RankSteps:
+    """The graph steps of a rank at one configuration (``_rank_steps``),
+    each a ``_graph_steps``, ``_graph_tensors`` or ``_grad_graph_steps``
+    whose variant starts with the mesh's shape and the rank
+    (``_variant``): on the card a rank replays CUDA graphs, as the JAX
+    package's jitted steps, and every collective runs between them, never
+    inside a capture; on the CPU each is its eager function.
+
+    - ``sample``: ``render_sample`` over the rank's pixels
+      (``sharded_render_fn``);
+    - ``step`` and ``tail``: ``render_step`` and ``tail_step`` whole, with
+      one sample stream (nothing to reduce);
+    - ``step_radiance`` and ``tail_radiance``: their halves before the
+      mean over several streams, which runs eagerly, as does the
+      accumulation after it;
+    - ``vg``: the radiance of ``sharded_value_and_grad_fn``'s objective,
+      its forward and backward captured (``GradGraphStep``); the loss runs
+      between them."""
+
+    def __init__(self, config: RenderConfig) -> None:
+        self.sample = _graph_tensors(lambda scene, cam, t, key, _: (render_sample(
+            scene, cam, key, config, pixel_ids=t[0]),))
+        self.step = _graph_steps(lambda scene, cam, gb, extra, key, variant: render_step(
+            scene, cam, gb, key, config, variant[-1], pixel_ids=extra[0], valid=extra[1]))
+        self.step_radiance = _graph_tensors(lambda scene, cam, t, key, variant: step_radiance(
+            scene, cam, GBuffer(*t[:3]), key, config, variant[-1], pixel_ids=t[3], valid=t[4]))
+        self.tail = _graph_steps(lambda scene, cam, gb, extra, key, _: tail_step(
+            scene, cam, gb, extra[0], key, config, pixel_ids=extra[1]))
+        self.tail_radiance = _graph_tensors(lambda scene, cam, t, key, _: tail_radiance(
+            scene, cam, GBuffer(*t[:3]), t[3], key, config, pixel_ids=t[4]))
+        self.vg = _grad_graph_steps(functools.partial(_objective_radiance, config=config))
+
+
+@functools.lru_cache(maxsize=8)
+def _rank_steps(config: RenderConfig) -> _RankSteps:
+    return _RankSteps(config)
+
+
+def _variant(mesh: RenderMesh, *more) -> tuple:
+    """A rank's graph key beside the scene's: the mesh's shape, the rank
+    and ``more``."""
+    return (mesh.num_tile, mesh.num_sample, mesh.rank, *more)
+
+
 def sharded_render_fn(scene: Scene, config: RenderConfig, mesh: RenderMesh):
     """Returns (run, num_sample): run(camera, key_words) -> the (H*W, 3)
     radiance of one sample, averaged over the mesh's sample streams, on
     every rank (collective). Stream s draws with ``rng.fold_in(key_words,
-    s)``, so one call adds ``num_sample`` samples per pixel."""
+    s)``, so one call adds ``num_sample`` samples per pixel. On the card
+    the rank's sample replays a CUDA graph; the mean over streams and the
+    gather run after it."""
     _, ids, _ = _tile_layout(config, mesh)
-    trace_fn = make_trace_fn(scene, config)
+    sample = _rank_steps(config).sample
 
     @torch.no_grad()
     def run(camera: Camera, key_words) -> torch.Tensor:
-        radiance = render_sample(scene, camera, rng.fold_in(key_words, mesh.sample), config,
-                                 trace_fn=trace_fn, pixel_ids=ids)
+        (radiance,) = sample(scene, camera, (ids,), rng.fold_in(key_words, mesh.sample),
+                             _variant(mesh))
         radiance = _mean_streams(radiance, mesh)
         return _all_gather(radiance, mesh.tile_group, mesh.num_tile)[:config.num_pixels]
 
@@ -195,13 +255,18 @@ def _max_over_ranks(n: int, mesh: RenderMesh) -> int:
     return int(_all_reduce(t, dist.ReduceOp.MAX))
 
 
-def _sharded_step(scene, camera, gb, key_words, config, mesh, adaptive, trace_fn, ids, pvalid):
+def _sharded_step(scene, camera, gb, key_words, config, mesh, adaptive, ids, pvalid):
     """The uniform progressive step on this rank's shard (masked by the
     adaptive gate and the padding); the tile-sharded G-buffer accumulates
-    locally."""
+    locally. One graph with one sample stream; with several, the
+    radiance's graph, then the mean over streams and the accumulation."""
     key_words, reduce = _stream(mesh, key_words)
-    return render_step(scene, camera, gb, key_words, config, adaptive, trace_fn,
-                       pixel_ids=ids, valid=pvalid, reduce=reduce)
+    steps, variant = _rank_steps(config), _variant(mesh, bool(adaptive))
+    if reduce is None:
+        return steps.step(scene, camera, gb, (ids, pvalid), key_words, variant)
+    radiance, took = steps.step_radiance(
+        scene, camera, (gb.frame, gb.sq_luminance, gb.count, ids, pvalid), key_words, variant)
+    return add_sample(gb, reduce(radiance), took)
 
 
 def _sharded_active_count(gb, config, mesh, pvalid) -> int:
@@ -210,12 +275,20 @@ def _sharded_active_count(gb, config, mesh, pvalid) -> int:
     return _max_over_ranks(int((needs_sample(gb, config) & pvalid).sum()), mesh)
 
 
-def _sharded_tail_step(scene, camera, gb, cand, key_words, config, mesh, trace_fn, ids):
+def _sharded_tail_step(scene, camera, gb, cand, key_words, config, mesh, ids):
     """``integrator.render.tail_step`` over this rank's candidate set;
-    returns (gbuffer', candidates', the most actives on any rank)."""
+    returns (gbuffer', candidates', the most actives on any rank). One
+    graph a bucket with one sample stream; with several, the radiance's
+    graph, then the mean over streams and the scatter-add. The count's host
+    read and its MAX over the ranks follow the replay."""
     key_words, reduce = _stream(mesh, key_words)
-    gb, cand, n = tail_step(scene, camera, gb, cand, key_words, config, trace_fn,
-                            pixel_ids=ids, reduce=reduce)
+    steps, variant = _rank_steps(config), _variant(mesh, cand.shape[0])
+    if reduce is None:
+        gb, cand, n = steps.tail(scene, camera, gb, (cand, ids), key_words, variant)
+    else:
+        radiance, rids, valid, cand, n = steps.tail_radiance(
+            scene, camera, (gb.frame, gb.sq_luminance, gb.count, cand, ids), key_words, variant)
+        gb = scatter_sample(gb, rids.long(), reduce(radiance), valid)
     return gb, cand, _max_over_ranks(int(n), mesh)
 
 
@@ -263,7 +336,6 @@ def render_sharded(
         gbuffer = GBuffer.create(per_tile, mesh.device)
     elif gbuffer.frame.shape[0] != per_tile:
         gbuffer = shard_gbuffer(gbuffer, config, mesh)
-    trace_fn = make_trace_fn(scene, config)
     min_bucket = min(max(config.min_wavefront // mesh.num_tile, 256), per_tile)
 
     cand = None  # tail-mode candidate ids of this rank (ascending, -1 padded)
@@ -282,7 +354,7 @@ def render_sharded(
                     cand, _ = candidates(gbuffer, config, bucket, valid=pvalid)
             if cand is not None:
                 gbuffer, cand, n_max = _sharded_tail_step(
-                    scene, camera, gbuffer, cand, key_words, config, mesh, trace_fn, ids)
+                    scene, camera, gbuffer, cand, key_words, config, mesh, ids)
                 if n_max == 0:
                     break
                 nb = compact_bucket(n_max, per_tile, min_bucket)
@@ -290,8 +362,8 @@ def render_sharded(
                     cand = cand[:nb]  # actives are compacted to the front
                     bucket = nb
                 continue
-        gbuffer = _sharded_step(scene, camera, gbuffer, key_words, config, mesh, adaptive,
-                                trace_fn, ids, pvalid)
+        gbuffer = _sharded_step(scene, camera, gbuffer, key_words, config, mesh, adaptive, ids,
+                                pvalid)
     return gbuffer
 
 
@@ -302,6 +374,17 @@ def _previous_stream(x: torch.Tensor, mesh: RenderMesh) -> torch.Tensor:
         return x
     parts = _all_gather(x, mesh.sample_group, mesh.num_sample).chunk(mesh.num_sample)
     return parts[(mesh.sample - 1) % mesh.num_sample]
+
+
+def _objective_radiance(scene: Scene, leaves, inputs, key, variant, config: RenderConfig):
+    """The radiance ``sharded_value_and_grad_fn`` differentiates: this
+    rank's pixels (``inputs``: the materials' tex_id, the camera's fov and
+    aperture, the pixel ids) rendered from ``scene`` with the six float
+    material fields and the pose (position, yaw, pitch) of ``leaves``."""
+    floats, pose = leaves[:len(FLOAT_FIELDS)], leaves[len(FLOAT_FIELDS):]
+    tex_id, fov, aperture, ids = inputs
+    s = scene.replace(materials=MaterialTable(**dict(zip(FLOAT_FIELDS, floats)), tex_id=tex_id))
+    return render_sample(s, Camera(*pose, fov, aperture), key, config, pixel_ids=ids)
 
 
 def sharded_value_and_grad_fn(scene: Scene, config: RenderConfig, mesh: RenderMesh,
@@ -319,6 +402,15 @@ def sharded_value_and_grad_fn(scene: Scene, config: RenderConfig, mesh: RenderMe
     the same grads: a dict of the six fields and "camera_position",
     "camera_yaw", "camera_pitch".
 
+    On the card the rank's radiance and its backward replay two CUDA
+    graphs (``integrator.render.GradGraphStep``, one pair per scene,
+    intersector, ray order, mesh shape, rank and ``decorrelate``; the first
+    call runs eagerly, the second captures). The loss and its gradient
+    with respect to the radiance run eagerly between the two replays, the
+    all_gather of ``decorrelate`` among them, and the all_reduce after
+    the backward; on the CPU the same split runs eagerly. ``vg.graphs``
+    holds the graph steps.
+
     ``decorrelate=True`` changes the GRADIENT (the reported loss stays the
     MSE) to the dual-buffer estimator: stream s takes the detached
     residual of stream (s - 1) mod n while the derivative flows through
@@ -327,27 +419,29 @@ def sharded_value_and_grad_fn(scene: Scene, config: RenderConfig, mesh: RenderMe
     (``ppermute`` i -> i + 1), whose docstring says "s+1"; the two agree
     at two streams. With one stream it is the plain estimator."""
     per_tile, ids, valid = _tile_layout(config, mesh)
-    trace_fn = make_trace_fn(scene, config)
     lo = mesh.tile * per_tile
+    rows = max(min(per_tile, config.num_pixels - lo), 0)  # the tile's real pixels
     norm = 3.0 * config.num_pixels
+    # the target's slice, zero-padded: a buffer of its own, copied into
+    target = torch.zeros((per_tile, 3), dtype=torch.float32, device=mesh.device)
+    steps = _rank_steps(config).vg
+    variant = _variant(mesh, bool(decorrelate))
 
-    def vg(params: MaterialTable, camera: Camera, target: torch.Tensor, key_words):
-        t = target.to(mesh.device)[lo:lo + per_tile]
-        t = torch.cat([t, t.new_zeros((per_tile - t.shape[0], 3))])
-        leaves = [getattr(params, f).detach().requires_grad_() for f in FLOAT_FIELDS]
-        pose = [x.detach().requires_grad_() for x in (camera.position, camera.yaw, camera.pitch)]
-        s = scene.replace(materials=params.replace(**dict(zip(FLOAT_FIELDS, leaves))))
-        cam = camera.replace(position=pose[0], yaw=pose[1], pitch=pose[2])
-        radiance = render_sample(s, cam, rng.fold_in(key_words, mesh.sample), config,
-                                 trace_fn=trace_fn, pixel_ids=ids)
-        err = torch.where(valid[:, None], radiance - t, 0.0)
+    def head(radiance):
+        err = torch.where(valid[:, None], radiance - target, 0.0)
         mse = torch.sum(err * err) / norm
-        objective = mse
-        if decorrelate:
-            objective = 2.0 * torch.sum(_previous_stream(err.detach(), mesh) * radiance) / norm
-        grads = torch.autograd.grad(objective, leaves + pose, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves + pose)]
-        flat = torch.cat([mse.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+        if not decorrelate:
+            return mse, mse
+        return mse, 2.0 * torch.sum(_previous_stream(err.detach(), mesh) * radiance) / norm
+
+    def vg(params: MaterialTable, camera: Camera, t: torch.Tensor, key_words):
+        target[:rows].copy_(t[lo:lo + rows])
+        leaves = [*(getattr(params, f) for f in FLOAT_FIELDS),
+                  camera.position, camera.yaw, camera.pitch]
+        inputs = [params.tex_id, camera.fov, camera.aperture_radius, ids]
+        mse, grads = steps(scene, leaves, inputs, rng.fold_in(key_words, mesh.sample), head,
+                           variant)
+        flat = torch.cat([mse.reshape(1)] + [g.reshape(-1) for g in grads])
         flat = _all_reduce(flat, dist.ReduceOp.SUM) / mesh.num_sample
         out, at = {}, 1
         for name, g in zip(FLOAT_FIELDS + POSE_FIELDS, grads):
@@ -355,6 +449,7 @@ def sharded_value_and_grad_fn(scene: Scene, config: RenderConfig, mesh: RenderMe
             at += g.numel()
         return flat[0], out
 
+    vg.graphs = steps.graphs
     return vg
 
 
@@ -367,7 +462,8 @@ def sharded_train_step_fn(scene: Scene, config: RenderConfig, mesh: RenderMesh,
 
     Defaults to the decorrelated gradient, as the JAX package: its stable
     operating point on the Cornell recovery task is lr 0.1-0.3 with two or
-    more sample streams."""
+    more sample streams. The gradient replays ``vg``'s graphs on the card
+    (``train_step.graphs``); the update runs eagerly."""
     vg = sharded_value_and_grad_fn(scene, config, mesh, decorrelate=decorrelate)
 
     def train_step(params: MaterialTable, camera: Camera, target: torch.Tensor, key_words):
@@ -376,4 +472,5 @@ def sharded_train_step_fn(scene: Scene, config: RenderConfig, mesh: RenderMesh,
             f: getattr(params, f).detach() - learning_rate * grads[f] for f in FLOAT_FIELDS
         }), loss
 
+    train_step.graphs = vg.graphs
     return train_step

@@ -20,11 +20,19 @@ step factories capture a whole step in a CUDA graph and replay it
 them; ``render_step``, ``compact_step``, ``candidates`` and ``tail_step``
 stay the eager steps. No step waits on the device: ``render`` reads the
 count of active pixels once a step, as the JAX package's does.
+
+``dist.sharding`` builds its ranks' steps from the same pieces: the
+steps split where a collective comes between (``step_radiance`` and
+``add_sample``, ``tail_radiance`` and ``scatter_sample``), and a gradient
+graph step (``GradGraphStep``: a forward and a backward graph, the loss
+eager between them) stands for the JAX package's jitted
+``value_and_grad``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -219,23 +227,38 @@ def render_step(
     trace_fn=None,
     pixel_ids: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
-    reduce=None,
 ) -> GBuffer:
     """Progressive step over every pixel, masked by the adaptive gate
-    (path_tracing.cuh:338-395).
+    (path_tracing.cuh:338-395): ``step_radiance``, then ``add_sample``.
 
     For a shard of the image (``dist.sharding``): ``pixel_ids`` are the
-    global ids of the G-buffer's entries, ``valid`` masks its padding, and
-    ``reduce`` maps the radiance before it is added (the mean over sample
-    streams)."""
+    global ids of the G-buffer's entries and ``valid`` masks its
+    padding."""
+    radiance, took = step_radiance(scene, camera, gbuffer, key_words, config, adaptive,
+                                   trace_fn, pixel_ids, valid)
+    return add_sample(gbuffer, radiance, took)
+
+
+def step_radiance(scene: Scene, camera: Camera, gbuffer: GBuffer, key_words,
+                  config: RenderConfig, adaptive: bool = True, trace_fn=None,
+                  pixel_ids: Optional[torch.Tensor] = None,
+                  valid: Optional[torch.Tensor] = None):
+    """The first half of ``render_step``: (the (R, 3) radiance, zero where
+    no sample is taken; the mask of the pixels that take one, or None for
+    all)."""
     active = valid
     if adaptive:
         gate = needs_sample(gbuffer, config)
         active = gate if valid is None else gate & valid
     radiance = render_sample(scene, camera, key_words, config, active, trace_fn, pixel_ids)
-    if reduce is not None:
-        radiance = reduce(radiance)
-    took = active if active is not None else torch.ones_like(gbuffer.count, dtype=torch.bool)
+    return radiance, active
+
+
+def add_sample(gbuffer: GBuffer, radiance: torch.Tensor,
+               took: Optional[torch.Tensor]) -> GBuffer:
+    """The second half of ``render_step``: the radiance added to every
+    pixel, a sample counted where ``took`` (None: everywhere)."""
+    took = took if took is not None else torch.ones_like(gbuffer.count, dtype=torch.bool)
     return GBuffer(
         frame=gbuffer.frame + radiance,
         sq_luminance=gbuffer.sq_luminance
@@ -264,7 +287,7 @@ def compact_bucket(n_active: int, num_pixels: int, chunk: int) -> int:
     return size
 
 
-def _accumulate(gb: GBuffer, ids, radiance, valid) -> GBuffer:
+def scatter_sample(gb: GBuffer, ids, radiance, valid) -> GBuffer:
     """Scatter-add a compacted wavefront back; masked lanes add zeros."""
     return GBuffer(
         frame=gb.frame.index_add(0, ids, radiance),
@@ -302,7 +325,7 @@ def compact_step(
         scene, camera, key_words, config, active=valid, trace_fn=trace_fn,
         pixel_ids=ids,
     )
-    return _accumulate(gb, ids.long(), radiance, valid)
+    return scatter_sample(gb, ids.long(), radiance, valid)
 
 
 def candidates(gb: GBuffer, config: RenderConfig, bucket: int,
@@ -319,17 +342,29 @@ def candidates(gb: GBuffer, config: RenderConfig, bucket: int,
 def tail_step(
     scene: Scene, camera: Camera, gb: GBuffer, cand: torch.Tensor, key_words,
     config: RenderConfig, trace_fn=None, pixel_ids: Optional[torch.Tensor] = None,
-    reduce=None,
 ):
-    """O(bucket) adaptive step over a CANDIDATE id set.
+    """O(bucket) adaptive step over a CANDIDATE id set: ``tail_radiance``,
+    then its scatter-add.
 
     A pixel that leaves the active set accumulates nothing, so it can never
     re-activate: the tail loop re-tests needs_sample only on the candidates.
     Actives stay ascending and compact to the front. Returns
     (gbuffer', candidates', n_active), n_active a 0-dim tensor that the
     caller reads when it needs it (nothing here waits on the device).
-    ``pixel_ids`` and ``reduce`` as in ``render_step``.
+    ``pixel_ids`` as in ``render_step``.
     """
+    radiance, ids, valid, cand2, n = tail_radiance(scene, camera, gb, cand, key_words, config,
+                                                   trace_fn, pixel_ids)
+    return scatter_sample(gb, ids.long(), radiance, valid), cand2, n
+
+
+def tail_radiance(
+    scene: Scene, camera: Camera, gb: GBuffer, cand: torch.Tensor, key_words,
+    config: RenderConfig, trace_fn=None, pixel_ids: Optional[torch.Tensor] = None,
+):
+    """The first half of ``tail_step``: (the (bucket, 3) radiance of the
+    active candidates, compacted to the front; their G-buffer ids; the mask
+    of the real lanes; candidates'; n_active)."""
     bucket = cand.shape[0]
     valid_c = cand >= 0
     safe = torch.clamp_min(cand, 0).long()
@@ -344,9 +379,7 @@ def tail_step(
         scene, camera, key_words, config, active=valid, trace_fn=trace_fn,
         pixel_ids=ids if pixel_ids is None else pixel_ids[ids.long()],
     )
-    if reduce is not None:
-        radiance = reduce(radiance)
-    return _accumulate(gb, ids.long(), radiance, valid), cand2, n
+    return radiance, ids, valid, cand2, n
 
 
 # --- the step factories ----------------------------------------------------
@@ -414,39 +447,183 @@ class GraphStep:
 
     def _capture(self, fn, inputs) -> None:
         self.static_in = [x.clone() for x in inputs]
-        torch.cuda.synchronize(self.device)
-        # torch.cuda.graph collects no garbage before a capture (unless the
-        # force_cudagraph_gc setting asks it to), and a collection inside one
-        # that destroys a dead cycle's CUDA graph (a dropped _Graphs: its weak
-        # references' callbacks hold it) invalidates the capture; so collect
-        # before it and none during it
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        before = COUNTS.snapshot()
-        # kept after instantiation only so that its seconds are measured
-        # apart from the capture's (PERF.md section 5)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                # torch.cuda.graph has emptied the allocator's cache by now
-                reserved = torch.cuda.memory_reserved(self.device)
-                out = tuple(fn(*self.static_in))
-        finally:
-            if collecting:
-                gc.enable()
-        t1 = time.perf_counter()
-        graph.instantiate()
-        self.instantiate_s = time.perf_counter() - t1
-        self.capture_s = t1 - t0
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        after = COUNTS.snapshot()
-        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        with _no_collection(self.device):
+            before = COUNTS.snapshot()
+            out, self.capture_s, self.pool_bytes = _record(
+                graph, self.device, lambda: tuple(fn(*self.static_in)))
+        self.instantiate_s = _instantiate(graph)
+        self.launches = _launched_since(before)
         GraphStep.recorded.update(self.launches)
         self.static_out = out
         self.graph = graph
         GraphStep.captures += 1
+
+
+@contextlib.contextmanager
+def _no_collection(device):
+    """The block (a capture) with the card idle and no garbage collection:
+    torch.cuda.graph collects no garbage before a capture (unless the
+    force_cudagraph_gc setting asks it to), and a collection inside one
+    that destroys a dead cycle's CUDA graph (a dropped _Graphs: its weak
+    references' callbacks hold it) invalidates the capture; so collect
+    before it and none during it. The collector is back on afterwards,
+    also when the block raises, unless it was off before."""
+    torch.cuda.synchronize(device)
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def _record(graph, device, fn, **pool):
+    """``fn()`` captured into ``graph`` (``pool``: the ``pool=`` of
+    ``torch.cuda.graph``): (its outputs, the capture's seconds, the bytes
+    the graph's pool reserved)."""
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, **pool):
+        # torch.cuda.graph has emptied the allocator's cache by now
+        reserved = torch.cuda.memory_reserved(device)
+        out = fn()
+    return out, time.perf_counter() - t0, torch.cuda.memory_reserved(device) - reserved
+
+
+def _instantiate(graph) -> float:
+    """Instantiates a graph captured with ``keep_graph=True`` (kept so that
+    its seconds are measured apart from the capture's, PERF.md section 5);
+    returns them."""
+    t0 = time.perf_counter()
+    graph.instantiate()
+    return time.perf_counter() - t0
+
+
+def _launched_since(before: dict) -> dict:
+    """The wrappers' launches since ``COUNTS.snapshot()`` gave ``before``."""
+    after = COUNTS.snapshot()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _zeros_for_unused(grads, leaves) -> list:
+    return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+
+
+def _head_grad(head, out: torch.Tensor):
+    """(value, d(objective)/d(out)) of ``head(out) -> (value, objective)``,
+    by autograd on a detached view of ``out``; the value detached."""
+    with torch.enable_grad():
+        r = out.detach().requires_grad_()
+        value, objective = head(r)
+        (g,) = torch.autograd.grad(objective, r)
+    return value.detach(), g
+
+
+def split_value_and_grad(fn, leaves, inputs, head):
+    """(value, grads) of ``head`` after ``fn``, the chain rule split at
+    ``fn``'s output as a gradient graph step splits it: ``out =
+    fn(*leaves, *inputs)`` with autograd recording ``leaves`` (detached
+    copies that require grad); ``(value, objective) = head(out)`` and
+    d(objective)/d(out) by autograd on a detached view of ``out``; then
+    the backward of ``fn`` from ``out`` with that gradient. ``grads`` are
+    those of the objective with respect to ``leaves``, zeros for a leaf
+    ``fn`` does not use. The ops are eager autograd's own: where ``head``
+    uses ``out`` once, the grads equal those of ``objective`` taken
+    through ``fn`` in one backward, bit for bit."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in leaves]
+        out = fn(*xs, *inputs)
+        value, g = _head_grad(head, out)
+        grads = torch.autograd.grad(out, xs, g, allow_unused=True)
+    return value, _zeros_for_unused(grads, xs)
+
+
+class GradGraphStep(GraphStep):
+    """A gradient step on the card replayed from two CUDA graphs, a
+    forward and a backward captured into one memory pool (the pattern of
+    ``torch.cuda.make_graphed_callables``): the port's counterpart of the
+    JAX package's jitted ``value_and_grad``.
+
+    ``step(fn, leaves, inputs, head)`` returns ``split_value_and_grad(fn,
+    leaves, inputs, head)``: ``fn(*leaves, *inputs)`` a tensor, tensors on
+    the card in. The first call runs it eagerly. The second copies
+    ``leaves`` and ``inputs`` into static buffers (the leaves' require
+    grad), captures ``fn`` with autograd recording into the forward graph
+    and replays it, runs ``head`` eagerly on the forward's output (the
+    loss, a collective: nothing of it is captured), copies its gradient
+    into the backward graph's static input, then captures
+    ``torch.autograd.grad`` of the output with respect to the static
+    leaves into the backward graph (zeros for a leaf ``fn`` does not use,
+    decided here) and replays it. Every later call copies its inputs in,
+    replays the forward, runs ``head``, copies its gradient in and replays
+    the backward. The forward's saved tensors live in the pool until the
+    backward has replayed; a kernel that the backward launches again from
+    an input (the sampler's redraw from the key) reads the static buffer,
+    which no copy changes between the two replays. The grads returned are
+    copies; ``head``'s value is its own. A capture that fails raises and
+    leaves the step as it was before it (the next call captures again);
+    nothing falls back to the eager step.
+
+    Launches are tallied as ``GraphStep`` tallies them, the forward's and
+    the backward's together: ``launches`` is what both captures recorded,
+    ``capture_s``, ``instantiate_s`` and ``pool_bytes`` cover both."""
+
+    def __init__(self, device: torch.device) -> None:
+        super().__init__(device)
+        self.backward = None
+        self.static_grad_out = self.static_grads = None
+
+    def __call__(self, fn, leaves, inputs, head) -> tuple:
+        self.calls += 1
+        if self.calls == 1:
+            return split_value_and_grad(fn, leaves, inputs, head)
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                value = self._capture(fn, leaves, inputs, head)
+            else:
+                with torch.no_grad():
+                    for static, x in zip(self.static_in, [*leaves, *inputs]):
+                        static.copy_(x, non_blocking=True)
+                self.graph.replay()
+                value, g = _head_grad(head, self.static_out)
+                self.static_grad_out.copy_(g)
+            self.backward.replay()
+        self.replays += 1
+        GraphStep.replayed.update(self.launches)
+        return value, [g.clone() for g in self.static_grads]
+
+    def _capture(self, fn, leaves, inputs, head):
+        """Captures both graphs and replays the forward; returns ``head``'s
+        value. The step's state is set only once both captures are done."""
+        static_in = [x.detach().clone() for x in (*leaves, *inputs)]
+        xs = [x.requires_grad_() for x in static_in[:len(leaves)]]
+        forward = torch.cuda.CUDAGraph(keep_graph=True)
+        backward = torch.cuda.CUDAGraph(keep_graph=True)
+        with _no_collection(self.device):
+            before = COUNTS.snapshot()
+            with torch.enable_grad():
+                out, fwd_s, fwd_bytes = _record(forward, self.device, lambda: fn(*static_in))
+            fwd_inst = _instantiate(forward)
+            forward.replay()
+            value, g = _head_grad(head, out)
+            grad_out = g.clone()
+            grads, bwd_s, bwd_bytes = _record(
+                backward, self.device, lambda: _zeros_for_unused(
+                    torch.autograd.grad(out, xs, grad_out, allow_unused=True), xs),
+                pool=forward.pool())
+        self.instantiate_s = fwd_inst + _instantiate(backward)
+        self.capture_s, self.pool_bytes = fwd_s + bwd_s, fwd_bytes + bwd_bytes
+        self.launches = _launched_since(before)
+        GraphStep.recorded.update(self.launches)
+        # the output without its autograd nodes, whose saved tensors the
+        # backward's capture has released to the pool
+        self.static_in, self.static_out = static_in, out.detach()
+        self.static_grad_out, self.static_grads = grad_out, grads
+        self.graph, self.backward = forward, backward
+        GraphStep.captures += 1
+        return value
 
 
 class _Graphs:
@@ -457,11 +634,13 @@ class _Graphs:
     with its graph and the graph's pool. The intersector is part of the key
     because ``make_trace_fn`` reads ``ISAKLM_INTERSECTOR`` and
     ``ISAKLM_BLK_SORT`` when it is called, and a graph replays the kernels
-    of its capture. ``last`` is the step of the latest call."""
+    of its capture. ``last`` is the step of the latest call; ``kind`` the
+    class of the steps (``GraphStep`` or ``GradGraphStep``)."""
 
-    def __init__(self, maxsize: int = 8) -> None:
+    def __init__(self, maxsize: int = 8, kind=GraphStep) -> None:
         self.maxsize = maxsize
-        self.entries = collections.OrderedDict()  # key -> (weakref to scene, GraphStep)
+        self.kind = kind
+        self.entries = collections.OrderedDict()  # key -> (weakref to scene, step)
         self.last = None
 
     def get(self, scene: Scene, variant) -> GraphStep:
@@ -472,7 +651,7 @@ class _Graphs:
             self.entries.move_to_end(key)
         else:
             ref = weakref.ref(scene, functools.partial(self._drop, key))
-            entry = self.entries[key] = (ref, GraphStep(scene.device))
+            entry = self.entries[key] = (ref, self.kind(scene.device))
             if len(self.entries) > self.maxsize:
                 self.entries.popitem(last=False)
         self.last = entry[1]
@@ -502,33 +681,79 @@ def _key_on(key_words, device: torch.device) -> torch.Tensor:
     return rng.key_tensor(key_words).pin_memory().to(device, non_blocking=True)
 
 
-def _graph_steps(run):
-    """``run(scene, camera, gbuffer, extra, key_words, variant)`` (``extra``
-    a tuple of tensors; it returns a GBuffer, or a tuple of a GBuffer and
-    tensors) as a step of the same arguments, under ``torch.no_grad()``:
-    on the card it replays a CUDA graph (``GraphStep``), one per scene,
-    intersector, ray order and ``variant``; on the CPU it is ``run``. The
-    camera, the G-buffer, ``extra`` and the key words are the graph's
-    inputs, copied in at every call. ``.graphs`` holds its steps."""
+def _graph_tensors(run):
+    """``run(scene, camera, tensors, key_words, variant)`` (``tensors`` a
+    tuple of tensors; it returns a tuple of tensors) as a step of the same
+    arguments, under ``torch.no_grad()``: on the card it replays a CUDA
+    graph (``GraphStep``), one per scene, intersector, ray order and
+    ``variant``; on the CPU it is ``run``. The camera, ``tensors`` and the
+    key words are the graph's inputs, copied in at every call. ``.graphs``
+    holds its steps."""
     graphs = _Graphs()
 
     @torch.no_grad()
-    def step(scene: Scene, camera: Camera, gb: GBuffer, extra: tuple, key_words, variant=None):
+    def step(scene: Scene, camera: Camera, tensors: tuple, key_words, variant=None) -> tuple:
         if not _on_card(scene):
-            return run(scene, camera, gb, extra, key_words, variant)
+            return tuple(run(scene, camera, tuple(tensors), key_words, variant))
 
         def fn(*leaves):
             cam = Camera(*leaves[:_CAMERA_LEAVES])
-            g = GBuffer(*leaves[_CAMERA_LEAVES:_CAMERA_LEAVES + 3])
-            out = run(scene, cam, g, tuple(leaves[_CAMERA_LEAVES + 3:-1]), leaves[-1], variant)
-            g2, *more = out if isinstance(out, tuple) else (out,)
-            return (g2.frame, g2.sq_luminance, g2.count, *more)
+            return tuple(run(scene, cam, leaves[_CAMERA_LEAVES:-1], leaves[-1], variant))
 
-        inputs = [*(getattr(camera, f.name) for f in dataclasses.fields(camera)),
-                  gb.frame, gb.sq_luminance, gb.count, *extra, _key_on(key_words, scene.device)]
-        frame, sq_luminance, count, *more = graphs.get(scene, variant)(fn, inputs)
+        inputs = [*(getattr(camera, f.name) for f in dataclasses.fields(camera)), *tensors,
+                  _key_on(key_words, scene.device)]
+        return graphs.get(scene, variant)(fn, inputs)
+
+    step.graphs = graphs
+    return step
+
+
+def _graph_steps(run):
+    """``run(scene, camera, gbuffer, extra, key_words, variant)`` (``extra``
+    a tuple of tensors; it returns a GBuffer, or a tuple of a GBuffer and
+    tensors) as a step of the same arguments over ``_graph_tensors``: the
+    G-buffer is among the graph's inputs and outputs. ``.graphs`` holds
+    its steps."""
+
+    def flat(scene, cam, tensors, key, variant):
+        out = run(scene, cam, GBuffer(*tensors[:3]), tuple(tensors[3:]), key, variant)
+        g2, *more = out if isinstance(out, tuple) else (out,)
+        return (g2.frame, g2.sq_luminance, g2.count, *more)
+
+    tensors = _graph_tensors(flat)
+
+    def step(scene: Scene, camera: Camera, gb: GBuffer, extra: tuple, key_words, variant=None):
+        frame, sq_luminance, count, *more = tensors(
+            scene, camera, (gb.frame, gb.sq_luminance, gb.count, *extra), key_words, variant)
         g2 = GBuffer(frame, sq_luminance, count)
         return (g2, *more) if more else g2
+
+    step.graphs = tensors.graphs
+    return step
+
+
+def _grad_graph_steps(run):
+    """``run(scene, leaves, inputs, key_words, variant)`` (a tensor,
+    differentiable in the tuple ``leaves``) as a step
+    ``step(scene, leaves, inputs, key_words, head, variant)`` ->
+    ``(value, grads)`` of ``split_value_and_grad``: on the card it replays
+    a forward and a backward CUDA graph (``GradGraphStep``), one pair per
+    scene, intersector, ray order and ``variant``; on the CPU it is
+    ``split_value_and_grad`` of ``run``. The leaves, ``inputs`` and the key
+    words are the graphs' inputs, copied in at every call; ``head`` runs
+    eagerly between the two replays. ``.graphs`` holds its steps."""
+    graphs = _Graphs(kind=GradGraphStep)
+
+    def step(scene: Scene, leaves, inputs, key_words, head, variant=None):
+        n, m = len(leaves), len(leaves) + len(inputs)
+
+        def fn(*xs):
+            return run(scene, xs[:n], xs[n:m], xs[m], variant)
+
+        if not _on_card(scene):
+            return split_value_and_grad(fn, leaves, [*inputs, key_words], head)
+        key = _key_on(key_words, scene.device)
+        return graphs.get(scene, variant)(fn, leaves, [*inputs, key], head)
 
     step.graphs = graphs
     return step

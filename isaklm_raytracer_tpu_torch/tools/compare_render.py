@@ -49,12 +49,22 @@ bounces, the blocked kernel), with the bench camera, each child reports
   ``__launch_bounds__(kShadeThreads)``, that source built here with a
   minimum of 3 and 4 resident blocks (ptxas's registers and spills
   printed);
+- ``sharded_value_and_grad_fn`` on an NCCL world-1 (1, 1) mesh at
+  ``ray_chunk`` 0: the seconds of five calls on one key (where the
+  checkout replays graphs: its eager call, its capture, three replays),
+  the graphs' capture record (capture and instantiation seconds, pool)
+  and the SHA-256 of the losses;
 - two ranks on this card over gloo (``dist.launch`` with ``cuda:0``):
-  each rank's seconds a full step of ``render_sharded`` on a (2, 1) mesh
-  in one pass (two timed steps after one; a rank's steps run eagerly),
-  and the SHA-256 of the gathered G-buffer.
+  each rank's seconds of a full step of ``render_sharded`` on a (2, 1)
+  mesh in one pass, its first and second calls (this checkout: the eager
+  call and the capture) and two steps after them, the step graph's
+  capture record, and the SHA-256 of the gathered G-buffer; on the demo,
+  three calls of the decorrelated value_and_grad on a (1, 2) mesh (their
+  seconds, the losses' SHA-256, the graphs' record) and three
+  ``sharded_train_step_fn`` steps (seconds a step, the SHA-256 of the
+  first step's loss; the later ones follow grads that atomics sum).
 
-Every G-buffer digest, every fwd+bwd loss digest and every backward call's
+Every G-buffer digest, every loss digest and every backward call's
 per-ray digest must be equal in all four runs (the checkouts render and
 differentiate the same bits), and the material and texel gradients must
 agree within tests/test_torch_shade_grad.py's sum tolerance (rtol 1e-4,
@@ -102,6 +112,7 @@ TOP_NAMES = 15  # kernel names of a profiled step, the most frequent first
 SAMPLER = "threefry_uniforms_kernel"
 SHADE = ("shade_bounce_kernel", "finish_bounce_kernel")
 BACKWARD = "bounce_backward_kernel"
+VG_KEY = (0, 13)  # the sharded value_and_grad's key words
 
 
 def sha(*tensors):
@@ -353,6 +364,51 @@ def backward_calls(label, scene, camera, chunk):
     return out
 
 
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def graph_record(graphs):
+    """The capture record of a checkout's graph step (None where the
+    checkout runs the step eagerly)."""
+    step = None if graphs is None else graphs.last
+    if step is None or getattr(step, "graph", None) is None:
+        return None
+    return {"capture_s": step.capture_s, "instantiate_s": step.instantiate_s,
+            "pool_mib": step.pool_bytes / 2**20, "replays": step.replays}
+
+
+def vg_calls(scene, camera, config, mesh, calls, decorrelate=False):
+    """``calls`` calls of the checkout's sharded value_and_grad on one key
+    (this checkout: the eager call, the capture, replays): each call's
+    seconds, the losses' SHA-256 and the graphs' capture record."""
+    from isaklm_raytracer_tpu_torch.dist import sharding
+
+    with torch.no_grad():
+        target = R.render_sample(scene, camera, rng.fold_in(VG_KEY, 0), config)
+    params = scene.materials.replace(albedo=scene.materials.albedo * 0.6)
+    vg = sharding.sharded_value_and_grad_fn(scene, config, mesh, decorrelate=decorrelate)
+    seconds, losses = [], []
+    for _ in range(calls):
+        s, (loss, grads) = timed(lambda: vg(params, camera, target, VG_KEY))
+        seconds.append(s)
+        losses.append(loss)
+    return {"seconds": seconds, "loss_sha": sha(*losses),
+            "graph": graph_record(getattr(vg, "graphs", None))}
+
+
+def world1_vg(label, scene, camera):
+    """vg on the NCCL world-1 (1, 1) mesh at ray_chunk 0: five calls."""
+    from isaklm_raytracer_tpu_torch.dist import sharding
+
+    mesh = sharding.make_render_mesh(1, 1, device=scene.device)
+    return vg_calls(scene, camera, config_of(label, 0), mesh, 5)
+
+
 def sharded_rank(rank, world, label):
     import torch.distributed as dist
 
@@ -363,15 +419,39 @@ def sharded_rank(rank, world, label):
     camera = Camera.create(EYE, pitch=PITCH, fov=np.pi / 2, device=device)
     config = config_of(label, 0)
     tile = sharding.make_render_mesh(world, 1, device=device)
-    gb = sharding.render_sharded(scene, camera, config, 1, tile)
-    torch.cuda.synchronize()
+    gb, first = None, []
+    for i in range(2):  # this checkout: the eager call, the capture
+        dist.barrier()
+        s, gb = timed(lambda: sharding.render_sharded(scene, camera, config, 1, tile, gbuffer=gb,
+                                                      sample_offset=i))
+        first.append(s)
     dist.barrier()
-    t0 = time.perf_counter()
-    gb = sharding.render_sharded(scene, camera, config, 2, tile, gbuffer=gb, sample_offset=1)
-    torch.cuda.synchronize()
-    seconds = (time.perf_counter() - t0) / 2
+    seconds, gb = timed(lambda: sharding.render_sharded(scene, camera, config, 2, tile,
+                                                        gbuffer=gb, sample_offset=2))
     full = sharding.unshard_gbuffer(gb, config, tile)
-    return {"s_per_sample": seconds, "sha": sha(full.frame, full.sq_luminance, full.count)}
+    rank_steps = getattr(sharding, "_rank_steps", None)
+    out = {"eager_s": first[0], "capture_call_s": first[1], "s_per_sample": seconds / 2,
+           "sha": sha(full.frame, full.sq_luminance, full.count),
+           "graph": graph_record(rank_steps and rank_steps(config).step.graphs)}
+    if label == "demo":  # value_and_grad and the train step on a (1, world) mesh
+        streams = sharding.make_render_mesh(1, world, device=device)
+        dist.barrier()
+        out["vg"] = vg_calls(scene, camera, config, streams, 3, decorrelate=True)
+        with torch.no_grad():
+            target = R.render_sample(scene, camera, rng.fold_in(VG_KEY, 0), config)
+        step = sharding.sharded_train_step_fn(scene, config, streams)
+        p, losses = scene.materials.replace(albedo=scene.materials.albedo * 0.6), []
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(3):
+            p, loss = step(p, camera, target, rng.fold_in(VG_KEY, 10 + i))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        out["train_s_per_step"] = (time.perf_counter() - t0) / 3
+        # the first step's loss: the later ones follow grads that atomics sum
+        out["train_loss_sha"] = sha(losses[0])
+    return out
 
 
 def main():
@@ -389,6 +469,19 @@ def main():
         del scene
     from isaklm_raytracer_tpu_torch.dist.launch import launch
 
+    import torch.distributed as dist
+
+    from isaklm_raytracer_tpu_torch.dist.launch import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, device_id=device)
+    try:
+        for label in PRESETS:
+            scene = scene_of(label, device)
+            out["presets"][label]["vg_world1"] = world1_vg(label, scene, camera)
+            del scene
+    finally:
+        dist.destroy_process_group()
     for label in PRESETS:
         ranks = launch(sharded_rank, 2, label, device="cuda:0")
         out["presets"][label]["sharded"] = ranks
@@ -460,6 +553,10 @@ def digests(run: dict) -> dict:
             out[f"{label} {chunk} replay"] = s["replay_sha"]
         for rank, r in enumerate(preset["sharded"]):
             out[f"{label} sharded rank {rank}"] = r["sha"]
+            if "vg" in r:
+                out[f"{label} sharded rank {rank} vg losses"] = r["vg"]["loss_sha"]
+                out[f"{label} sharded rank {rank} train losses"] = r["train_loss_sha"]
+        out[f"{label} world-1 vg losses"] = preset["vg_world1"]["loss_sha"]
         for chunk, fb in preset["fwd_bwd"].items():
             out[f"{label} {chunk} fwd+bwd loss"] = fb["loss_sha"]
         for chunk, bw in preset["backward"].items():
@@ -527,8 +624,21 @@ def summary(run: dict) -> str:
                          "calls" + (f", bounce 0's call {bw['bounce_backward_ms']:.5f} ms device "
                                     f"time (CUDA graph of 20; probes: {probes})"
                                     if "bounce_backward_ms" in bw else ""))
-        parts.append(f"{label} sharded (2, 1) on one card, s/sample rank 0/1: "
-                     + "/".join(f"{r['s_per_sample']:.4f}" for r in preset["sharded"]))
+        sh = preset["sharded"]
+        parts.append(f"{label} sharded (2, 1) on one card, rank 0/1: a full step's first call "
+                     + "/".join(f"{r['eager_s']:.4f}" for r in sh) + " s, second call "
+                     + "/".join(f"{r['capture_call_s']:.4f}" for r in sh) + " s, then "
+                     + "/".join(f"{r['s_per_sample']:.4f}" for r in sh) + " s/sample; graph "
+                     + f"{sh[0]['graph']}")
+        if "vg" in sh[0]:
+            parts.append(f"{label} sharded value_and_grad (1, 2), decorrelated, seconds a call "
+                         f"rank 0/1: {[round(x, 4) for x in sh[0]['vg']['seconds']]}/"
+                         f"{[round(x, 4) for x in sh[1]['vg']['seconds']]}, graph "
+                         f"{sh[0]['vg']['graph']}; three train steps "
+                         + "/".join(f"{r['train_s_per_step']:.4f}" for r in sh) + " s a step")
+        w1 = preset["vg_world1"]
+        parts.append(f"{label} value_and_grad, NCCL world 1 (1, 1), seconds a call: "
+                     f"{[round(x, 5) for x in w1['seconds']]}, graph {w1['graph']}")
     return "\n  ".join(parts)
 
 

@@ -39,7 +39,7 @@ from isaklm_raytracer_tpu_torch.cli import render as cli
 from isaklm_raytracer_tpu_torch.config import RenderConfig
 from isaklm_raytracer_tpu_torch.dist import sharding
 from isaklm_raytracer_tpu_torch.dist.launch import free_port, launch
-from isaklm_raytracer_tpu_torch.integrator.render import render, render_sample
+from isaklm_raytracer_tpu_torch.integrator.render import candidates, render, render_sample
 from isaklm_raytracer_tpu_torch.io import checkpoint as checkpoint_io
 from isaklm_raytracer_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from isaklm_raytracer_tpu_torch.math import rng
@@ -169,6 +169,53 @@ def _three_ranks(rank, world, leaves, target):
         jscene, PARITY, mesh, decorrelate=True)(params, camera, target, key))
     p, loss = sharding.sharded_train_step_fn(jscene, PARITY, mesh)(params, camera, target, key)
     out["jax_step"] = (float(loss), {f: getattr(p, f).numpy() for f in FIELDS})
+    out["faked"] = _faked_graph_steps(scene, camera, mesh, jscene, target)
+    return out
+
+
+def _faked_graph_steps(scene, camera, mesh, jscene, target):
+    """The card's path of the rank's steps on this (1, 3) mesh with the
+    graph calls faked (tests/test_torch_sharded_graphs.py): each estimator's
+    vg at its eager call and its capturing call, on the Cornell box and on
+    the JAX package's scene; two full steps of ``render_sharded``, two tail
+    steps and two ``sharded_render_fn`` samples, whose several streams go
+    through the radiance graphs, each beside the eager run of the same
+    call; the collectives (name, whether a faked capture was open)."""
+    from test_torch_sharded_graphs import faked_graphs
+
+    key = (0, 17)
+    t = render_sample(scene, camera, rng.fold_in(key, 0), CONFIG)
+    params = _scaled_albedo(scene.materials, 0.6)
+    gb = GBuffer.create(PROGRESSIVE.num_pixels, "cpu")
+    _, ids, _ = sharding._tile_layout(PROGRESSIVE, mesh)
+    cand, _ = candidates(gb, PROGRESSIVE, 64)
+
+    def run():
+        vgs = {d: sharding.sharded_value_and_grad_fn(scene, CONFIG, mesh, decorrelate=d)
+               for d in (False, True)}
+        jvg = sharding.sharded_value_and_grad_fn(jscene, PARITY, mesh, decorrelate=True)
+        jparams = _scaled_albedo(jscene.materials, 0.6)
+        sample, _ = sharding.sharded_render_fn(scene, CONFIG, mesh)
+        tails = [sharding._sharded_tail_step(scene, camera, gb, cand, (0, k), PROGRESSIVE, mesh,
+                                             ids) for k in (1, 2)]
+        return {
+            "vg": {d: [_grads(*vg(params, camera, t, key)) for _ in range(2)]
+                   for d, vg in vgs.items()},
+            "jax_vg": [_grads(*jvg(jparams, camera, target, key))
+                       for _ in range(2)],
+            "render": _np(sharding.render_sharded(scene, camera, CONFIG, 2, mesh, seed=1)),
+            "tail": [(_np(g), c.numpy(), n) for g, c, n in tails],
+            "sample": [sample(camera, (0, k)).numpy() for k in (8, 9)],
+        }
+
+    out = {"eager": run()}
+    with faked_graphs() as faked:
+        out["graphs"] = run()
+        steps = sharding._rank_steps(CONFIG)
+        out["replays"] = [g.last.replays for g in (steps.vg.graphs, steps.step_radiance.graphs,
+                                                   steps.sample.graphs)]
+        out["tail_replays"] = sharding._rank_steps(PROGRESSIVE).tail_radiance.graphs.last.replays
+    out["collectives"] = faked.collectives
     return out
 
 
@@ -666,3 +713,52 @@ def test_train_step_matches_jax(three, jax_case):
     for f in FIELDS:
         np.testing.assert_allclose(got[f], np.asarray(getattr(p, f)), rtol=1e-5, atol=1e-7,
                                    err_msg=f)
+
+
+# --- the rank steps on the card's path, graph calls faked -------------------
+
+
+def test_faked_graph_vg_equals_eager_on_three_ranks(three):
+    """At (1, 3), each estimator's vg at its eager call and at the call
+    that captures its forward and backward graphs (faked: the capture runs
+    on the static buffers) equals the CPU path's bit for bit, on the
+    Cornell box and on the JAX package's scene (whose CPU result
+    ``test_decorrelated_grads_match_jax`` holds to the JAX package's); the
+    gradient step replayed once, at the capture."""
+    for out in three:
+        faked = out["faked"]
+        for d in (False, True):
+            for got, want in zip(faked["graphs"]["vg"][d], faked["eager"]["vg"][d]):
+                assert got[0] == want[0]
+                for f, g in want[1].items():
+                    np.testing.assert_array_equal(got[1][f], g, err_msg=f"{d} {f}")
+        for got in faked["graphs"]["jax_vg"]:
+            assert got[0] == out["jax_vg"][0]
+            for f, g in out["jax_vg"][1].items():
+                np.testing.assert_array_equal(got[1][f], g, err_msg=f)
+        assert faked["replays"][0] == 1
+
+
+def test_faked_graph_render_steps_equal_eager_on_three_ranks(three):
+    """At (1, 3) the several sample streams split each step at the mean:
+    the radiance's graph (eager call, capture), then the all_reduce and
+    the accumulation eagerly. Two full steps of ``render_sharded``, two
+    tail steps and two ``sharded_render_fn`` samples equal their eager
+    runs bit for bit, and no all_gather or all_reduce ran inside a faked
+    capture."""
+    for out in three:
+        faked = out["faked"]
+        got, want = faked["graphs"], faked["eager"]
+        for k, v in want["render"].items():
+            np.testing.assert_array_equal(got["render"][k], v, err_msg=k)
+        for (g, c, n), (g_w, c_w, n_w) in zip(got["tail"], want["tail"]):
+            assert n == n_w
+            np.testing.assert_array_equal(c, c_w)
+            for k, v in g_w.items():
+                np.testing.assert_array_equal(g[k], v, err_msg=k)
+        for s, s_w in zip(got["sample"], want["sample"]):
+            np.testing.assert_array_equal(s, s_w)
+        assert faked["replays"][1:] == [1, 1] and faked["tail_replays"] == 1
+        names = {name for name, _ in faked["collectives"]}
+        assert names == {"all_gather", "all_reduce"}
+        assert not any(open_ for _, open_ in faked["collectives"])
