@@ -232,7 +232,9 @@ raising on failure:
    records of csrc/tri_consts.cu, once a tree: ``WavefrontKD.tri_table``,
    ``KDTreeArrays.tri_table``) and logs their bytes and seconds (time to
    the first sample), each equal to ``tri_consts_plain`` bit for bit, the
-   table kernel timed in turns with it on the 20k hero's corners;
+   table kernel timed with it on the 20k and the 300k hero's corners (CUDA
+   graphs of 20 calls in turns, its own duration by torch.profiler, beside
+   its bound);
    holds every wavefront's SHA-256 of (t, id, hit) to the parent's
    (PARENT_KD_DIGESTS, those of the first KD kernels); runs the card tests of
    tests/test_torch_tri_consts.py (the table, the walk at depths 21, 32
@@ -329,18 +331,24 @@ raising on failure:
    (bytes over the HBM rate against issue slots over the FP32 lanes,
    SHADE_*_SLOTS and SHADE_*_BYTES).
 24. shade_grad: the backward of a bounce's shading (csrc/shade_backward.cu:
-   ``bounce_bin``, which sorts the live rays by class into a ray list, and
-   ``bounce_backward``, the reverse over that list; ``bounce_backward`` of
-   kernels/shade.py launches both) against its plain version
+   ``bounce_bin``, which sorts the live rays by class into a ray list, from
+   the class bytes the forward kernels write where autograd records the
+   bounce, and zeroes the sums, and ``bounce_backward``, the reverse over
+   that list; ``bounce_backward`` of kernels/shade.py launches both)
+   against its plain version
    (``bounce_backward_plain``: autograd of the plain versions recomputed)
    at tests/test_torch_shade_grad.py's tolerances (per-ray gradients
    within rtol 1e-4 plus 1e-6 x the largest, the material and texel sums
    within rtol 1e-4 plus atol 1e-6, non-finite values at the same places):
    first the kernels' registers, local bytes and resident warps as the
-   card reports them; that module's card test (the edge scenes and the
+   card reports them; that module's card tests (the edge scenes and the
    demo, both layouts, both lobe-ratio modes, with and without roulette,
-   2,001 rays and one, and a grazing miss whose plain gradient is NaN and
-   the kernel's finite); every bounce of one fwd+bwd sample through
+   2,001 rays and one, the binning against its plain version, and a
+   grazing miss whose plain gradient is NaN and the kernel's finite; the
+   forward's class bytes against ``ray_classes_plain``, every other output
+   bit-equal without them, and a call on no ray); every bounce of one
+   fwd+bwd sample (each call's class bytes held to ``ray_classes_plain``)
+   through
    ``render_sample`` with every material field, the texels and the camera
    position as leaves (``shade.bounce_backward`` replaced by a stand-in
    that runs both and goes on with the kernel's, and recomputes in float64
@@ -355,13 +363,17 @@ raising on failure:
    shared one holds, ``many_materials``), then with the shared table (the
    profiler names the instantiation), a call where every lane is dead and
    one for each class alone; the binning against ``bounce_bin_plain`` (each
-   class's rays, the counts, the dead lanes' pass-through); a call timed
+   class's rays as sets, the counts, the dead lanes' pass-through;
+   also with every lane dead); a call timed
    in turns with its plain version at the first bounce of the hero and of
    the demo (the kernels line takes the demo's) by CUDA events around the
    replay of a CUDA graph (20 calls of the kernels, 3 of the plain
    version), the reverse's own duration by torch.profiler, beside its
-   bound (SHADE_BACKWARD_* bytes and slots); the binning alone likewise,
-   beside its bound (``shade_bin_bound``).
+   bound (SHADE_BACKWARD_* bytes and slots); the binning alone likewise
+   (a call in the graph and its kernel's own duration; also on no ray,
+   one block: the launch and the zeroing alone), beside its bound
+   (``shade_bin_bound``) and the parent tree's numbers of run CE
+   (PARENT_BIN_MS; tools/compare_kernel_times.py times the two in turns).
 
 Every path that check_only holds (main path, assets, resume, interactive,
 sharded, kd, graphs, grad) must also have launched the sampler kernel and
@@ -407,6 +419,7 @@ import time
 import weakref
 import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -2615,6 +2628,8 @@ KD_ORACLE_RAYS = 4096
 # reciprocal 3, the scaled normal 3, n.p1 5, three dot products 15, the
 # determinant 3 and its reciprocal 1)
 TRI_TABLE_BYTES, TRI_CONSTS_SLOTS = 9 * 4 + 80, 44
+# a write that evicts the 50 MB L2 cache between timed calls
+L2_FLUSH_BYTES = 128 << 20
 # the SHA-256 of (t, id, hit) of every wavefront of this phase, as the
 # first KD walk and brute-force kernels gave them (PERF.md section 6): a
 # redesigned kernel must give them again. (scene, rays, layout or None for
@@ -2874,6 +2889,7 @@ def phase_kd(cli, counts, device, demo_argv, results) -> None:
     for scene in ("cornell", "demo", "straddler", "soup", "degenerate"):
         card_test("test_torch_tri_consts", "test_cuda_tri_consts_kernel_matches_plain_version",
                   scene)
+    card_test("test_torch_tri_consts", "test_cuda_tri_consts_kernel_at_block_edges")
     for inner, max_depth in ((20, 19), (40, 30), (63, 62), (70, 62)):
         card_test("test_torch_tri_consts", "test_cuda_kd_kernel_at_its_stack_depths", inner,
                   max_depth)
@@ -3022,8 +3038,10 @@ def phase_kd_tables(scenes) -> dict:
     a tree): each built and timed (host clock around the build and a
     synchronize: time to the first sample), its bytes, and equal to
     ``tri_consts_plain`` of the scene's corners bit for bit; then the kernel
-    and its plain version in turns on the 20k hero's corners. Returns the
-    kernels line's row."""
+    and its plain version timed by ``graph_device_ms`` (CUDA graphs of 20
+    calls in turns, outputs equal by SHA-256, the kernel's own duration by
+    torch.profiler) on the corners of the 20k and the 300k hero, each
+    beside its bound. Returns the kernels line's row (the 20k hero's)."""
     from isaklm_raytracer_tpu_torch.accel.wavefront import tri_consts_plain
     from isaklm_raytracer_tpu_torch.kernels import intersect as ki
 
@@ -3042,14 +3060,41 @@ def phase_kd_tables(scenes) -> dict:
             log(f"kd {label} triangle table ({layout}): {tuple(table.shape)} float32, "
                 f"{table.numel() * 4 / 2**20:.2f} MiB, built in {seconds * 1e3:.2f} ms (time to "
                 "the first sample), == tri_consts_plain of the scene's corners bit for bit")
-    src = scenes["hero20k"].vertices.reshape(-1, 9)
-    k_ms, p_ms, _ = time_in_turns(
-        f"tri_consts hero20k, {src.shape[0]} triangles",
-        lambda: (ki.tri_consts(src).view(torch.int32),),
-        lambda: (tri_consts_plain(src).view(torch.int32),))
-    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
-            **bound(src.shape[0] * TRI_CONSTS_SLOTS, src.shape[0] * TRI_TABLE_BYTES),
-            "shape": f"{src.shape[0]} triangles (hero20k)"}
+    rows = {}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=scenes["hero20k"].device)
+    for label in ("hero300k", "hero20k"):  # the kernels line takes the 20k hero's
+        src = scenes[label].vertices.reshape(-1, 9)
+        out = torch.empty((src.shape[0], ki.TRI_RECORD), dtype=torch.float32, device=src.device)
+
+        def kernel(src=src, out=out):
+            # the wrapper's launch into a table allocated outside the graph
+            # (the wrapper itself refuses a capture: a graph would own its table)
+            ki._launch("tri_consts", src, src.data_ptr(), src.shape[0], out.data_ptr())
+            return out.view(torch.int32)
+
+        def cold(fn):
+            def call():
+                flush.fill_(1)  # out of the L2 cache: the corners, the last table
+                return fn()
+            return call
+
+        k_ms, p_ms, own_ms = graph_device_ms(
+            f"tri_consts {label}, {src.shape[0]} triangles", kernel_symbol("tri_consts"), kernel,
+            lambda src=src: tri_consts_plain(src).view(torch.int32))
+        _, _, cold_ms = graph_device_ms(
+            f"tri_consts {label}, {src.shape[0]} triangles, each call after a write of "
+            f"{L2_FLUSH_BYTES >> 20} MiB (the L2 cache cold; the graph's times include the write)",
+            kernel_symbol("tri_consts"), cold(kernel),
+            cold(lambda src=src: tri_consts_plain(src).view(torch.int32)))
+        b = bound(src.shape[0] * TRI_CONSTS_SLOTS, src.shape[0] * TRI_TABLE_BYTES)
+        log(f"tri_consts bound {label}: {b['bound_ms']:.5f} ms ({b['bound_by']}; {b['bytes']:.4g} "
+            f"bytes) = {b['bound_ms'] / k_ms:.1%} of its time a call in the graph, "
+            f"{b['bound_ms'] / own_ms:.1%} of its own duration (L2 warm: the 20 calls read and "
+            f"write the same {b['bytes'] / 2**20:.1f} MiB), {b['bound_ms'] / cold_ms:.1%} of its "
+            f"own duration with the L2 cache cold ({cold_ms:.5f} ms)")
+        rows[label] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **b,
+                       "shape": f"{src.shape[0]} triangles ({label})"}
+    return rows["hero20k"]
 
 
 def sass_loops(library) -> dict:
@@ -3508,7 +3553,7 @@ def log_sampler_sass() -> None:
 
 
 def graph_device_ms(label, symbol, kernel_fn, plain_fn, reps: int = 20, plain_reps=None,
-                    same: bool = True) -> tuple:
+                    same: bool = True, others: Optional[dict] = None) -> tuple:
     """Device ms a call of a kernel and of its plain version: each captured
     ``reps`` times (the plain version ``plain_reps``, by default as many)
     into a CUDA graph, which is replayed between CUDA events (a call one
@@ -3518,7 +3563,9 @@ def graph_device_ms(label, symbol, kernel_fn, plain_fn, reps: int = 20, plain_re
     replay of the kernel's graph under torch.profiler: the kernel's own
     duration (its records named like ``symbol``), without the gaps between
     graph nodes. Returns the means of the two turns (ms) and the
-    profiler's mean kernel duration (ms)."""
+    profiler's mean kernel duration (ms). ``others`` ({symbol: None})
+    receives the mean own duration (ms) of each other kernel named in it,
+    from the same replay."""
     graphs, outs = {}, {}
     calls = {"kernel": reps, "plain": plain_reps or reps}
     for name, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
@@ -3542,12 +3589,16 @@ def graph_device_ms(label, symbol, kernel_fn, plain_fn, reps: int = 20, plain_re
     if len(own) != reps:
         raise RuntimeError(f"{label}: the profiler saw {len(own)} kernels of a replay of {reps}")
     own_ms = sum(own) / len(own) / 1e6
+    for other in others or {}:
+        durations = [d for name, _, d in device_records(prof) if other in name]
+        others[other] = sum(durations) / max(len(durations), 1) / 1e6
     log(f"time {label} device, from CUDA graphs of {calls['kernel']} and {calls['plain']} "
         f"calls: kernel {times['kernel'][0]:.5f}/{times['kernel'][1]:.5f} ms, plain "
         f"{times['plain'][0]:.4f}/{times['plain'][1]:.4f} ms"
         f"{', outputs equal by SHA-256' if same else ''}; the "
         f"kernel's own duration (torch.profiler, one replay) {own_ms:.5f} ms, "
-        f"{min(own) / 1e6:.5f}-{max(own) / 1e6:.5f}")
+        f"{min(own) / 1e6:.5f}-{max(own) / 1e6:.5f}"
+        + "".join(f"; {k}'s own {v:.5f} ms" for k, v in (others or {}).items()))
     del graphs
     return sum(times["kernel"]) / 2, sum(times["plain"]) / 2, own_ms
 
@@ -3854,10 +3905,9 @@ SHADE_BACKWARD_LIVE_SLOTS = 702
 SHADE_BACKWARD_LOBE_SLOTS = {"metal": 620, "specular": 411, "specular inside": 53,
                              "transmission": 506, "diffuse": 106}
 SHADE_BACKWARD_FRESNEL_SLOTS, SHADE_BACKWARD_NEE_SLOTS, SHADE_BACKWARD_LANE_SLOTS = 189, 515, 3
-# The binning (bounce_bin_kernel), a lane: the flags' tests and the class's
-# selects 8, the light pick (a product, a conversion, the clamp) 5, the
-# warp's match, the popcounts and the list's address 7.
-SHADE_BIN_SLOTS = 20
+# The binning (bounce_bin_kernel), a lane: the class byte's test 2, the
+# warp's match, the popcounts and the list's address 8.
+SHADE_BIN_SLOTS = 10
 
 
 def backward_classes(saved, pending) -> dict:
@@ -3952,6 +4002,11 @@ class BackwardCheck:
         self.recheck = {"rays": 0, "kernel": 0.0, "plain": 0.0}
 
     def __call__(self, saved, grad_outputs, needs=None):
+        from isaklm_raytracer_tpu_torch.kernels import shade
+
+        if not torch.equal(saved.ray_class, shade.ray_classes_plain(saved)):
+            raise RuntimeError(f"shade_grad {self.label} backward call {self.calls}: the "
+                               "forward's class bytes differ from ray_classes_plain")
         got = self.real(saved, grad_outputs)
         want = self.tests.plain_in_slices(saved, grad_outputs)
         torch.cuda.synchronize()
@@ -3998,23 +4053,25 @@ def many_materials(scene, copies: int):
                          mat_id=scene.mat_id + shift(scene.mat_id.shape[0]).to(scene.mat_id.dtype))
 
 
-def shade_bin_bound(saved) -> dict:
+def shade_bin_bound(saved, zero_bytes: int = 0) -> dict:
     """bounce_bin's bound on one call's ``saved`` inputs: SHADE_BIN_SLOTS a
-    lane, and the bytes: every lane's hit, active and next flags (4 B), a
-    live lane's inside flag and list entry (5 B), each live lane that is
-    neither diffuse nor a transmission its hit id, the material id of its
-    row and the extinction (12 B), a diffuse lane its shadow hit (1 B) and,
-    where it hit, its shadow id and light pick (8 B), a dead lane its three
-    gradients in and out (72 B), and the six class counts."""
+    lane, and the bytes: every lane's class byte (the forward's, 1 B), a
+    live lane's list entry (4 B), a dead lane its three gradients in and
+    out (72 B), the six class counts, and the ``zero_bytes`` of sums it
+    zeroes (a call of ``bounce_bin`` alone: transparent's zeros)."""
     live = saved.active & saved.hit
-    diffuse = live & saved.next_diffuse
-    trans = live & ~saved.next_diffuse & (saved.next_inside != saved.inside)
     n_live, n_dead = int(live.sum()), live.numel() - int(live.sum())
-    rest = n_live - int(diffuse.sum()) - int(trans.sum())
-    hits = int((diffuse & saved.shadow_hit).sum()) if saved.shadow_hit is not None else 0
-    nbytes = (live.numel() * 4 + n_live * (1 + 4) + rest * 12 + int(diffuse.sum()) * 1
-              + hits * 8 + n_dead * 72 + 4 * 6)
+    nbytes = live.numel() * 1 + n_live * 4 + n_dead * 72 + 4 * 6 + zero_bytes
     return bound(live.numel() * SHADE_BIN_SLOTS, nbytes)
+
+
+# bounce_bin of the parent tree (82bfff2: the class derived from the flags,
+# one global atomic a block and class, a zero fill of its own) at bounce 0
+# in run CE (NVIDIA H100 80GB HBM3, 700.00 W): ms a call in a CUDA graph of
+# 20 with its fill, and its kernel's own duration. Logged beside this tree's
+# as a reference from another call; tools/compare_kernel_times.py times the
+# two in turns in one.
+PARENT_BIN_MS = {"demo": (0.00533, 0.00421), "hero": (0.00545, 0.00431)}
 
 
 def phase_shade_grad(device, scenes, results) -> None:
@@ -4030,6 +4087,7 @@ def phase_shade_grad(device, scenes, results) -> None:
             f"{k} {v['registers']}, {v['local_bytes']} B, {v['resident_warps']} warps, "
             f"{v['threads']}" for k, v in attrs.items()))
     card_test("test_torch_shade_grad", "test_cuda_bounce_backward_equals_plain")
+    card_test("test_torch_shade_grad", "test_cuda_forward_writes_the_ray_classes")
     tests = test_module("test_torch_shade_grad")
     demo = scenes["demo"]
     paths = (
@@ -4106,6 +4164,12 @@ def phase_shade_grad(device, scenes, results) -> None:
             kernel_symbols(label, lambda: shade.bounce_backward(saved, gouts), want_symbol)
         return errs
 
+    def dead_state(saved):
+        """``saved`` with every lane inactive, its classes derived again."""
+        dead = dataclasses.replace(saved, active=torch.zeros_like(saved.active))
+        dead.ray_class = shade.ray_classes_plain(dead)
+        return dead
+
     def rays_of(saved, gouts, rays):
         """The saved inputs and output gradients of ``rays`` alone."""
         cut = {f: ((v[:, rays] if f == "u" else v[rays]).contiguous()
@@ -4124,7 +4188,7 @@ def phase_shade_grad(device, scenes, results) -> None:
         f"sums (bounce_backward_kernel<false>) within the test tolerances of the plain version, "
         f"largest |kernel - plain| albedo {errs['albedo']:.3e}, emittance {errs['emittance']:.3e};"
         f" the demo's own {n_mat} ran bounce_backward_kernel<true>")
-    dead = dataclasses.replace(saved, active=torch.zeros_like(saved.active))
+    dead = dead_state(saved)
     errs = held("demo bounce 0, every lane dead", dead, gouts)
     lists = shade.bounce_bin_plain(saved)
     for name, rays in zip(shade.RAY_CLASSES, lists):
@@ -4138,41 +4202,57 @@ def phase_shade_grad(device, scenes, results) -> None:
 
     @torch.no_grad()
     def bin_check(label, saved, gouts):
-        """bounce_bin against bounce_bin_plain: each segment's rays (sorted),
-        the counts, the dead lanes' gradients bit for bit."""
-        outs = shade.bounce_bin(saved, gouts)
-        want = shade.bounce_bin_plain(saved)
-        counts = outs.class_counts.tolist()
-        for c, (name, rays) in enumerate(zip(shade.RAY_CLASSES, want)):
-            got = outs.ray_list[c, :counts[c]].long().sort().values
-            if counts[c] != rays.numel() or not torch.equal(got, rays):
-                raise RuntimeError(f"bounce_bin {label}: class {name} differs from the plain "
-                                   f"version ({counts[c]} rays, {rays.numel()} expected)")
-        if any(counts[len(want):]):
-            raise RuntimeError(f"bounce_bin {label}: counts beyond the classes {counts}")
-        dead = ~(saved.active & saved.hit)
-        if not all(torch.equal(o[dead], g[dead]) for o, g in zip(outs[:3], gouts[:3])):
-            raise RuntimeError(f"bounce_bin {label}: a dead lane's gradient is not passed through")
-        return counts
+        """bounce_bin against bounce_bin_plain: each segment's rays (as a
+        set), the counts, the dead lanes' gradients bit for bit, from the
+        forward's class bytes; and with every lane dead."""
+        for case, sv in ((label, saved), (f"{label}, every lane dead", dead_state(saved))):
+            counts = tests.check_binning(f"bounce_bin {case}", shade.bounce_bin(sv, gouts), sv,
+                                         gouts)
+            want = [r.numel() for r in shade.bounce_bin_plain(sv)]
+            if counts != want:
+                raise RuntimeError(f"bounce_bin {case}: counts {counts}, {want} expected")
+            if sv is saved:
+                kept = counts
+        log(f"bounce_bin {label}: each class's segment == bounce_bin_plain's as a set (counts "
+            f"{kept}), the dead lanes' gradients passed through bit for bit, from the forward's "
+            "class bytes; the same with every lane dead")
+        return kept
 
     @torch.no_grad()  # as in a backward: the saved rays require grad
     def timed(label, check):
         saved, gouts = check.last
         rays = saved.ray_o.shape[0]
         counts = bin_check(label, saved, gouts)
+        inside = {kernel_symbol("shade_bin"): None}
         k_ms, p_ms, own_ms = graph_device_ms(
-            f"bounce_backward {label} bounce 0, {rays} rays (the binning, the reverse and the "
-            "sums' zero fill)", kernel_symbol("shade_backward"),
+            f"bounce_backward {label} bounce 0, {rays} rays (the binning, which zeroes the sums, "
+            "the reverse and the sums' rounding)", kernel_symbol("shade_backward"),
             lambda: shade.bounce_backward(saved, gouts),
-            lambda: shade.bounce_backward_plain(saved, gouts), plain_reps=3, same=False)
+            lambda: shade.bounce_backward_plain(saved, gouts), plain_reps=3, same=False,
+            others=inside)
+        in_call_ms = inside[kernel_symbol("shade_bin")]
         host_ms, _ = cuda_ms(lambda: shade.bounce_backward(saved, gouts))
         log(f"time bounce_backward {label} bounce 0, {rays} rays, calls one after another (the "
             f"host's rate): {host_ms:.4f} ms a call")
-        bin_ms, _, _ = graph_device_ms(
-            f"bounce_bin {label} bounce 0, {rays} rays (the binning and the zero fill; its "
-            "plain stand-in: itself, once)", kernel_symbol("shade_bin"),
-            lambda: shade.bounce_bin(saved, gouts)[-2:],
-            lambda: shade.bounce_bin(saved, gouts)[-2:], plain_reps=1, same=False)
+        bin_ms, _, bin_own_ms = graph_device_ms(
+            f"bounce_bin {label} bounce 0, {rays} rays (the binning alone, on new zero counters: "
+            "their fill, then the kernel; its plain stand-in: itself, once)",
+            kernel_symbol("shade_bin"), lambda: shade.bounce_bin(saved, gouts).class_counts,
+            lambda: shade.bounce_bin(saved, gouts).class_counts, plain_reps=1, same=False)
+        empty = rays_of(saved, gouts, torch.arange(0, device=saved.ray_o.device))
+        empty_ms, _, empty_own_ms = graph_device_ms(
+            f"bounce_bin {label} on no ray (one block: the launch and the zeroing alone)",
+            kernel_symbol("shade_bin"), lambda: shade.bounce_bin(*empty).class_counts,
+            lambda: shade.bounce_bin(*empty).class_counts, plain_reps=1, same=False)
+        parent_ms, parent_own_ms = PARENT_BIN_MS[label]
+        log(f"time bounce_bin {label} bounce 0: alone {bin_ms:.5f} ms a call in a CUDA graph "
+            f"(with the counters' fill), the kernel's own {bin_own_ms:.5f} ms; inside "
+            f"bounce_backward (no fill: the reverse leaves the counters at zero) its own "
+            f"{in_call_ms:.5f} ms; on no ray {empty_ms:.5f} and {empty_own_ms:.5f} ms; the parent "
+            f"tree in run CE {parent_ms:.5f} ms with its zero fill, its kernel's own "
+            f"{parent_own_ms:.5f} ms (another call; in turns: tools/compare_kernel_times.py)")
+        if shade.device_counters(saved.ray_o.device).any():
+            raise RuntimeError(f"bounce_backward {label}: the counters are not zero after it")
         bin_plain_ms, _ = cuda_ms(lambda: shade.bounce_bin_plain(saved), reps=5)
         log(f"time bounce_bin_plain {label} bounce 0 (eager, CUDA events; it syncs): "
             f"{bin_plain_ms:.4f} ms; class counts "
@@ -4185,9 +4265,10 @@ def phase_shade_grad(device, scenes, results) -> None:
         log(f"bounce_backward bound {label} bounce 0: {bb['bound_ms']:.4f} ms ({bb['bound_by']}; "
             f"{bb['ops']:.4g} slots, {bb['bytes']:.4g} bytes; live lanes by lobe {bb['lanes']}, "
             f"{bb['visible']} visible shadow hits) = {bb['bound_ms'] / k_ms:.1%} of its time")
-        nb = shade_bin_bound(saved)
+        nb = shade_bin_bound(saved, 4 * saved.scene.materials.albedo.shape[0])
         log(f"bounce_bin bound {label} bounce 0: {nb['bound_ms']:.5f} ms ({nb['bound_by']}; "
-            f"{nb['bytes']:.4g} bytes) = {nb['bound_ms'] / bin_ms:.1%} of its time")
+            f"{nb['bytes']:.4g} bytes) = {nb['bound_ms'] / bin_ms:.1%} of its time a call alone, "
+            f"{nb['bound_ms'] / bin_own_ms:.1%} of its own duration")
         return k_ms, p_ms, bb, bin_ms, bin_plain_ms, nb
 
     for label in ("hero", "demo"):  # the kernels line takes the demo's

@@ -42,13 +42,13 @@
 // - Divergence. Each lobe's reverse and the direct light's are long
 //   branches, and the lobe is drawn per ray: a warp ran several. So
 //   bounce_bin_kernel first sorts the live rays by class (RayClass: the
-//   lobe the forward chose, which the forward's next inside and
-//   prev_diffuse flags record, the metal's from its material, and for a
-//   diffuse lobe whether its shadow ray sees the picked light) into one
-//   segment of a ray list each, by a block-local counting sort and one
-//   global atomic a (block, class); it writes the pass-through gradients
-//   of the dead lanes. bounce_backward_kernel's warps then take 32
-//   consecutive entries of one segment: a warp runs one lobe's code.
+//   lobe the forward chose and, for a diffuse lobe, whether its shadow ray
+//   saw the picked light; the forward kernels write it, a byte a ray) into
+//   one segment of a ray list each, by a block-local counting sort and one
+//   atomic a (block, class); it writes the pass-through gradients of the
+//   dead lanes.
+//   bounce_backward_kernel's warps then take 32 consecutive entries of
+//   one segment: a warp runs one lobe's code.
 // - Registers. The reverse needs the forward's intermediates at once (the
 //   first kernel: 180 registers a thread, 8 warps an SM). The code after
 //   the lobe choice is one inlined tail a lobe (lobe_reverse), so no lobe
@@ -76,6 +76,22 @@
 //   of times (the plain version's index_add over a 512x512 wavefront: up
 //   to 7e-4 of the light's emittance gradient on the H100).
 //
+// The binning's first version was held by latency, not bytes: a
+// thread a ray derived the class through dependent loads (the hit id, its
+// row's material id, the material's extinction; the light pick), then one
+// global atomic a (block, class) placed the block's rays, and the counts
+// and sums took a zero fill of their own; 4.0-4.4 us a call at the demo's
+// and the hero's first bounce, whose bytes differ by 1.9x. Now the class
+// is one byte the forward wrote; a block takes four times the rays (a
+// quarter of the atomics), each class's counter on a line of its own; the
+// counters persist between calls and the reverse's last block leaves them
+// at zero (no fill: the binning zeroes the sums). A version without
+// atomics (each block's rays in a part of the list of its own, the
+// reverse finding an entry's part by a binary search over the blocks'
+// counts) made the reverse 4-7 us slower a call than the binning saved.
+// What bounds it: bytes, a ray's class byte, a live ray's list entry and a
+// dead ray's three gradients in and out (chip_smoke.py shade_bin_bound).
+//
 // Each ray's arithmetic is that of the first kernel op for op, so its
 // gradients are too: only which lanes share a warp, how many registers a
 // thread holds and how the sums reach device memory changed.
@@ -91,16 +107,13 @@ struct BackwardArgs {
   const float* ray_o;  // (R, 3) the bounce's inputs
   const float* ray_d;
   const int32_t* idx;  // (R,) the bounce's hit ids, -1 = miss
-  const uint8_t* hit;  // (R,) bool
-  const uint8_t* active;
   const float* throughput;  // (R, 3)
   const uint8_t* inside;  // (R,) bool
   const uint8_t* prev_diffuse;
   const float* u;  // (9, R) the bounce's uniforms, rows u_stride apart
   const int32_t* shadow_idx;  // (R,) the shadow rays' hit ids; null without lights
   const uint8_t* shadow_hit;
-  const uint8_t* next_inside;  // (R,) bool, the forward's next inside and prev_diffuse
-  const uint8_t* next_diffuse;  // (the Pending state's): the lobe it chose
+  const uint8_t* ray_class;  // (R,) each ray's RayClass, as the forward wrote it
   const float* g_ray_o;  // (R, 3) the gradients of the bounce's outputs
   const float* g_ray_d;
   const float* g_throughput;
@@ -111,7 +124,12 @@ struct BackwardArgs {
   double* o_material;  // (M, 9) added to: albedo, emittance, roughness, ior, extinction; or null
   double* o_texels;  // (P, 3) added to; or null
   int32_t* ray_list;  // (kLiveClasses, R): the live rays of each class, the binning's output
-  int32_t* class_counts;  // (kClassCounts,) zeros on entry: the rays of each live class
+  // (kCounterWords,): class c's count at word kCountStride c, zero on the
+  // binning's entry; the reverse's blocks count themselves out at word
+  // kDoneWord, and the last one leaves every word zero for the next call
+  int32_t* counters;
+  void* zero;  // zero_words 16-byte words the binning zeroes (the sums the reverse adds to)
+  int64_t zero_words;
   int64_t u_stride;
   int32_t num_rays;
   int32_t num_materials;
@@ -459,22 +477,6 @@ __device__ __forceinline__ V3 texture_bwd(const ShadeScene& s, int tex_id, V3 co
 }
 
 
-// The classes the binning sorts the rays into: the live ones by the lobe
-// the forward chose and, for a diffuse lobe, by whether its shadow ray saw
-// the picked light, the costliest first (the order of the ray list's
-// segments, which the kernel's warps take in turns); and the dead.
-enum RayClass : int {
-  kDiffuseVisible = 0,  // a diffuse lobe and its direct light
-  kTransmission,
-  kSpecular,  // a dielectric's reflection from outside
-  kMetal,
-  kSpecularInside,
-  kDiffuseDark,  // a diffuse lobe without a visible light
-  kLiveClasses,
-  kDead = kLiveClasses,  // inactive or missed: the state passes through
-};
-constexpr int kClassCounts = 8;  // class_counts' words: a live class's each, and padding
-
 // The light nee.shadow_rays picked from the uniform u5.
 __device__ __forceinline__ int picked_light(const ShadeScene& s, float u5) {
   const int n = s.num_lights;
@@ -483,30 +485,14 @@ __device__ __forceinline__ int picked_light(const ShadeScene& s, float u5) {
   return s.light_indices[pick];
 }
 
-// Ray r's class, from its flags, the forward's next flags (a transmission
-// flips inside, a diffuse lobe sets prev_diffuse), its material (a metal)
-// and its shadow hit; as the kernel's own lobe choice and direct light
-// decide it, since the forward computed the flags with the same helpers.
-// Every read comes first, none behind a branch on another, so that their
-// latencies overlap.
-__device__ __forceinline__ int ray_class(const ShadeScene& s, const BackwardArgs& a, int64_t r) {
-  const bool live = (a.active[r] != 0) & (a.hit[r] != 0);
-  const bool diffuse = a.next_diffuse[r] != 0, inside = a.inside[r] != 0;
-  const bool flips = (a.next_inside[r] != 0) != inside;
-  const bool lit = s.has_lights != 0;
-  const bool shadow_hit = lit ? a.shadow_hit[r] != 0 : false;
-  const int shadow_idx = lit ? a.shadow_idx[r] : -1;
-  const int light = picked_light(s, a.u[r + 5 * a.u_stride]);
-  const int idx = a.idx[r];
-  const int64_t i = idx > 0 ? idx : 0;
-  const int mat = s.table != nullptr ? static_cast<int>(s.table[32 * i + 24]) : s.mat_id[i];
-  const bool metal = s.extinction[mat] > 0.0f;
-  if (!live) return kDead;
-  if (diffuse) return shadow_hit && shadow_idx == light ? kDiffuseVisible : kDiffuseDark;
-  if (flips) return kTransmission;
-  if (metal) return kMetal;
-  return inside ? kSpecularInside : kSpecular;
-}
+// The binning: blocks of kBinThreads, each over a tile of kBinTile rays
+// (kBinRounds a thread, in rounds of kBinThreads consecutive ones).
+constexpr int kBinThreads = 256, kBinRounds = 4, kBinTile = kBinThreads * kBinRounds;
+// The counters: a class's count on a line of its own (kCountStride words
+// apart, so that the blocks' atomics on different classes do not queue on
+// one address), then the reverse's count of finished blocks.
+constexpr int kCountStride = 32, kDoneWord = kClassCounts * kCountStride;
+constexpr int kCounterWords = kDoneWord + 1;
 
 // A dead lane's state passes through.
 __device__ __forceinline__ void pass_through(const BackwardArgs& a, int64_t r) {
@@ -859,7 +845,6 @@ __device__ void bounce_backward_ray(const ShadeScene& s, const BackwardArgs& a, 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBinThreads = 256;  // rays a block of the binning
 constexpr int kBinWarps = kBinThreads / 32;
 // The reverse: blocks of kBackwardThreads, at least kBackwardMinBlocks of
 // them resident an SM, so at most 65,536 / (256 x 2) = 128 registers a
@@ -900,48 +885,93 @@ __device__ __forceinline__ void warp_add(int key, const float* v, double* dst, i
   }
 }
 
-// One thread a ray: its class; a dead ray's pass-through; a live ray's
-// place in its class's segment of the ray list (ray order within a block,
-// the blocks' parts in the order of their atomics).
-__global__ void __launch_bounds__(kBinThreads) bounce_bin_kernel(const ShadeScene s,
-                                                                 const BackwardArgs a) {
-  __shared__ int offset[kBinWarps][kLiveClasses];  // a warp's count, then its offset
+// The binning: one block a tile of kBinTile rays. Each thread reads its
+// rays' class bytes (the forward's), passes a dead ray's gradients through
+// (every load before any store, so that they overlap) and counts its
+// warp's rays of each class (__match_any_sync); the block's scan of those
+// counts over (round, warp) places each ray within the block's part of
+// its class's segment, and one atomic a (block, class) on the counters
+// places the part (ray order within a part; the parts in the order of the
+// atomics). The blocks also zero the sums the reverse adds to (zero_words
+// 16-byte words), which took a fill of its own before.
+__global__ void __launch_bounds__(kBinThreads) bounce_bin_kernel(const BackwardArgs a) {
+  __shared__ int offset[kBinRounds][kBinWarps][kLiveClasses];  // a count, then its offset
   __shared__ int base[kLiveClasses];  // the block's first entry of each segment
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kBinThreads + threadIdx.x;
-  int c = kDead;
-  if (r < a.num_rays) {
-    c = ray_class(s, a, r);
-    if (c == kDead) pass_through(a, r);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBinThreads;
+  uint4* zero = static_cast<uint4*>(a.zero);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kBinThreads + threadIdx.x;
+       i < a.zero_words; i += stride) {
+    zero[i] = make_uint4(0u, 0u, 0u, 0u);
   }
-  const unsigned peers = __match_any_sync(kFull, c);
-  if (lane < kLiveClasses) offset[warp][lane] = 0;
+  const int64_t num = a.num_rays;
+  const int64_t tile = static_cast<int64_t>(blockIdx.x) * kBinTile;
+  int c[kBinRounds];
+  for (int k = 0; k < kBinRounds; ++k) {
+    const int64_t r = tile + k * kBinThreads + threadIdx.x;
+    c[k] = r < num ? a.ray_class[r] : kDead;
+  }
+  V3 go[kBinRounds], gd[kBinRounds], gt[kBinRounds];
+  for (int k = 0; k < kBinRounds; ++k) {
+    const int64_t r = tile + k * kBinThreads + threadIdx.x;
+    if (c[k] == kDead && r < num) {
+      go[k] = load3(a.g_ray_o, r);
+      gd[k] = load3(a.g_ray_d, r);
+      gt[k] = load3(a.g_throughput, r);
+    }
+  }
+  unsigned peers[kBinRounds];
+  for (int k = 0; k < kBinRounds; ++k) {
+    peers[k] = __match_any_sync(kFull, c[k]);
+    if (lane < kLiveClasses) offset[k][warp][lane] = 0;
+  }
   __syncwarp();
-  if (c != kDead && lane == __ffs(peers) - 1) offset[warp][c] = __popc(peers);
+  for (int k = 0; k < kBinRounds; ++k) {
+    if (c[k] != kDead && lane == __ffs(peers[k]) - 1) offset[k][warp][c[k]] = __popc(peers[k]);
+  }
   __syncthreads();
   if (threadIdx.x < kLiveClasses) {
-    const int k = threadIdx.x;
+    const int cls = threadIdx.x;
     int sum = 0;
-    for (int w = 0; w < kBinWarps; ++w) {
-      const int n = offset[w][k];
-      offset[w][k] = sum;
-      sum += n;
+    for (int k = 0; k < kBinRounds; ++k) {
+      for (int w = 0; w < kBinWarps; ++w) {
+        const int n = offset[k][w][cls];
+        offset[k][w][cls] = sum;
+        sum += n;
+      }
     }
-    base[k] = sum > 0 ? atomicAdd(a.class_counts + k, sum) : 0;
+    base[cls] = sum > 0 ? atomicAdd(a.counters + kCountStride * cls, sum) : 0;
   }
   __syncthreads();
-  if (c != kDead) {
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    a.ray_list[static_cast<int64_t>(c) * a.num_rays + base[c] + offset[warp][c] + rank] =
-        static_cast<int32_t>(r);
+  for (int k = 0; k < kBinRounds; ++k) {
+    const int64_t r = tile + k * kBinThreads + threadIdx.x;
+    if (c[k] != kDead) {
+      const int rank = __popc(peers[k] & ((1u << lane) - 1u));
+      a.ray_list[c[k] * num + base[c[k]] + offset[k][warp][c[k]] + rank] =
+          static_cast<int32_t>(r);
+    } else if (r < num) {
+      store3(a.o_ray_o, r, go[k]);
+      store3(a.o_ray_d, r, gd[k]);
+      store3(a.o_throughput, r, gt[k]);
+    }
+  }
+}
+
+// A block of the reverse leaves: the last to leave (of the grid's) sets the
+// counters to zero for the next call, once every block has read them.
+__device__ __forceinline__ void leave(const BackwardArgs& a) {
+  if (threadIdx.x == 0 && atomicAdd(a.counters + kDoneWord, 1) == static_cast<int>(gridDim.x) - 1) {
+    for (int c = 0; c < kClassCounts; ++c) a.counters[kCountStride * c] = 0;
+    a.counters[kDoneWord] = 0;
   }
 }
 
 // Persistent blocks over the ray list: a warp task is 32 consecutive
-// entries of one class's segment, the tasks of all segments taken in turns
-// (warp w of the grid's W: tasks w, w + W, ...). With kSharedSums the
-// material sums go to the block's table in shared memory, flushed at its
-// end; without, to device memory.
+// entries of one class's segment, the tasks of all segments taken in
+// turns (warp w of the grid's W: tasks w, w + W, ...). With kSharedSums
+// the material sums go to the block's table in shared memory, flushed at
+// its end; without, to device memory. Each block reads the counters at its
+// start and counts itself out at its end (leave).
 template <bool kSharedSums>
 __global__ void __launch_bounds__(kBackwardThreads, kBackwardMinBlocks)
 bounce_backward_kernel(const ShadeScene s, const BackwardArgs a) {
@@ -951,7 +981,7 @@ bounce_backward_kernel(const ShadeScene s, const BackwardArgs a) {
   if (threadIdx.x == 0) {
     int tasks = 0;
     for (int c = 0; c < kLiveClasses; ++c) {
-      count[c] = a.class_counts[c];
+      count[c] = a.counters[kCountStride * c];
       first[c] = tasks;
       tasks += (count[c] + 31) / 32;
     }
@@ -959,7 +989,10 @@ bounce_backward_kernel(const ShadeScene s, const BackwardArgs a) {
   }
   __syncthreads();
   const int tasks = first[kLiveClasses];
-  if (static_cast<int>(blockIdx.x) * kBackwardWarps >= tasks) return;  // no task of its own
+  if (static_cast<int>(blockIdx.x) * kBackwardWarps >= tasks) {  // no task of its own
+    leave(a);
+    return;
+  }
   const int cells = kSharedSums ? a.num_materials * kTableCols : 0;
   for (int i = threadIdx.x; i < cells; i += kBackwardThreads) table[i] = 0.0;
   __syncthreads();
@@ -995,6 +1028,7 @@ bounce_backward_kernel(const ShadeScene s, const BackwardArgs a) {
       if (v != 0.0) atomicAdd(a.o_material + 9 * row + (col < 9 ? col : col - 6), v);
     }
   }
+  leave(a);
 }
 
 // The kernels' resident blocks an SM and the SMs of each card, read once.
@@ -1027,27 +1061,28 @@ cudaError_t residency(int device, Residency* out) {
 }  // namespace
 
 // Both entry points launch on `stream` of `device` and return
-// cudaGetLastError() (0 = launched). The structs are host memory, copied
-// into the launch's parameters. They allocate nothing and do not
-// synchronise.
+// cudaGetLastError() (0 = launched; cudaErrorInvalidValue for a layout
+// the kernels do not take). The structs are host memory, copied into the
+// launch's parameters. They allocate nothing and do not synchronise.
 
-// The binning: class_counts must hold zeros; writes the ray list, the
-// counts and the dead rays' gradients.
+// The binning: writes the ray list, adds the class counts to the counters
+// (zero on entry) and the dead rays' gradients, and zeroes the sums (at
+// least one block, so that the sums are zeroed with no ray).
 extern "C" int bounce_bin(int device, const ShadeScene* scene, const BackwardArgs* args,
                           void* stream) {
+  (void)scene;  // the classes are the forward's: the binning reads no scene table
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (args->num_rays > 0) {
-    const dim3 grid((args->num_rays + kBinThreads - 1) / kBinThreads);
-    bounce_bin_kernel<<<grid, kBinThreads, 0, static_cast<cudaStream_t>(stream)>>>(*scene, *args);
-  }
+  const int64_t tiles = (static_cast<int64_t>(args->num_rays) + kBinTile - 1) / kBinTile;
+  const dim3 grid(static_cast<unsigned>(tiles > 0 ? tiles : 1));
+  bounce_bin_kernel<<<grid, kBinThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The reverse of the live rays the binning listed (bounce_bin first, on
-// the same stream, with the same args); o_material and o_texels must hold
-// zeros (or sums to add to). The grid: as many blocks as stay resident, no
-// more than the most warp tasks the rays can give.
+// the same stream, with the same args), which leaves the counters at zero.
+// The grid: as many blocks as stay resident, no more than the most warp
+// tasks the rays can give.
 extern "C" int bounce_backward(int device, const ShadeScene* scene, const BackwardArgs* args,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -1101,16 +1136,21 @@ extern "C" int bounce_backward_attributes(int device, int32_t* out) {
 
 #else  // a host build of the same code, for the CPU tests
 
-// bounce_bin_kernel on the host: the rays in order, each live one appended
-// to its class's segment. Returns 0.
+#include <string.h>
+
+// bounce_bin_kernel on the host: the rays in order, each live one
+// appended to its class's segment, the counts added to the counters; the
+// zero fill. Returns 0.
 extern "C" int bounce_bin_host(const ShadeScene* scene, const BackwardArgs* args) {
-  for (int64_t r = 0; r < args->num_rays; ++r) {
-    const int c = ray_class(*scene, *args, r);
+  (void)scene;
+  if (args->zero_words > 0) memset(args->zero, 0, 16 * static_cast<size_t>(args->zero_words));
+  const int64_t num = args->num_rays;
+  for (int64_t r = 0; r < num; ++r) {
+    const int c = args->ray_class[r];
     if (c == kDead) {
       pass_through(*args, r);
     } else {
-      args->ray_list[static_cast<int64_t>(c) * args->num_rays + args->class_counts[c]++] =
-          static_cast<int32_t>(r);
+      args->ray_list[c * num + args->counters[kCountStride * c]++] = static_cast<int32_t>(r);
     }
   }
   return 0;
@@ -1118,19 +1158,21 @@ extern "C" int bounce_bin_host(const ShadeScene* scene, const BackwardArgs* args
 
 // The kernels' arithmetic on the host: the binning, then each segment's
 // rays in list order, the sums in that order (in float64, as the
-// kernel's). class_counts must hold zeros. Returns 0.
+// kernel's); the counters left at zero, as the reverse leaves them.
+// Returns 0.
 extern "C" int bounce_backward_host(const ShadeScene* scene, const BackwardArgs* args) {
   bounce_bin_host(scene, args);
   for (int c = 0; c < kLiveClasses; ++c) {
-    for (int j = 0; j < args->class_counts[c]; ++j) {
+    const int32_t* segment = args->ray_list + c * static_cast<int64_t>(args->num_rays);
+    for (int j = 0; j < args->counters[kCountStride * c]; ++j) {
       Contrib ct;
-      bounce_backward_ray(*scene, *args,
-                          args->ray_list[static_cast<int64_t>(c) * args->num_rays + j], ct);
+      bounce_backward_ray(*scene, *args, segment[j], ct);
       if (args->o_material != nullptr) {
         if (ct.mat >= 0)
           for (int f = 0; f < 9; ++f) args->o_material[9 * ct.mat + f] += ct.mat_g[f];
         if (ct.light_mat >= 0)
-          for (int f = 0; f < 3; ++f) args->o_material[9 * ct.light_mat + 3 + f] += ct.light_g[f];
+          for (int f = 0; f < 3; ++f)
+            args->o_material[9 * ct.light_mat + 3 + f] += ct.light_g[f];
       }
       if (args->o_texels != nullptr) {
         if (ct.texel >= 0)
@@ -1141,7 +1183,17 @@ extern "C" int bounce_backward_host(const ShadeScene* scene, const BackwardArgs*
       }
     }
   }
+  for (int w = 0; w < kCounterWords; ++w) args->counters[w] = 0;
   return 0;
 }
 
 #endif
+
+// The counters' layout, for kernels/shade.py to be checked against:
+// kCountStride, kDoneWord, kCounterWords. Returns 0.
+extern "C" int bounce_counter_layout(int32_t* out) {
+  out[0] = kCountStride;
+  out[1] = kDoneWord;
+  out[2] = kCounterWords;
+  return 0;
+}

@@ -37,17 +37,27 @@
 // (a ray reads its own rows once); rows of the shading table as seven
 // 16-byte loads. The structures and the forward helpers live in
 // shade_common.cuh, which csrc/shade_backward.cu shares.
+//
+// Where autograd records the bounce (kernels/shade.py BounceFunction), the
+// two kernels also write each ray's RayClass (o_ray_class: the lobe the
+// first one chose, and the direct light's visibility, which only the
+// second one knows), one byte a ray, so that the backward's binning reads
+// that byte rather than derive the class again from the flags, the hit's
+// material and the light pick through a chain of dependent loads. With a
+// null o_ray_class (every render path) nothing more is read or written.
+// Without nvcc (g++, for the CPU tests) the per-ray code builds for the
+// host, with an entry point that runs the rays one after another.
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 #include "shade_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kShadeThreads)
-shade_bounce_kernel(const ShadeScene s, const ShadeArgs a) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kShadeThreads + threadIdx.x;
-  if (r >= a.num_rays) return;
+// shade_bounce_plain on ray r.
+__device__ __forceinline__ void shade_ray(const ShadeScene& s, const ShadeArgs& a, int64_t r) {
   const V3 o = load3(a.ray_o, r), d = load3(a.ray_d, r);
   const V3 throughput = load3(a.throughput, r);
   const int idx = a.idx[r];
@@ -60,6 +70,7 @@ shade_bounce_kernel(const ShadeScene s, const ShadeArgs a) {
   V3 emitted = {0.0f, 0.0f, 0.0f};  // where(emit, emittance * throughput, 0.0)
   V3 next_o = o, next_d = d, next_throughput = throughput;
   bool next_inside = inside, next_diffuse = prev_diffuse, diffuse = false;
+  int ray_class = kDead;
   if (live) {
     const Material m = material(s, tri.mat, g.u, g.v);
     if (!prev_diffuse) emitted = mul(m.emittance, throughput);
@@ -69,6 +80,12 @@ shade_bounce_kernel(const ShadeScene s, const ShadeArgs a) {
     next_throughput = mul(throughput, ev.weight);
     next_inside = ev.inside;
     next_diffuse = diffuse = ev.diffuse;
+    // the lobe scatter chose (a diffuse one's visibility is finish_ray's)
+    ray_class = ev.diffuse             ? kDiffuseDark
+                : ev.inside != inside  ? kTransmission
+                : m.extinction > 0.0f  ? kMetal
+                : inside               ? kSpecularInside
+                                       : kSpecular;
   }
   store3(a.o_ray_o, r, next_o);
   store3(a.o_ray_d, r, next_d);
@@ -77,12 +94,13 @@ shade_bounce_kernel(const ShadeScene s, const ShadeArgs a) {
   store_flag(a.o_inside, r, next_inside);
   store_flag(a.o_prev_diffuse, r, next_diffuse);
   store_flag(a.o_live, r, live);
+  if (a.o_ray_class != nullptr) a.o_ray_class[r] = static_cast<uint8_t>(ray_class);
   if (!s.has_lights) return;
 
   // integrator/nee.py shadow_rays from the next origin
   const int n = s.num_lights;
   int pick = static_cast<int>(u[5 * a.u_stride] * static_cast<float>(n));
-  pick = min(max(pick, 0), n - 1);
+  pick = pick < 0 ? 0 : (pick > n - 1 ? n - 1 : pick);
   const int light = s.light_indices[pick];
   const V3 p1 = load3(s.vertices, 3 * static_cast<int64_t>(light));
   const V3 p2 = load3(s.vertices, 3 * static_cast<int64_t>(light) + 1);
@@ -102,10 +120,8 @@ shade_bounce_kernel(const ShadeScene s, const ShadeArgs a) {
   store3(a.o_normal, r, g.normal);
 }
 
-__global__ void __launch_bounds__(kShadeThreads)
-finish_bounce_kernel(const ShadeScene s, const FinishArgs a) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kShadeThreads + threadIdx.x;
-  if (r >= a.num_rays) return;
+// finish_bounce_plain on ray r.
+__device__ __forceinline__ void finish_ray(const ShadeScene& s, const FinishArgs& a, int64_t r) {
   const V3 throughput = load3(a.throughput, r);
   V3 radiance = load3(a.radiance, r);
   const bool live = a.live[r] != 0;
@@ -132,6 +148,7 @@ finish_bounce_kernel(const ShadeScene s, const FinishArgs a) {
         const float scale = light_area * static_cast<float>(s.num_lights) * cos1 * cos2 /
                             clamp_min(a.dist_sq[r] * F(kPi), F(0.001));
         direct = scale * m.emittance;
+        if (a.o_ray_class != nullptr) a.o_ray_class[r] = kDiffuseVisible;
       }
       add = mul(direct, throughput);
     }
@@ -155,6 +172,24 @@ finish_bounce_kernel(const ShadeScene s, const FinishArgs a) {
   }
   store3(a.o_throughput, r, next_throughput);
   store_flag(a.o_active, r, live && alive);
+}
+
+}  // namespace
+
+#ifdef __CUDACC__
+
+namespace {
+
+__global__ void __launch_bounds__(kShadeThreads)
+shade_bounce_kernel(const ShadeScene s, const ShadeArgs a) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kShadeThreads + threadIdx.x;
+  if (r < a.num_rays) shade_ray(s, a, r);
+}
+
+__global__ void __launch_bounds__(kShadeThreads)
+finish_bounce_kernel(const ShadeScene s, const FinishArgs a) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kShadeThreads + threadIdx.x;
+  if (r < a.num_rays) finish_ray(s, a, r);
 }
 
 inline dim3 grid_of(int num_rays) { return dim3((num_rays + kShadeThreads - 1) / kShadeThreads); }
@@ -185,3 +220,18 @@ extern "C" int finish_bounce(int device, const ShadeScene* scene, const FinishAr
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#else  // a host build of the same code, for the CPU tests
+
+// The kernels on the host: the rays one after another. Return 0.
+extern "C" int shade_bounce_host(const ShadeScene* scene, const ShadeArgs* args) {
+  for (int64_t r = 0; r < args->num_rays; ++r) shade_ray(*scene, *args, r);
+  return 0;
+}
+
+extern "C" int finish_bounce_host(const ShadeScene* scene, const FinishArgs* args) {
+  for (int64_t r = 0; r < args->num_rays; ++r) finish_ray(*scene, *args, r);
+  return 0;
+}
+
+#endif

@@ -3,8 +3,8 @@
 // structures of kernels/shade.py mirror, and the forward helpers, whose
 // arithmetic is that of the plain versions op for op (shade_bounce.cu's
 // header says how). Without nvcc (a host compiler, for the CPU tests of
-// shade_backward.cu's per-ray code) the device qualifiers and __ldg become
-// their host equivalents.
+// both files' per-ray code) the device qualifiers and __ldg become their
+// host equivalents.
 #pragma once
 
 #include <math.h>
@@ -26,6 +26,27 @@ inline T __ldg(const T* p) {
 namespace {
 
 constexpr int kShadeThreads = 128;  // rays a block
+
+// The classes of a bounce's rays for its backward (csrc/shade_backward.cu
+// sorts the live rays by class, so that a warp runs one lobe's reverse):
+// the live ones by the lobe the forward chose and, for a diffuse lobe, by
+// whether its shadow ray saw the picked light, the costliest first (the
+// order of the ray list's segments, which the reverse's warps take in
+// turns); and the dead. Where autograd records a bounce, the forward
+// kernels write each ray's class as they choose its lobe (ShadeArgs and
+// FinishArgs o_ray_class); kernels/shade.py ray_classes_plain derives the
+// same classes from the forward's flags.
+enum RayClass : int {
+  kDiffuseVisible = 0,  // a diffuse lobe and its direct light
+  kTransmission,
+  kSpecular,  // a dielectric's reflection from outside
+  kMetal,
+  kSpecularInside,
+  kDiffuseDark,  // a diffuse lobe without a visible light
+  kLiveClasses,
+  kDead = kLiveClasses,  // inactive or missed: the state passes through
+};
+constexpr int kClassCounts = 8;  // a block's class count words: a live class's each, and padding
 
 // A Python float as PyTorch hands it to a float32 kernel: the double
 // rounded to float.
@@ -121,6 +142,7 @@ struct ShadeArgs {
   int32_t* o_light_idx;
   float* o_dist_sq;
   float* o_normal;
+  uint8_t* o_ray_class;  // (R,) the RayClass of each ray, or null (no backward recorded)
   int64_t u_stride;
   int32_t num_rays;
   int32_t lobe_ratio_grad;
@@ -142,6 +164,7 @@ struct FinishArgs {
   float* o_throughput;
   float* o_radiance;
   uint8_t* o_active;
+  uint8_t* o_ray_class;  // shade_bounce's classes, a visible shadow hit's marked; or null
   int32_t num_rays;
   int32_t roulette;  // bounce >= rr_start_bounce
 };

@@ -23,10 +23,12 @@ bit for bit on every output.
 Gradients: ``bounce`` runs a whole bounce (both halves and the NEE
 intersector call between them) as one ``BounceFunction``, a node autograd
 records. Its forward is the two kernels (on CPU tensors the plain
-versions); its backward is ``bounce_backward``, the kernel of
-``csrc/shade_backward.cu`` (a binning pass that sorts the live rays by the
-lobe the forward chose, then one thread a ray: the forward recomputed in
-registers, then its reverse), on CPU tensors ``bounce_backward_plain``
+versions), which there also write each ray's class (``Pending.ray_class``:
+the lobe they chose, a diffuse lobe's shadow hit); its backward is
+``bounce_backward``, the kernels of ``csrc/shade_backward.cu`` (a binning
+pass that sorts the live rays by that class, then one thread a ray: the
+forward recomputed in registers, then its reverse), on CPU tensors
+``bounce_backward_plain``
 (autograd of the plain versions recomputed on the saved inputs). It
 differentiates the rays, the throughput and radiance, the six float
 material fields and the texel atlas; the geometry stays a constant.
@@ -98,6 +100,9 @@ class Pending:
     light_idx: Optional[torch.Tensor] = None  # (R,) int32
     dist_sq: Optional[torch.Tensor] = None  # (R,) float32
     normal: Optional[torch.Tensor] = None  # (R, 3) float32
+    # (R,) uint8, each ray's class for the backward's binning (RAY_CLASSES,
+    # DEAD), which the kernels write where autograd records the bounce
+    ray_class: Optional[torch.Tensor] = None
 
     def tensors(self) -> list:
         """Every field that is set, in field order (the tensors themselves,
@@ -216,15 +221,15 @@ class ShadeArgs(ctypes.Structure):
         "ray_o", "ray_d", "idx", "hit", "active", "throughput", "radiance", "inside",
         "prev_diffuse", "u", "o_ray_o", "o_ray_d", "o_throughput", "o_radiance", "o_inside",
         "o_prev_diffuse", "o_live", "o_nee_mask", "o_shadow_dir", "o_window", "o_light_idx",
-        "o_dist_sq", "o_normal")] + [("u_stride", _I64), ("num_rays", _I32),
-                                     ("lobe_ratio_grad", _I32)]
+        "o_dist_sq", "o_normal", "o_ray_class")] + [("u_stride", _I64), ("num_rays", _I32),
+                                                    ("lobe_ratio_grad", _I32)]
 
 
 class FinishArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "ray_o", "throughput", "radiance", "live", "nee", "shadow_dir", "light_idx",
         "dist_sq", "normal", "idx", "hit", "u_rr", "o_throughput", "o_radiance",
-        "o_active")] + [("num_rays", _I32), ("roulette", _I32)]
+        "o_active", "o_ray_class")] + [("num_rays", _I32), ("roulette", _I32)]
 
 
 def _planes(device, num_rays: int, vecs: int, scalars: int, flags: int):
@@ -292,12 +297,14 @@ def _bool_ptr(name: str, t: torch.Tensor, shape, device) -> int:
 
 
 def kernel_args(scene: Scene, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
-                prev_diffuse, u, lobe_ratio_grad: bool = True):
+                prev_diffuse, u, lobe_ratio_grad: bool = True, classes: bool = False):
     """(the tensors a launch reads, the ``Pending`` it writes, its
     ``ShadeSceneArgs`` and ``ShadeArgs``) of ``shade_bounce``: every input
     checked for dtype, shape, device and contiguity (it raises on any
     other), the outputs allocated on the rays' device. ``u`` is the
-    bounce's (n >= 8, R) float32 uniforms."""
+    bounce's (n >= 8, R) float32 uniforms. With ``classes`` (where autograd
+    records the bounce) the kernel also writes ``Pending.ray_class``; else
+    its pointer is null and nothing more is written."""
     device = ray_o.device
     num_rays = ray_o.shape[0]
     if num_rays >= 2**31:
@@ -320,6 +327,8 @@ def kernel_args(scene: Scene, ray_o, ray_d, idx, hit, active, throughput, radian
     vecs, scalars, masks = _planes(device, num_rays, 4 if lit else 2, 3 if lit else 0,
                                    4 if lit else 3)
     pending = Pending(ray_o_next, ray_d_next, *vecs[:2], *masks[:3])
+    if classes:
+        pending.ray_class = torch.empty(num_rays, dtype=torch.uint8, device=device)
     if lit:
         pending.nee_mask, pending.shadow_dir, pending.normal = masks[3], vecs[2], vecs[3]
         pending.window, pending.dist_sq = scalars[0], scalars[1]
@@ -352,6 +361,9 @@ def finish_args(scene: Scene, pending: Pending, idx, hit, u_rr, roulette: bool):
                          "scene that has lights, and only with one")
     reads = [pending.ray_o, pending.throughput, pending.radiance, pending.live, u_rr]
     ptrs = {}
+    if pending.ray_class is not None:  # shade_bounce's classes: a visible shadow hit's marked
+        _check("pending.ray_class", pending.ray_class, torch.uint8, one, device)
+        ptrs["o_ray_class"] = pending.ray_class.data_ptr()
     if lights:
         for name, t, dtype, shape in (
                 ("nee", pending.nee_mask, torch.bool, one),
@@ -381,14 +393,17 @@ def _cuda_only(name: str, t: torch.Tensor) -> None:
 
 
 def shade_bounce(scene: Scene, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
-                 prev_diffuse, u, lobe_ratio_grad: bool = True) -> Pending:
+                 prev_diffuse, u, lobe_ratio_grad: bool = True, classes: bool = False) -> Pending:
     """``shade_bounce_plain`` by the ``shade_bounce`` kernel, bit for bit;
-    CUDA tensors only."""
+    CUDA tensors only. With ``classes`` it also writes
+    ``Pending.ray_class`` (each ray's lobe; ``finish_bounce`` marks the
+    visible shadow hits), what ``ray_classes_plain`` derives from the
+    flags."""
     _cuda_only("shade_bounce", ray_o)
     # reads stay referenced until the launch: the kernel reads them
     reads, pending, s_args, args = kernel_args(
         scene, ray_o, ray_d, idx, hit, active, throughput, radiance, inside, prev_diffuse, u,
-        lobe_ratio_grad)
+        lobe_ratio_grad, classes)
     if ray_o.shape[0]:  # an empty grid is an invalid launch
         _launch("shade_bounce", ray_o, ctypes.addressof(s_args), ctypes.addressof(args))
     return pending
@@ -397,7 +412,8 @@ def shade_bounce(scene: Scene, ray_o, ray_d, idx, hit, active, throughput, radia
 def finish_bounce(scene: Scene, pending: Pending, idx, hit, u_rr, roulette: bool):
     """``finish_bounce_plain`` by the ``finish_bounce`` kernel, bit for
     bit; CUDA tensors only. Returns the next (ray_o, ray_d, throughput,
-    radiance, inside, prev_diffuse, active)."""
+    radiance, inside, prev_diffuse, active); where ``pending.ray_class`` is
+    set, marks its rays whose shadow ray hit the picked light."""
     _cuda_only("finish_bounce", pending.ray_o)
     # reads stay referenced until the launch: the kernel reads them
     reads, (throughput, radiance, active), s_args, args = finish_args(
@@ -433,9 +449,12 @@ class BounceSaved:
     lobe_ratio_grad: bool
     roulette: bool
     # the forward's next inside and prev_diffuse (Pending's): the lobe it
-    # chose, by which the kernel's binning sorts the rays
+    # chose, from which ray_classes_plain derives each ray's class
     next_inside: torch.Tensor  # (R,) bool
     next_diffuse: torch.Tensor
+    # (R,) uint8: the classes the forward kernels wrote (Pending.ray_class),
+    # by which the kernel's binning sorts the rays; None on CPU tensors
+    ray_class: Optional[torch.Tensor] = None
 
 
 def _differentiable(saved: BounceSaved) -> list:
@@ -481,30 +500,55 @@ def bounce_backward_plain(saved: BounceSaved, grad_outputs, needs=None) -> list:
 
 class BackwardArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
-        "ray_o", "ray_d", "idx", "hit", "active", "throughput", "inside", "prev_diffuse", "u",
-        "shadow_idx", "shadow_hit", "next_inside", "next_diffuse", "g_ray_o", "g_ray_d",
-        "g_throughput", "g_radiance", "o_ray_o", "o_ray_d", "o_throughput", "o_material",
-        "o_texels", "ray_list", "class_counts")] + [
-        ("u_stride", _I64), ("num_rays", _I32), ("num_materials", _I32), ("roulette", _I32),
-        ("lobe_ratio_grad", _I32)]
+        "ray_o", "ray_d", "idx", "throughput", "inside", "prev_diffuse", "u", "shadow_idx",
+        "shadow_hit", "ray_class", "g_ray_o", "g_ray_d", "g_throughput", "g_radiance",
+        "o_ray_o", "o_ray_d", "o_throughput", "o_material", "o_texels", "ray_list",
+        "counters", "zero")] + [
+        ("zero_words", _I64), ("u_stride", _I64), ("num_rays", _I32), ("num_materials", _I32),
+        ("roulette", _I32), ("lobe_ratio_grad", _I32)]
 
 
 # the classes the backward's binning sorts the live rays into, in the order
-# of the ray list's segments (csrc/shade_backward.cu RayClass), and the
-# words of its class counts
+# of the ray list's segments (csrc/shade_common.cuh RayClass), and the dead
+# rays' class
 RAY_CLASSES = ("diffuse visible", "transmission", "specular", "metal", "specular inside",
                "diffuse dark")
-_CLASS_COUNTS = 8
+DEAD = len(RAY_CLASSES)
+# the backward's counters (csrc/shade_backward.cu kCountStride, kDoneWord,
+# kCounterWords): the count of class c at word COUNT_STRIDE * c (c < 8),
+# the reverse's finished blocks at DONE_WORD
+COUNT_STRIDE, DONE_WORD, COUNTER_WORDS = 32, 8 * 32, 8 * 32 + 1
+# each card's counters (device_counters): a graph that captured a call
+# replays with them, so every call on the card shares them
+_COUNTERS: dict = {}
+
+
+def device_counters(device) -> torch.Tensor:
+    """The counters ``bounce_backward`` hands its two kernels on ``device``:
+    made zero once, by an eager call (a capture refuses to make them), and
+    left at zero by every call's reverse; calls on one device run one after
+    another on its streams."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    counters = _COUNTERS.get(index)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bounce_backward: the first call on a card makes its counters "
+                               "and runs eagerly, before any CUDA graph capture")
+        counters = _COUNTERS[index] = torch.zeros(COUNTER_WORDS, dtype=torch.int32,
+                                                  device=torch.device("cuda", index))
+    return counters
 
 
 class BackwardOutputs(typing.NamedTuple):
     """What a backward launch writes: the gradients of the bounce's ray
     origin, direction and throughput; the (M, 9) material and (P, 3) texel
-    sums (float64, from zeros; None where left out), views of ``sums``, one
-    flat tensor; the binning's ray list, (len(RAY_CLASSES), R) int32,
-    segment c's first ``class_counts[c]`` entries the rays of class c; the
-    (8,) int32 class counts; and (M,) float32 zeros, transparent's
-    gradient."""
+    sums (float64, zeroed by the binning; None where left out), views of
+    ``sums``, one flat tensor; the binning's ray list, (len(RAY_CLASSES),
+    R) int32, segment c's first ``class_counts[c]`` entries the rays of
+    class c; the (8,) int32 class counts, a view of the counters (until a
+    reverse sets them to zero); and (M,) float32 zeros (zeroed by the
+    binning), transparent's gradient."""
 
     ray_o: torch.Tensor
     ray_d: torch.Tensor
@@ -517,31 +561,35 @@ class BackwardOutputs(typing.NamedTuple):
     zeros: torch.Tensor
 
 
-def _zeroed(device, material_shape, texel_shape, num_materials: int) -> tuple:
-    """From one zeroed buffer (one fill on the card): the flat float64 sums
+def _scratch(device, material_shape, texel_shape, num_materials: int) -> tuple:
+    """From one buffer (one allocation, no fill): the flat float64 sums
     (None if both shapes are), the material and texel sums as views of it
-    (each None where its shape is), the int32 class counts and
-    ``num_materials`` float32 zeros."""
+    (each None where its shape is), ``num_materials`` float32 for
+    transparent's zero gradient, the buffer, and its 16-byte words that the
+    binning zeroes (the sums and transparent's)."""
     sizes = [0 if shape is None else math.prod(shape) for shape in (material_shape, texel_shape)]
     at = 8 * sum(sizes)
-    buf = torch.zeros(at + 4 * (_CLASS_COUNTS + num_materials), dtype=torch.uint8, device=device)
+    zero_words = -(-(at + 4 * num_materials) // 16)
+    buf = torch.empty(16 * zero_words, dtype=torch.uint8, device=device)
     flat = buf[:at].view(torch.float64)
     views = [None if shape is None else flat[start:start + n].view(shape)
              for shape, start, n in zip((material_shape, texel_shape), (0, sizes[0]), sizes)]
-    counts = buf[at:at + 4 * _CLASS_COUNTS].view(torch.int32)
-    zeros = buf[at + 4 * _CLASS_COUNTS:].view(torch.float32)
-    return (flat if sum(sizes) else None), *views, counts, zeros
+    zeros = buf[at:at + 4 * num_materials].view(torch.float32)
+    return (flat if sum(sizes) else None), *views, zeros, buf, zero_words
 
 
 def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
-                  texels: bool = True):
+                  texels: bool = True, counters: Optional[torch.Tensor] = None):
     """(the tensors a launch reads, the ``BackwardOutputs`` it writes, its
     ``ShadeSceneArgs`` and ``BackwardArgs``) of ``bounce_bin`` and
-    ``bounce_backward``, every input checked as ``kernel_args`` checks.
-    ``grad_outputs`` are the gradients of the next (ray_o, ray_d,
-    throughput, radiance), contiguous. The sums are float64 and start at
-    zero; ``materials`` and ``texels`` False leave them out (null
-    pointers)."""
+    ``bounce_backward``, every input checked as ``kernel_args`` checks (the
+    forward's next flags, the record ``ray_classes_plain`` reads, and its
+    class bytes, which the binning reads). ``grad_outputs`` are the
+    gradients of the next (ray_o, ray_d, throughput, radiance), contiguous.
+    The sums are float64, zeroed by the binning; ``materials`` and
+    ``texels`` False leave them out (null pointers). ``counters`` (int32,
+    COUNTER_WORDS, zero) are the binning's and the reverse's; by default
+    new zeros."""
     device = saved.ray_o.device
     num_rays = saved.ray_o.shape[0]
     if num_rays >= 2**31:
@@ -556,6 +604,10 @@ def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
     flags = {name: _bool_ptr(name, getattr(saved, name), one, device)
              for name in ("hit", "active", "inside", "prev_diffuse", "next_inside",
                           "next_diffuse")}
+    if saved.ray_class is None:
+        raise ValueError("the forward's ray classes expected (BounceSaved.ray_class: "
+                         "shade_bounce with classes, or ray_classes_plain)")
+    _check("ray_class", saved.ray_class, torch.uint8, one, device)
     u = saved.u
     if u.dim() != 2 or u.shape[0] < BOUNCE_UNIFORMS:
         raise ValueError(f"u must be (n >= {BOUNCE_UNIFORMS}, R), got {tuple(u.shape)}")
@@ -582,24 +634,29 @@ def backward_args(saved: BounceSaved, grad_outputs, materials: bool = True,
     tables, s_args = scene_args(scene, device)
     (o_ray_o, o_ray_d, o_throughput), _, _ = _planes(device, num_rays, 3, 0, 0)
     n_mat = scene.materials.albedo.shape[0]
-    sums, o_material, o_texels, counts, zeros = _zeroed(
+    sums, o_material, o_texels, zeros, buf, zero_words = _scratch(
         device, (n_mat, 9) if materials else None,
         tuple(scene.textures.buffer.shape) if texels else None, n_mat)
+    if counters is None:
+        counters = torch.zeros(COUNTER_WORDS, dtype=torch.int32, device=device)
+    _check("counters", counters, torch.int32, (COUNTER_WORDS,), device)
     ray_list = torch.empty((len(RAY_CLASSES), num_rays), dtype=torch.int32, device=device)
     outs = BackwardOutputs(o_ray_o, o_ray_d, o_throughput, o_material, o_texels, sums, ray_list,
-                           counts, zeros)
+                           counters[:DONE_WORD:COUNT_STRIDE], zeros)
     args = BackwardArgs(
         ray_o=saved.ray_o.data_ptr(), ray_d=saved.ray_d.data_ptr(), idx=saved.idx.data_ptr(),
-        throughput=saved.throughput.data_ptr(), u=u.data_ptr(), **flags, **shadow,
+        throughput=saved.throughput.data_ptr(), inside=flags["inside"],
+        prev_diffuse=flags["prev_diffuse"], u=u.data_ptr(), **shadow,
+        ray_class=saved.ray_class.data_ptr(),
         **{name: g.data_ptr() for name, g in zip(names, grad_outputs)},
         o_ray_o=o_ray_o.data_ptr(), o_ray_d=o_ray_d.data_ptr(),
         o_throughput=o_throughput.data_ptr(),
         o_material=None if o_material is None else o_material.data_ptr(),
         o_texels=None if o_texels is None else o_texels.data_ptr(),
-        ray_list=ray_list.data_ptr(), class_counts=counts.data_ptr(),
-        u_stride=u.shape[1], num_rays=num_rays, num_materials=n_mat,
+        ray_list=ray_list.data_ptr(), counters=counters.data_ptr(), zero=buf.data_ptr(),
+        zero_words=zero_words, u_stride=u.shape[1], num_rays=num_rays, num_materials=n_mat,
         roulette=int(bool(saved.roulette)), lobe_ratio_grad=int(bool(saved.lobe_ratio_grad)))
-    return reads + list(grad_outputs[:4]) + tables, outs, s_args, args
+    return reads + [saved.ray_class, *grad_outputs[:4], *tables], outs, s_args, args
 
 
 def material_grads(sums: Optional[torch.Tensor], scene: Scene, needs, zeros=None) -> list:
@@ -618,15 +675,14 @@ def material_grads(sums: Optional[torch.Tensor], scene: Scene, needs, zeros=None
     return out
 
 
-def bounce_bin_plain(saved: BounceSaved) -> list:
-    """The binning's classes in plain PyTorch: for each of RAY_CLASSES the
-    ids of its live rays, ascending (int64). A live lane's class is the
-    lobe its forward chose (``next_diffuse``: diffuse; ``next_inside`` !=
-    ``inside``: transmission; a material with extinction: metal; else a
-    specular reflection, from inside or not) and, for a diffuse lobe,
-    whether its shadow ray hit the light it picked."""
-    if saved.ray_o.is_cuda:
-        COUNTS.shade_bin_plain_cuda += 1
+def ray_classes_plain(saved: BounceSaved) -> torch.Tensor:
+    """Each ray's class (uint8: an index of RAY_CLASSES, or DEAD) in plain
+    PyTorch, from the saved flags: a live lane's class is the lobe its
+    forward chose (``next_diffuse``: diffuse; ``next_inside`` != ``inside``:
+    transmission; a material with extinction: metal; else a specular
+    reflection, from inside or not) and, for a diffuse lobe, whether its
+    shadow ray hit the light it picked. What the forward kernels write
+    (``shade_bounce`` with ``classes``)."""
     scene, live = saved.scene, saved.active & saved.hit
     safe = saved.idx.clamp_min(0).long()
     if scene.shade_table is not None:
@@ -645,25 +701,44 @@ def bounce_bin_plain(saved: BounceSaved) -> list:
         visible = torch.zeros_like(live)
     masks = (diffuse & visible, trans, spec & ~saved.inside, metal, spec & saved.inside,
              diffuse & ~visible)
-    return [torch.nonzero(m).flatten() for m in masks]
+    classes = torch.full(live.shape, DEAD, dtype=torch.uint8, device=live.device)
+    for c, mask in enumerate(masks):
+        classes.masked_fill_(mask, c)
+    return classes
 
 
-def _backward_launch(names, saved: BounceSaved, grads, materials: bool, texels: bool):
+def bounce_bin_plain(saved: BounceSaved) -> list:
+    """The binning's classes in plain PyTorch: for each of RAY_CLASSES the
+    ids of its live rays, ascending (int64), by ``ray_classes_plain``."""
+    if saved.ray_o.is_cuda:
+        COUNTS.shade_bin_plain_cuda += 1
+    classes = ray_classes_plain(saved)
+    return [torch.nonzero(classes == c).flatten() for c in range(len(RAY_CLASSES))]
+
+
+def _backward_launch(names, saved: BounceSaved, grads, materials: bool, texels: bool,
+                     counters=None):
     """Launch the entry points ``names`` on one ``backward_args``; returns
     its ``BackwardOutputs``."""
     # reads stay referenced until the launches: the kernels read them
-    reads, outs, s_args, args = backward_args(saved, grads, materials, texels)
-    if saved.ray_o.shape[0]:  # an empty grid is an invalid launch
-        for name in names:
+    reads, outs, s_args, args = backward_args(saved, grads, materials, texels, counters)
+    try:
+        for name in names:  # the binning zeroes the sums even with no ray
             _launch(name, saved.ray_o, ctypes.addressof(s_args), ctypes.addressof(args))
+    except RuntimeError:
+        if counters is not None:  # a binning without its reverse leaves them counting
+            counters.zero_()
+        raise
     return outs
 
 
 def bounce_bin(saved: BounceSaved, grad_outputs) -> BackwardOutputs:
-    """The backward's binning alone (its kernel, ``bounce_bin``): the ray
-    list and class counts (each segment's order is the atomics' and the
-    blocks'; ``bounce_bin_plain`` gives its rays ascending) and the dead
-    lanes' gradients (the live lanes' left unwritten); CUDA tensors only."""
+    """The backward's binning alone (its kernel, ``bounce_bin``, on new
+    zero counters): the ray list and class counts (each segment's order is
+    the atomics' and the blocks'; ``bounce_bin_plain`` gives its rays
+    ascending) and the dead lanes' gradients (the live lanes' left
+    unwritten), from the classes the forward wrote (``saved.ray_class``);
+    CUDA tensors only."""
     _cuda_only("bounce_bin", saved.ray_o)
     return _backward_launch(("bounce_bin",), saved, [g.contiguous() for g in grad_outputs[:4]],
                             False, False)
@@ -679,7 +754,7 @@ def bounce_backward(saved: BounceSaved, grad_outputs, needs=None) -> list:
         needs = [True] * 11
     grads = [g.contiguous() for g in grad_outputs[:4]]
     outs = _backward_launch(("bounce_bin", "bounce_backward"), saved, grads, any(needs[4:9]),
-                            needs[10])
+                            needs[10], device_counters(saved.ray_o.device))
     # both tables rounded to float32 by one conversion
     flat = None if outs.sums is None else outs.sums.to(torch.float32)
     n = 0 if outs.material is None else outs.material.numel()
@@ -722,12 +797,12 @@ class BounceFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, static, ray_o, ray_d, throughput, radiance, *fields):
         scene, trace_fn, idx, hit, active, inside, prev_diffuse, u, redraw, lobe, roulette = static
-        if ray_o.is_cuda:
-            shade_fn, finish_fn = shade_bounce, finish_bounce
+        state = (ray_o, ray_d, idx, hit, active, throughput, radiance, inside, prev_diffuse, u,
+                 lobe)
+        if ray_o.is_cuda:  # the kernels also write the classes the binning sorts by
+            pending, finish_fn = shade_bounce(scene, *state, classes=True), finish_bounce
         else:
-            shade_fn, finish_fn = shade_bounce_plain, finish_bounce_plain
-        pending = shade_fn(scene, ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
-                           prev_diffuse, u, lobe)
+            pending, finish_fn = shade_bounce_plain(scene, *state), finish_bounce_plain
         shadow_idx = shadow_hit = None
         if scene.has_lights:
             _, shadow_idx, shadow_hit = trace_fn(pending.ray_o, pending.shadow_dir,
@@ -735,18 +810,20 @@ class BounceFunction(torch.autograd.Function):
         out = finish_fn(scene, pending, shadow_idx, shadow_hit, u[BOUNCE_UNIFORMS - 1], roulette)
         # the backward draws u again (redraw) rather than keep it; the next
         # inside and prev_diffuse flags (out[4:6], the next bounce's inputs)
-        # record the lobe each ray took
+        # record the lobe each ray took, and on the card the kernels' class
+        # bytes the class the binning sorts it by
         ctx.save_for_backward(ray_o, ray_d, idx, hit, active, throughput, radiance, inside,
-                              prev_diffuse, shadow_idx, shadow_hit, *out[4:6])
+                              prev_diffuse, shadow_idx, shadow_hit, *out[4:6],
+                              pending.ray_class)
         ctx.scene, ctx.flags, ctx.redraw = scene, (lobe, roulette), redraw
         ctx.mark_non_differentiable(*out[4:])
         return out
 
     @staticmethod
     def backward(ctx, g_ray_o, g_ray_d, g_throughput, g_radiance, *_):
-        *state, shadow_idx, shadow_hit, next_inside, next_diffuse = ctx.saved_tensors
+        *state, shadow_idx, shadow_hit, next_inside, next_diffuse, classes = ctx.saved_tensors
         saved = BounceSaved(ctx.scene, *state, ctx.redraw(), shadow_idx, shadow_hit, *ctx.flags,
-                            next_inside, next_diffuse)
+                            next_inside, next_diffuse, classes)
         fn = bounce_backward if g_ray_o.is_cuda else bounce_backward_plain
         grads = fn(saved, (g_ray_o, g_ray_d, g_throughput, g_radiance), ctx.needs_input_grad[1:])
         return (None, *grads)

@@ -88,24 +88,37 @@ STATE = ("ray_o", "ray_d", "idx", "hit", "active", "throughput", "radiance", "in
 
 
 @torch.no_grad()
-def next_flags(scene, inp, lobe_ratio_grad: bool) -> tuple:
-    """The forward's next (inside, prev_diffuse) of a bounce's inputs: the
-    shade_bounce kernel's on the card, the plain version's on the CPU."""
-    forward = shade.shade_bounce if inp["ray_o"].is_cuda else shade.shade_bounce_plain
-    pending = forward(scene, *(inp[k] for k in STATE), lobe_ratio_grad)
-    return pending.inside, pending.prev_diffuse
+def forward_record(scene, inp, lobe_ratio_grad: bool) -> tuple:
+    """The forward's next (inside, prev_diffuse) and ray classes of a
+    bounce's inputs, its shadow hits ``inp``'s: on the card the two
+    kernels' (the classes they write where autograd records the bounce),
+    on the CPU the plain version's flags and ``ray_classes_plain``."""
+    lit = scene.has_lights
+    if inp["ray_o"].is_cuda:
+        pending = shade.shade_bounce(scene, *(inp[k] for k in STATE), lobe_ratio_grad,
+                                     classes=True)
+        shade.finish_bounce(scene, pending, inp["shadow_idx"] if lit else None,
+                            inp["shadow_hit"] if lit else None, inp["u"][8], True)
+        return pending.inside, pending.prev_diffuse, pending.ray_class
+    pending = shade.shade_bounce_plain(scene, *(inp[k] for k in STATE), lobe_ratio_grad)
+    saved = shade.BounceSaved(
+        scene, *(inp[k] for k in STATE), inp["shadow_idx"] if lit else None,
+        inp["shadow_hit"] if lit else None, lobe_ratio_grad, True, pending.inside,
+        pending.prev_diffuse)
+    return pending.inside, pending.prev_diffuse, shade.ray_classes_plain(saved)
 
 
 def saved_bounce(scene, inp, lobe_ratio_grad: bool, roulette: bool,
-                 flags=None) -> shade.BounceSaved:
-    """The saved inputs of a bounce as ``BounceFunction`` keeps them; the
-    forward's next flags computed unless given."""
+                 record=None) -> shade.BounceSaved:
+    """The saved inputs of a bounce as ``BounceFunction`` keeps them: the
+    forward's next flags and ray classes (``forward_record``), computed
+    unless given."""
     lit = scene.has_lights
-    if flags is None:
-        flags = next_flags(scene, inp, lobe_ratio_grad)
+    if record is None:
+        record = forward_record(scene, inp, lobe_ratio_grad)
     return shade.BounceSaved(
         scene, *(inp[k] for k in STATE), inp["shadow_idx"] if lit else None,
-        inp["shadow_hit"] if lit else None, lobe_ratio_grad, roulette, *flags)
+        inp["shadow_hit"] if lit else None, lobe_ratio_grad, roulette, *record)
 
 
 def grad_outputs(n: int, seed: int, device="cpu") -> list:
@@ -486,28 +499,36 @@ def test_backward_args_point_at_the_tensors(edge_scenes):
     gouts = grad_outputs(64, seed=2)
     reads, outs, s_args, args = shade.backward_args(saved, gouts)
     assert (args.ray_o, args.u, args.shadow_idx, args.g_radiance, args.o_throughput,
-            args.next_inside, args.next_diffuse) == (
+            args.ray_class, args.inside) == (
         inp["ray_o"].data_ptr(), inp["u"].data_ptr(), inp["shadow_idx"].data_ptr(),
-        gouts[3].data_ptr(), outs.throughput.data_ptr(), saved.next_inside.data_ptr(),
-        saved.next_diffuse.data_ptr())
+        gouts[3].data_ptr(), outs.throughput.data_ptr(), saved.ray_class.data_ptr(),
+        inp["inside"].data_ptr())
     n_mat = scene.materials.albedo.shape[0]
     assert (args.num_rays, args.u_stride, args.roulette, args.lobe_ratio_grad,
             args.num_materials) == (64, 64, 0, 1, n_mat)
     sums, tex = outs.material, outs.texels
-    assert sums.shape == (n_mat, 9) and not sums.any()
+    assert sums.shape == (n_mat, 9)
     assert sums.dtype == tex.dtype == torch.float64
     assert tex.shape == scene.textures.buffer.shape and args.o_texels == tex.data_ptr()
     assert args.o_material == sums.data_ptr() == outs.sums.data_ptr()
     assert outs.sums.numel() == sums.numel() + tex.numel()  # one flat table: one conversion
+    # the binning zeroes the sums and transparent's zeros (no fill of their own)
+    zeroed = (args.zero, args.zero + 16 * args.zero_words)
+    assert args.zero == outs.sums.data_ptr() and outs.zeros.numel() == n_mat
+    assert zeroed[0] <= outs.zeros.data_ptr() and outs.zeros.data_ptr() + 4 * n_mat <= zeroed[1]
     assert outs.ray_list.shape == (len(shade.RAY_CLASSES), 64)
     assert outs.ray_list.dtype == outs.class_counts.dtype == torch.int32
-    assert not outs.class_counts.any() and args.class_counts == outs.class_counts.data_ptr()
+    assert outs.class_counts.shape == (8,) and not outs.class_counts.any()
+    assert args.counters == outs.class_counts.data_ptr()  # new zero counters by default
+    counters = torch.zeros(shade.COUNTER_WORDS, dtype=torch.int32)
+    _, outs, _, args = shade.backward_args(saved, gouts, counters=counters)
+    assert args.counters == counters.data_ptr() == outs.class_counts.data_ptr()
     assert args.ray_list == outs.ray_list.data_ptr()
     assert s_args.has_lights == 1 and s_args.table == scene.shade_table.data_ptr()
     _, outs, _, args = shade.backward_args(saved, gouts, materials=False, texels=False)
     assert outs.material is None and outs.texels is None
-    assert args.o_material is None and not args.o_texels and not outs.class_counts.any()
-    assert outs.sums is None
+    assert args.o_material is None and not args.o_texels
+    assert outs.sums is None and args.zero_words == -(-4 * n_mat // 16)
     dark = edge_scenes[0]
     inp = bounce_inputs(dark, seed=1, n=16)
     _, _, s_args, args = shade.backward_args(saved_bounce(dark, inp, False, True),
@@ -518,12 +539,13 @@ def test_backward_args_point_at_the_tensors(edge_scenes):
 @pytest.mark.parametrize("fault", ["dtype", "shape", "device", "contiguity", "uniform rows",
                                    "grad shape", "no shadow hits", "shadow hits without lights",
                                    "grad outputs missing", "requires grad under grad mode",
-                                   "no next flags", "next flags' shape"])
+                                   "no next flags", "next flags' shape", "no ray classes",
+                                   "ray classes' dtype"])
 def test_backward_args_refuse(edge_scenes, fault):
     scene = edge_scenes[1]
     inp = bounce_inputs(scene, seed=2, n=32)
     gouts = grad_outputs(32, seed=4)
-    flags = next_flags(scene, inp, True)
+    record = forward_record(scene, inp, True)
     if fault == "dtype":
         inp["ray_d"] = inp["ray_d"].double()
     elif fault == "shape":
@@ -544,10 +566,14 @@ def test_backward_args_refuse(edge_scenes, fault):
     elif fault == "requires grad under grad mode":
         inp["throughput"] = inp["throughput"].requires_grad_(True)
     elif fault == "next flags' shape":
-        flags = (flags[0][:16], flags[1])
-    saved = saved_bounce(scene, inp, True, True, flags)
+        record = (record[0][:16], *record[1:])
+    saved = saved_bounce(scene, inp, True, True, record)
     if fault == "no next flags":
         saved.next_inside = None
+    if fault == "no ray classes":
+        saved.ray_class = None
+    if fault == "ray classes' dtype":
+        saved.ray_class = saved.ray_class.int()
     if fault == "no shadow hits":
         saved.shadow_idx = saved.shadow_hit = None
     if fault == "shadow hits without lights":
@@ -568,39 +594,76 @@ def test_bounce_backward_raises_on_cpu_tensors(edge_scenes):
 # --- the kernel's arithmetic, built for the host ----------------------------
 
 
+def host_library(tmp_path_factory, source: str, names) -> dict:
+    """The entry points ``names`` of ``csrc/<source>`` built for the host
+    with g++ (its ``#ifndef __CUDACC__`` part), each taking two pointers."""
+    stem = source.split(".")[0]
+    lib = tmp_path_factory.mktemp(stem) / f"lib{stem}_host.so"
+    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
+                    "-x", "c++", str(build.CSRC / source), "-o", str(lib)],
+                   check=True, capture_output=True)
+    fns = {}
+    for name in names:
+        fns[name] = getattr(ctypes.CDLL(str(lib)), name)
+        fns[name].argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fns[name].restype = ctypes.c_int
+    return fns
+
+
 @pytest.fixture(scope="module")
 def host_backward(tmp_path_factory):
     """``csrc/shade_backward.cu``'s per-ray code built with g++ (its host
     entry point, ``bounce_backward_host``: the rays one after another, the
     sums in ray order), and a function that runs it on a ``BounceSaved``
     of CPU tensors as ``bounce_backward`` runs the kernel."""
-    lib = tmp_path_factory.mktemp("shade_backward") / "libshade_backward_host.so"
-    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-x", "c++", str(build.CSRC / "shade_backward.cu"), "-o", str(lib)],
-                   check=True, capture_output=True)
-    fns = {}
-    for name in ("bounce_backward_host", "bounce_bin_host"):
-        fns[name] = getattr(ctypes.CDLL(str(lib)), name)
-        fns[name].argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fns[name].restype = ctypes.c_int
+    fns = host_library(tmp_path_factory, "shade_backward.cu",
+                       ("bounce_backward_host", "bounce_bin_host", "bounce_counter_layout"))
+    fns["bounce_counter_layout"].argtypes = [ctypes.c_void_p]
 
-    def run(saved, gouts):
-        reads, outs, s_args, args = shade.backward_args(saved, gouts)
+    def run(saved, gouts, counters=None):
+        reads, outs, s_args, args = shade.backward_args(saved, gouts, counters=counters)
         assert fns["bounce_backward_host"](ctypes.addressof(s_args), ctypes.addressof(args)) == 0
         return [outs.ray_o, outs.ray_d, outs.throughput, gouts[3],
                 *shade.material_grads(outs.material, saved.scene, [True] * 6),
                 outs.texels.to(torch.float32)]
 
-    def binning(saved, gouts):
+    def binning(saved, gouts, counters=None):
         """The binning alone: its ``BackwardOutputs`` (the live lanes'
         gradients left NaN)."""
-        reads, outs, s_args, args = shade.backward_args(saved, gouts)
+        reads, outs, s_args, args = shade.backward_args(saved, gouts, counters=counters)
         for t in outs[:3]:
             t.fill_(float("nan"))
         assert fns["bounce_bin_host"](ctypes.addressof(s_args), ctypes.addressof(args)) == 0
         return outs
 
     run.binning = binning
+    run.fns = fns
+    return run
+
+
+@pytest.fixture(scope="module")
+def host_forward(tmp_path_factory):
+    """``csrc/shade_bounce.cu``'s two kernels built with g++ (their host
+    entry points: the rays one after another), and a function that runs
+    them on a bounce's CPU inputs as ``shade_bounce`` and ``finish_bounce``
+    run the kernels (their shadow hits ``inp``'s); returns the ``Pending``
+    state and the next (throughput, radiance, active)."""
+    fns = host_library(tmp_path_factory, "shade_bounce.cu",
+                       ("shade_bounce_host", "finish_bounce_host"))
+
+    def run(scene, inp, lobe_ratio_grad: bool, classes: bool):
+        reads, pending, s_args, args = shade.kernel_args(
+            scene, *(inp[k] for k in STATE), lobe_ratio_grad, classes)
+        assert (args.o_ray_class is None) != classes
+        assert fns["shade_bounce_host"](ctypes.addressof(s_args), ctypes.addressof(args)) == 0
+        lit = scene.has_lights
+        reads, outs, s_args, f_args = shade.finish_args(
+            scene, pending, inp["shadow_idx"] if lit else None,
+            inp["shadow_hit"] if lit else None, inp["u"][8], True)
+        assert (f_args.o_ray_class is None) != classes
+        assert fns["finish_bounce_host"](ctypes.addressof(s_args), ctypes.addressof(f_args)) == 0
+        return pending, outs
+
     return run
 
 
@@ -683,6 +746,83 @@ def test_binning_lists_every_ray_once_in_the_bounds_class(edge_scenes, textured_
         assert torch.equal(_bits(o[dead]), _bits(g[dead]))
         assert torch.isnan(o[live]).all()
     assert sum(counts) > 0 and sum(c > 0 for c in counts) >= (3 if lights else 2)
+
+
+def check_binning(label: str, outs, saved: shade.BounceSaved, gouts) -> list:
+    """A binning's outputs against ``bounce_bin_plain``: each class's
+    segment its rays (as a set: the card's blocks place their parts in the
+    order of their atomics); the counts beyond the classes zero; the dead
+    lanes' gradients passed through bit for bit. Returns the counts."""
+    want = shade.bounce_bin_plain(saved)
+    counts = outs.class_counts.tolist()
+    for c, (name, w) in enumerate(zip(shade.RAY_CLASSES, want)):
+        got = outs.ray_list[c, :counts[c]].long().sort().values
+        assert counts[c] == w.numel() and torch.equal(got.cpu(), w.cpu()), f"{label}: {name}"
+    assert not any(counts[len(shade.RAY_CLASSES):]), label
+    dead = ~(saved.active & saved.hit)
+    for o, g in zip(outs[:3], gouts[:3]):
+        assert torch.equal(_bits(o[dead]), _bits(g[dead])), f"{label}: a dead lane's gradient"
+    return counts[:len(shade.RAY_CLASSES)]
+
+
+@pytest.mark.parametrize("lights,table", [(0, True), (1, False), (2, True), ("demo", True),
+                                          ("demo", False)])
+@pytest.mark.parametrize("lobe_ratio_grad", [True, False])
+def test_forward_writes_the_ray_classes(edge_scenes, textured_demo, host_forward, lights, table,
+                                        lobe_ratio_grad):
+    """The forward kernels' class bytes (their host build) equal
+    ``ray_classes_plain`` of the saved state their next flags give; without
+    a recorded backward their pointer is null and every other output is the
+    same, bit for bit."""
+    scene = textured_demo if lights == "demo" else edge_scenes[lights]
+    if not table:
+        scene = scene.replace(shade_table=None)
+    n = 2000 if lights == "demo" else N
+    inp = bounce_inputs(scene, seed=25, n=n)
+    pending, outs = host_forward(scene, inp, lobe_ratio_grad, True)
+    lit = scene.has_lights
+    saved = shade.BounceSaved(
+        scene, *(inp[k] for k in STATE), inp["shadow_idx"] if lit else None,
+        inp["shadow_hit"] if lit else None, lobe_ratio_grad, True, pending.inside,
+        pending.prev_diffuse)
+    want = shade.ray_classes_plain(saved)
+    assert pending.ray_class.dtype == torch.uint8
+    assert torch.equal(pending.ray_class, want)
+    seen = set(torch.unique(want).tolist())
+    assert shade.DEAD in seen and len(seen) >= (4 if lit else 3)
+    plain_pending, plain_outs = host_forward(scene, inp, lobe_ratio_grad, False)
+    assert plain_pending.ray_class is None
+    for g, w in zip([*pending.tensors()[:-1], *outs], [*plain_pending.tensors(), *plain_outs]):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def test_counters_layout_is_the_kernels(host_backward):
+    """kernels/shade.py's counter words are csrc/shade_backward.cu's."""
+    layout = (ctypes.c_int32 * 3)()
+    assert host_backward.fns["bounce_counter_layout"](ctypes.addressof(layout)) == 0
+    assert tuple(layout) == (shade.COUNT_STRIDE, shade.DONE_WORD, shade.COUNTER_WORDS)
+
+
+def test_backward_leaves_its_counters_at_zero(edge_scenes, host_backward):
+    """The binning adds each class's count to the counters and the reverse
+    leaves them at zero (the host build's emulation of its last block), so
+    one counters tensor serves call after call with the same results; the
+    binning alone leaves them counting."""
+    scene = edge_scenes[2]
+    inp = bounce_inputs(scene, seed=27, n=N)
+    saved = saved_bounce(scene, inp, True, True)
+    gouts = grad_outputs(N, seed=28)
+    counters = torch.zeros(shade.COUNTER_WORDS, dtype=torch.int32)
+    first = host_backward(saved, gouts, counters)
+    assert not counters.any()
+    again = host_backward(saved, gouts, counters)
+    assert not counters.any()
+    for g, w in zip(again, first):
+        assert torch.equal(_bits(g), _bits(w))
+    outs = host_backward.binning(saved, gouts, counters)
+    want = [r.numel() for r in shade.bounce_bin_plain(saved)]
+    assert outs.class_counts.tolist()[:len(want)] == want and counters.any()
+    assert counters[shade.DONE_WORD] == 0 and counters.sum() == sum(want)
 
 
 def _far_small_triangle_scene():
@@ -794,11 +934,13 @@ def check_kernel_against_plain(device, scenes, n: int = 2001) -> int:
                 inp = bounce_inputs(s, seed, n, device)
                 saved = saved_bounce(s, inp, lobe, roulette)
                 gouts = grad_outputs(n, seed + 50, device)
+                label = f"{name} {'table' if table else 'arrays'} lobe {lobe} rr {roulette}"
+                assert torch.equal(saved.ray_class, shade.ray_classes_plain(saved)), label
+                check_binning(label, shade.bounce_bin(saved, gouts), saved, gouts)
                 got = shade.bounce_backward(saved, gouts)
                 want = plain_in_slices(saved, gouts)
                 torch.cuda.synchronize()
-                check_backward(f"{name} {'table' if table else 'arrays'} lobe {lobe} rr "
-                               f"{roulette}", got, want)
+                check_backward(label, got, want)
                 cases += 1
     return cases
 
@@ -818,7 +960,7 @@ def test_cuda_bounce_backward_equals_plain():
     before = (ki.COUNTS.shade_backward_kernel, ki.COUNTS.shade_bin_kernel)
     cases = check_kernel_against_plain(dev, scenes)
     assert cases == 24 and ki.COUNTS.shade_backward_kernel - before[0] == cases
-    assert ki.COUNTS.shade_bin_kernel - before[1] == cases
+    assert ki.COUNTS.shade_bin_kernel - before[1] == 2 * cases  # the binning alone, then both
     check_kernel_against_plain(dev, {"edge2": scenes["edge2"]}, n=1)
     scene, inp = _grazing_miss_scene(dev)
     saved = saved_bounce(scene, inp, True, True)
@@ -828,3 +970,41 @@ def test_cuda_bounce_backward_equals_plain():
     torch.cuda.synchronize()
     assert torch.isnan(want[1][0]).any() and torch.isfinite(got[1]).all()
     assert torch.equal(got[1][0], gouts[1][0])
+
+
+@pytest.mark.cuda
+def test_cuda_forward_writes_the_ray_classes():
+    """The forward kernels' class bytes (``shade_bounce`` with ``classes``,
+    then ``finish_bounce``) equal ``ray_classes_plain`` of the saved state
+    on the edge scenes and the demo, both layouts; without them every other
+    output is the same, bit for bit; and the binning of an empty call
+    zeroes the sums all the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda", 0)
+    scenes = {f"edge{k}": prepare_scene(edge_scene(procedural, ptexture, k), dev)
+              for k in (0, 1, 2)}
+    scenes["demo"] = prepare_scene(procedural.material_demo_scene(textured=True), dev)
+    for name, scene in scenes.items():
+        for table in (True, False):
+            s = scene if table else scene.replace(shade_table=None)
+            lit = s.has_lights
+            inp = bounce_inputs(s, 7, 2001, dev)
+            outs = []
+            for classes in (True, False):
+                pending = shade.shade_bounce(s, *(inp[k] for k in STATE), True, classes=classes)
+                nxt = shade.finish_bounce(s, pending, inp["shadow_idx"] if lit else None,
+                                          inp["shadow_hit"] if lit else None, inp["u"][8], True)
+                outs.append((pending, nxt))
+            (pending, nxt), (bare, bare_nxt) = outs
+            saved = saved_bounce(s, inp, True, True, (pending.inside, pending.prev_diffuse, None))
+            assert bare.ray_class is None
+            assert torch.equal(pending.ray_class, shade.ray_classes_plain(saved)), name
+            for g, w in zip([*pending.tensors()[:-1], *nxt], [*bare.tensors(), *bare_nxt]):
+                assert torch.equal(_bits(g), _bits(w)), name
+    saved = saved_bounce(scenes["demo"], bounce_inputs(scenes["demo"], 8, 0, dev), True, True)
+    got = shade.bounce_backward(saved, grad_outputs(0, 9, dev))
+    torch.cuda.synchronize()
+    assert got[10].shape == scenes["demo"].textures.buffer.shape
+    assert not any(g.any() for g in got[4:11])
+    assert not shade.device_counters(dev).any()  # every reverse left them at zero

@@ -365,6 +365,22 @@ def test_cuda_tri_consts_kernel_matches_plain_version(scene):
 
 
 @pytest.mark.cuda
+def test_cuda_tri_consts_kernel_at_block_edges():
+    """The table kernel (blocks of 128 triangles staged through shared
+    memory) against ``tri_consts_plain`` bit for bit at counts about its
+    block's and from a source 36 bytes off a 16-byte boundary, which it
+    reads a float at a time."""
+    _cuda_or_skip()
+    r = np.random.default_rng(11)
+    rows = torch.from_numpy(r.normal(size=(1201, 9)).astype(F32)).cuda()
+    for num in (1, 127, 128, 129, 255, 1000, 1200):
+        for label, src in (("aligned", rows[:num]), ("unaligned", rows[1:num + 1])):
+            assert (src.data_ptr() % 16 == 0) == (label == "aligned")
+            assert torch.equal(ki.tri_consts(src).view(torch.int32),
+                               tri_consts_plain(src).view(torch.int32)), (num, label)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("inner,max_depth", [(20, 19), (40, 30), (63, 62), (70, 62)],
                          ids=["depth21", "depth32-overflowed", "depth64", "depth64-overflowed"])
 def test_cuda_kd_kernel_at_its_stack_depths(inner, max_depth):
