@@ -291,11 +291,22 @@ raising on failure:
    of the hero under torch.profiler, the kernels the card ran held to the
    wrappers' launches (``device_launches``, ``check_only`` with grad), the
    backward kernel's records and device time, the forward's and the
-   backward's device time and top kernels; grad-vs-FD on the card through
-   the flat kernel and the shading kernels, the backward kernel for the
-   autodiff side (Cornell albedo, the silhouette-free camera view) with
-   tests/test_estimator.py's tolerances, the autodiff side under
-   torch.profiler, and the card's gradient against the port's on the CPU;
+   backward's device time and top kernels; grad-vs-FD on the card
+   (``grad_vs_fd``; Cornell albedo at 16x16 and at BASELINE config 0,
+   64x64 @ 16 spp with 4 bounces and no roulette, the silhouette-free
+   camera view) with tests/test_estimator.py's tolerances: the autodiff
+   side eager through the shading kernels and the backward's two, the
+   finite differences through one CUDA graph of f (an eager call, a
+   capture, 2n - 1 replays), run again under torch.profiler, where the
+   kernels the card ran are the eager launches plus the replays' (the
+   intersector, the sampler and both shading kernels 2n times one
+   evaluation's launches, no backward kernel, no plain version), and each
+   replayed quotient equal bit for bit to the eager loop's (the harness
+   with no graph); config 0's finite differences timed in turns, eager loop
+   against the graph (3 pairs: wall and per-evaluation seconds, the
+   capture's seconds, instantiation and pool), and its autodiff side; the
+   autodiff side under torch.profiler, the card's gradient against the
+   port's on the CPU, and the card test of tests/test_torch_fd.py;
 22. sampler: the Threefry-2x32 sampler kernel (csrc/threefry_uniforms.cu,
    ``rng.uniforms`` on CUDA ids) against its plain version
    (``rng.uniforms_plain``) by SHA-256 at the main path's shapes: the
@@ -1312,21 +1323,184 @@ def floor_view():
     return b.build()
 
 
-def grad_checks_on_card(device, counts):
-    """Grad-vs-FD on the card through the kernels (TestGradVsFD's Cornell
-    albedo, TestGradVsFDCamera's pose, with their tolerances): the finite
-    differences through the shading kernels, the autodiff side through them
-    and the backward kernel, which the profiler counts; then the card's
+@contextlib.contextmanager
+def fd_steps():
+    """The graph steps ``diff.fd.central_difference`` makes in the block, in
+    a list (its ``GraphStep`` replaced by a subclass that appends each);
+    the list is emptied on exit, so the steps' graphs and pools die then."""
+    from isaklm_raytracer_tpu_torch.diff import fd
+
+    made = []
+    base = fd.GraphStep
+
+    class Kept(base):
+        def __init__(self, device):
+            super().__init__(device)
+            made.append(self)
+
+    fd.GraphStep = Kept
+    try:
+        yield made
+    finally:
+        fd.GraphStep = base
+        made.clear()
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    """Two float32 arrays equal bit for bit."""
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+@functools.cache
+def eager_fd():
+    """The harness with no graph, ``f`` called eagerly twice a coordinate
+    (tests/test_torch_fd.py's ``eager_central_difference``)."""
+    return test_module("test_torch_fd").eager_central_difference
+
+
+def grad_vs_fd(label, kernel, f, x, h, rtol, atol, counts, backward) -> dict:
+    """``check_grad_vs_fd(f, x)`` on the card with its tolerances: the
+    autodiff side eager, through the backward kernel (``backward``
+    launches of it and of the binning); the finite differences through one
+    CUDA graph of ``f``: its step called 2n times, replayed 2n - 1 (the
+    capturing call replays too). Then the finite differences again under
+    torch.profiler (``device_launches``: the kernels the card ran are the
+    wrappers' eager launches plus the replays'), where ``kernel``, the
+    sampler and both shading kernels ran 2n times the capture's launches
+    (one evaluation's, so every replay ran them), neither backward kernel
+    ran and no plain version ran on CUDA; and once more as the eager loop,
+    whose quotient both replayed ones equal bit for bit. Returns the
+    autodiff and FD gradients, the eager loop's quotient and its seconds."""
+    from isaklm_raytracer_tpu_torch.diff import central_difference, check_grad_vs_fd
+    from isaklm_raytracer_tpu_torch.integrator.render import GraphStep
+
+    evaluations = 2 * x.numel()
+    zero_counts(counts)
+    with fd_steps() as steps:
+        auto, fd = check_grad_vs_fd(f, x, h=h, rtol=rtol, atol=atol)
+        (step,) = steps
+        calls, replays = step.calls, step.replays
+    n = {k: getattr(counts, f"{k}_kernel") for k in (kernel, *GRAD_SHADE_KERNELS)}
+    log(f"grad vs FD on the card, {label} {tuple(auto.shape)}: max |auto - fd| "
+        f"{np.abs(auto - fd).max():.3e} (rtol {rtol:g}, atol {atol:g}); auto "
+        f"{np.round(auto, 5).reshape(-1).tolist()} fd {np.round(fd, 5).reshape(-1).tolist()}; "
+        f"the FD step called {calls} times, replayed {replays}; launches {n} (the wrappers': "
+        f"the autodiff side, the FD side's eager call and capture), plain calls on CUDA "
+        f"{counts.plain_cuda()}")
+    if not np.abs(auto).max() > 0:
+        raise RuntimeError(f"grad vs FD {label}: the gradient is zero")
+    if (not n[kernel] or counts.plain_cuda() or n["shade"] != n["shade_finish"]
+            or n["shade_backward"] != backward or n["shade_bin"] != backward):
+        raise RuntimeError(f"grad vs FD {label} did not go through the kernels alone, or its "
+                           f"autodiff side not through the backward kernel {backward} times")
+    if (calls, replays) != (evaluations, evaluations - 1):
+        raise RuntimeError(f"grad vs FD {label}: the FD step was called {calls} times and "
+                           f"replayed {replays}; {evaluations} and {evaluations - 1} expected")
+
+    t0 = time.perf_counter()
+    with device_launches(counts) as ran:
+        with fd_steps() as steps:
+            replayed = central_difference(f, x, h)
+            (step,) = steps
+            one = {k: step.launches.get(f"{k}_kernel", 0) for k in (kernel, *FD_KERNELS)}
+        torch.cuda.synchronize()
+    ran_fd = {k: ran[k] for k in (kernel, *FD_KERNELS, "shade_bin", "shade_backward")}
+    busy_ns = sum(d for _, _, d in ran.records)
+    log(f"grad vs FD {label}, the finite differences under torch.profiler: the card ran "
+        f"{ran_fd} (= the eager launches plus GraphStep.replayed); one evaluation launches {one}, "
+        f"{evaluations} evaluations; {len(ran.records)} CUDA records, "
+        f"{len(ran.records) / evaluations:.0f} and {busy_ns / evaluations / 1e6:.3f} ms of device "
+        f"time an evaluation; {time.perf_counter() - t0:.1f} s with the profiler's processing; "
+        f"plain calls on CUDA {counts.plain_cuda()}")
+    if (any(not one[k] or ran[k] != evaluations * one[k] for k in one)
+            or ran["shade_bin"] or ran["shade_backward"] or counts.plain_cuda()):
+        raise RuntimeError(f"grad vs FD {label}: the finite differences' replays did not each "
+                           "run the intersector, the sampler and both shading kernels, or a "
+                           "backward kernel or a plain version ran")
+
+    zero_counts(counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = eager_fd()(f, x, h)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if GraphStep.recorded or GraphStep.replayed:
+        raise RuntimeError(f"grad vs FD {label}: the eager loop went through a CUDA graph")
+    equal = {"check_grad_vs_fd": same_bits(fd, eager), "profiled": same_bits(replayed, eager)}
+    log(f"grad vs FD {label}: the replayed quotients equal the eager loop's bit for bit: {equal}")
+    if not all(equal.values()):
+        raise RuntimeError(f"grad vs FD {label}: a replayed quotient differs from the eager "
+                           f"loop's: {equal}; max |diff| {np.abs(fd - eager).max():.3e}")
+    return {"auto": auto, "fd": fd, "eager": eager, "eager_s": eager_s}
+
+
+def fd_turns(label, f, x, h, card, reference, eager_s, pairs: int = 3) -> None:
+    """The finite differences of ``f`` at ``x`` timed in turns (eager,
+    graph, graph, eager, ...: ``pairs`` pairs), the first the eager loop
+    just run (``eager_s`` seconds; its quotient ``reference``): the eager
+    loop and ``central_difference`` (one CUDA graph: eager call, capture,
+    replays), wall seconds and seconds an evaluation, the capture's
+    seconds, instantiation and pool; each quotient equal to ``reference``
+    bit for bit. Then the autodiff side (one eager fwd+bwd), ``pairs``
+    times."""
+    from isaklm_raytracer_tpu_torch.diff import central_difference
+
+    evaluations = 2 * x.numel()
+    order = [("eager", "graph")[(i + i // 2) % 2] for i in range(2 * pairs)]
+    log(f"FD turns {label}, eager (the loop above): {eager_s:.4f} s, "
+        f"{eager_s / evaluations:.5f} s an evaluation ({evaluations}); on {card}")
+    for kind in order[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "eager":
+            q = eager_fd()(f, x, h)
+            extra = ""
+        else:
+            with fd_steps() as steps:
+                q = central_difference(f, x, h)
+                (step,) = steps
+                extra = (f"; capture {step.capture_s:.4f} s, instantiate "
+                         f"{step.instantiate_s:.4f} s, pool {step.pool_bytes / 2**20:.1f} MiB")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        log(f"FD turns {label}, {kind}: {seconds:.4f} s, {seconds / evaluations:.5f} s an "
+            f"evaluation ({evaluations}){extra}; on {card}")
+        if not same_bits(q, reference):
+            raise RuntimeError(f"FD turns {label}: the {kind} quotient differs from the first "
+                               "eager loop's")
+    for _ in range(pairs):
+        leaf = x.detach().clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.autograd.grad(f(leaf), leaf)
+        torch.cuda.synchronize()
+        log(f"FD turns {label}, the autodiff side (eager fwd+bwd): "
+            f"{time.perf_counter() - t0:.4f} s; on {card}")
+
+
+# BASELINE.json's config 0: the Cornell box, diffuse only, 64x64 @ 16 spp
+CONFIG0_SIZE, CONFIG0_SPP = 64, 16
+
+
+def grad_checks_on_card(device, counts, card):
+    """Grad-vs-FD on the card through the kernels (``grad_vs_fd``):
+    TestGradVsFD's Cornell albedo at 16x16 and at BASELINE config 0 (64x64
+    @ 16 spp, the mean of 16 one-pass samples), and TestGradVsFDCamera's
+    pose, with their tolerances; config 0's finite differences timed in
+    turns, eager against one CUDA graph (``fd_turns``); then the card's
     autodiff gradient against the port's on the CPU."""
     from isaklm_raytracer_tpu_torch.accel import prepare_scene
     from isaklm_raytracer_tpu_torch.camera import Camera
     from isaklm_raytracer_tpu_torch.config import RenderConfig
-    from isaklm_raytracer_tpu_torch.diff import check_grad_vs_fd
     from isaklm_raytracer_tpu_torch.integrator.render import render_sample
+    from isaklm_raytracer_tpu_torch.math import rng as prng
     from isaklm_raytracer_tpu_torch.scene import procedural
 
     kw = (0, 11)  # the JAX package's PRNGKey(11)
     no_rr = RenderConfig(width=16, height=16, max_bounces=4, rr_start_bounce=4)
+    config0 = RenderConfig(width=CONFIG0_SIZE, height=CONFIG0_SIZE, max_bounces=4,
+                           rr_start_bounce=4, ray_chunk=0)
+    keys0 = [prng.sample_key_words(11, i) for i in range(CONFIG0_SPP)]
 
     def cornell_loss(scene, camera):
         def loss(albedo):
@@ -1334,29 +1508,29 @@ def grad_checks_on_card(device, counts):
             return render_sample(s, camera, kw, no_rr).mean()
         return loss
 
-    def launched():
-        return {k: getattr(counts, f"{k}_kernel") for k in ("flat", *GRAD_SHADE_KERNELS)}
+    def config0_loss(scene, camera):
+        def loss(albedo):
+            s = scene.replace(materials=scene.materials.replace(albedo=albedo))
+            return torch.stack([render_sample(s, camera, k, config0).mean() for k in keys0]).mean()
+        return loss
 
     cornell = procedural.cornell_box(include_blockers=False)
     scene = prepare_scene(cornell, device)
     camera = Camera.create((0.0, 0.0, -0.9), fov=np.pi / 2, device=device)
-    zero_counts(counts)
-    auto, fd = check_grad_vs_fd(cornell_loss(scene, camera), scene.materials.albedo,
-                                h=2e-3, rtol=0.05, atol=2e-4)
-    n = launched()
-    log(f"grad vs FD on the card, Cornell albedo {auto.shape}: max |auto - fd| "
-        f"{np.abs(auto - fd).max():.3e} (rtol 0.05, atol 2e-4); launches {n} (the autodiff "
-        f"side one bounce_backward a bounce, the finite differences none), plain calls on CUDA "
-        f"{counts.plain_cuda()}")
-    if (not n["flat"] or counts.plain_cuda() or n["shade"] != n["shade_finish"]
-            or n["shade_backward"] != no_rr.max_bounces or n["shade_bin"] != n["shade_backward"]):
-        raise RuntimeError("grad vs FD did not go through the kernels alone, or its autodiff "
-                           "side not through the backward kernel once a bounce")
+    albedo = scene.materials.albedo
+    grad_vs_fd("Cornell albedo 16x16", "flat", cornell_loss(scene, camera), albedo, 2e-3,
+               0.05, 2e-4, counts, no_rr.max_bounces)
     with device_launches(counts) as ran:
-        leaf = scene.materials.albedo.clone().requires_grad_(True)
+        leaf = albedo.clone().requires_grad_(True)
         torch.autograd.grad(cornell_loss(scene, camera)(leaf), leaf)
         torch.cuda.synchronize()
     check_only(counts, "flat", "grad vs FD's autodiff side (Cornell albedo)", ran, grad=True)
+
+    out = grad_vs_fd(f"BASELINE config 0, Cornell albedo {CONFIG0_SIZE}x{CONFIG0_SIZE} @ "
+                     f"{CONFIG0_SPP} spp", "flat", config0_loss(scene, camera), albedo, 2e-3,
+                     0.05, 2e-4, counts, CONFIG0_SPP * config0.max_bounces)
+    fd_turns("BASELINE config 0", config0_loss(scene, camera), albedo, 2e-3, card, out["eager"],
+             out["eager_s"])
 
     floor = prepare_scene(floor_view(), device)
     config = RenderConfig(width=12, height=12, max_bounces=1, rr_start_bounce=1,
@@ -1368,18 +1542,9 @@ def grad_checks_on_card(device, counts):
         ("yaw/pitch", torch.stack([cam.yaw, cam.pitch]),
          lambda x: cam.replace(yaw=x[0], pitch=x[1])),
     ):
-        zero_counts(counts)
-        auto, fd = check_grad_vs_fd(
-            lambda x: render_sample(floor, make(x), fkw, config).mean(), leaf,
-            h=1e-3, rtol=0.05, atol=5e-4)
-        log(f"grad vs FD on the card, floor camera {label}: auto {np.round(auto, 5).tolist()} "
-            f"fd {np.round(fd, 5).tolist()} (rtol 0.05, atol 5e-4); launches {launched()}")
-        if not np.abs(auto).max() > 0:
-            raise RuntimeError(f"camera {label} gradient is zero")
-        if (counts.plain_cuda() or counts.shade_backward_kernel != config.max_bounces
-                or counts.shade_bin_kernel != config.max_bounces):
-            raise RuntimeError(f"camera {label}: the autodiff side did not run the backward "
-                               "kernel once a bounce, or a plain version ran on CUDA")
+        grad_vs_fd(f"floor camera {label}", "flat",
+                   lambda x: render_sample(floor, make(x), fkw, config).mean(), leaf, 1e-3,
+                   0.05, 5e-4, counts, config.max_bounces)
 
     cpu_scene = prepare_scene(cornell, "cpu")
     grads = []
@@ -1392,6 +1557,8 @@ def grad_checks_on_card(device, counts):
         f"{float((diff / grads[1].abs().clamp_min(1e-12)).max()):.3e} (rtol "
         f"{CARD_VS_CPU_RTOL:g}, atol {CARD_VS_CPU_ATOL:g})")
     torch.testing.assert_close(grads[0], grads[1], rtol=CARD_VS_CPU_RTOL, atol=CARD_VS_CPU_ATOL)
+    card_test("test_torch_fd", "test_cuda_central_difference_replays_equal_the_eager_loop")
+    zero_counts(counts)
 
 
 def sample_seconds(render, scene, camera, config, samples: int = 2) -> float:
@@ -1512,6 +1679,8 @@ SHADE_KERNELS = ("shade", "shade_finish")
 # the shading of a path that differentiates: both halves forward, the
 # backward's two kernels (the binning and the reverse) backward
 GRAD_SHADE_KERNELS = ("shade", "shade_finish", "shade_bin", "shade_backward")
+# what every finite-difference evaluation runs besides its intersector
+FD_KERNELS = ("sampler", "shade", "shade_finish")
 
 
 def check_only(counts, kernel: str, label: str, ran=None, grad: bool = False):
@@ -4850,7 +5019,7 @@ def main() -> int:
             profile_fwd_bwd(label, kernel, scene, camera,
                             RenderConfig(width=w, height=h, max_bounces=b, ray_chunk=0), counts,
                             card)
-        grad_checks_on_card(device, counts)
+        grad_checks_on_card(device, counts, card)
 
     with Phase("sampler"):
         phase_sampler(counts, device, {"demo": demo, "hero": hero}, results)

@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from isaklm_raytracer_tpu_torch.config import resolve_device
+
 
 def _to(x, device):
     return torch.as_tensor(x).to(device) if x is not None else None
@@ -206,12 +208,21 @@ class GBuffer:
     count: torch.Tensor
 
     @staticmethod
-    def create(num_pixels: int, device=None) -> "GBuffer":
+    def create(num_pixels: int, device="cuda") -> "GBuffer":
+        """Zeroed accumulators on ``device``: the card unless the caller
+        passes "cpu"; without a card the default raises
+        (``config.resolve_device``)."""
+        device = resolve_device(device)
         return GBuffer(
             frame=torch.zeros((num_pixels, 3), dtype=torch.float32, device=device),
             sq_luminance=torch.zeros((num_pixels,), dtype=torch.float32, device=device),
             count=torch.zeros((num_pixels,), dtype=torch.int32, device=device),
         )
+
+    def reset(self) -> "GBuffer":
+        """Zero all accumulators, on the buffer's own device (reference
+        reset_frame, render.cuh:18-34)."""
+        return GBuffer.create(self.frame.shape[0], self.frame.device)
 
 
 def build_scene(

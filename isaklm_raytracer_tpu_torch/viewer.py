@@ -69,7 +69,7 @@ class InteractiveSession:
 
     def reset(self) -> None:
         """Zero the accumulators (reset_frame, render.cuh:18-34)."""
-        self.gbuffer = GBuffer.create(self.config.num_pixels, self.scene.device)
+        self.gbuffer = self.gbuffer.reset()
         self._sample = 0
 
     @torch.no_grad()

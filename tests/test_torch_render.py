@@ -110,7 +110,7 @@ def test_tail_mode_render_matches_masked_steps(cornell):
                        max_samples=64, max_tolerance=0.5, min_wavefront=16)
     steps = 12
     fast = render(scene, camera, cfg, num_samples=steps, seed=9, adaptive=True)
-    ref = GBuffer.create(cfg.num_pixels)
+    ref = GBuffer.create(cfg.num_pixels, "cpu")
     for i in range(steps):
         ref = render_step(scene, camera, ref, rng.sample_key_words(9, i), cfg, adaptive=True)
     _assert_gbuffer_equal(fast, ref)

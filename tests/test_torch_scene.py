@@ -20,7 +20,7 @@ from isaklm_raytracer_tpu_torch import interop
 from isaklm_raytracer_tpu_torch.accel import prepare_scene
 from isaklm_raytracer_tpu_torch.accel.cluster import build_cluster_bvh, cluster_order
 from isaklm_raytracer_tpu_torch.scene import procedural
-from isaklm_raytracer_tpu_torch.scene.types import sample_texture
+from isaklm_raytracer_tpu_torch.scene.types import GBuffer, sample_texture
 
 torch.set_num_threads(1)  # the test workers share the host's cores
 
@@ -134,3 +134,46 @@ def test_interop_round_trip():
     gb = interop.gbuffer_from_numpy(**gb_leaves, device="cpu")
     assert gb.count.dtype == torch.int32 and gb.frame.dtype == torch.float32
     _assert_tree_equal(interop.gbuffer_to_numpy(gb), gb_leaves)
+
+
+def _gbuffer_layout(gb) -> dict:
+    return {k: (tuple(v.shape), str(v.dtype))
+            for k, v in interop.gbuffer_to_numpy(gb).items()}
+
+
+@pytest.mark.parametrize("num_pixels", [1, 37, 4096])
+def test_gbuffer_create_on_the_card_unless_asked_for_the_cpu(monkeypatch, num_pixels):
+    """``GBuffer.create(n)`` goes to the card (``config.resolve_device``):
+    without one it raises, nothing falls back; ``"cpu"`` builds zeroed
+    accumulators of the JAX package's shapes and dtypes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        GBuffer.create(num_pixels)
+    gb = GBuffer.create(num_pixels, "cpu")
+    assert {t.device.type for t in (gb.frame, gb.sq_luminance, gb.count)} == {"cpu"}
+    assert gb.count.dtype == torch.int32 and gb.frame.dtype == gb.sq_luminance.dtype == torch.float32
+    assert _gbuffer_layout(gb) == _gbuffer_layout(JGBuffer.create(num_pixels))
+    _assert_tree_equal(interop.gbuffer_to_numpy(gb),
+                       interop.gbuffer_to_numpy(JGBuffer.create(num_pixels)))
+
+
+def test_gbuffer_reset_equals_the_jax_package():
+    """``GBuffer.reset()`` after a few samples: zeroed accumulators of the
+    same size and dtypes on the buffer's own device, equal to the JAX
+    package's ``reset()`` of the same buffer."""
+    from isaklm_raytracer_tpu_torch.integrator.render import add_sample
+
+    r = np.random.default_rng(8)
+    gb = GBuffer.create(50, "cpu")
+    for _ in range(3):
+        radiance = torch.from_numpy(r.random((50, 3)).astype(np.float32))
+        gb = add_sample(gb, radiance, torch.from_numpy(r.random(50) > 0.3))
+    assert bool(gb.count.any()) and bool(gb.frame.any())
+    leaves = interop.gbuffer_to_numpy(gb)
+    want = JGBuffer(**{k: jnp.asarray(v) for k, v in leaves.items()}).reset()
+    got = gb.reset()
+    assert got.frame.device == gb.frame.device
+    assert _gbuffer_layout(got) == _gbuffer_layout(gb)
+    _assert_tree_equal(interop.gbuffer_to_numpy(got), interop.gbuffer_to_numpy(want))
+    assert not got.frame.any() and not got.sq_luminance.any() and not got.count.any()
+    assert gb.count.any()  # the old buffer is left as it was
