@@ -385,6 +385,23 @@ raising on failure:
    one block: the launch and the zeroing alone), beside its bound
    (``shade_bin_bound``) and the parent tree's numbers of run CE
    (PARENT_BIN_MS; tools/compare_kernel_times.py times the two in turns).
+25. telemetry: the program's spans (``telemetry``) on the profiler's
+   clock: a span around ``torch.cuda._sleep(SLEEP_CYCLES)`` and a sync,
+   inside ``perfbench.trace.cuda_profile``, SLEEP_TRIES times, must hold
+   the spin's launch (its host-side record, on the host's clock) every
+   time; the offsets at both ends logged, and those of the spin kernel's
+   record as kineto maps it onto the host's clock (with an error that
+   drifts);
+   a span site's cost with no profiler and under one; then each one-card
+   cell of BENCHMARK.json (TELEMETRY_CELLS, seed TELEMETRY_SEED) through
+   its perfbench driver: windows of the mix's ``trace_seconds``,
+   untraced, traced, traced, untraced, each one's ms a step (the traced
+   windows' cost), and of each traced window the device's idle time a
+   step split by the innermost span open when the host launched the work
+   that ended each gap (``tools.profiling.idle_by_span``; "none": the
+   caller's loop), the drift of kineto's device clock, the counts its
+   spans took, summed by span name, and the cell's per-layer metrics as
+   the benchmark's readers read them.
 
 Every path that check_only holds (main path, assets, resume, interactive,
 sharded, kd, graphs, grad) must also have launched the sampler kernel and
@@ -419,6 +436,7 @@ import functools
 import gc
 import importlib.util
 import io
+import itertools
 import json
 import os
 import re
@@ -495,6 +513,11 @@ CARD_VS_CPU_RTOL, CARD_VS_CPU_ATOL = 1e-4, 1e-6
 # the validity test); KEY_SLOTS, that and the first-block key's two
 # comparisons against its running pair.
 HBM_BYTES_PER_S, FP32_LANES_PER_SM = 3.35e12, 128
+# Phase telemetry: spans around a spin of SLEEP_CYCLES (about 5 ms), and
+# the one-card cells whose windows it traces
+SLEEP_TRIES, SLEEP_CYCLES, SPAN_CALLS = 20, 10_000_000, 100_000
+TELEMETRY_CELLS = ("demo-adaptive", "demo-train", "hero1080-viewer")
+TELEMETRY_SEED = 2147493001
 # The sampler (csrc/threefry_uniforms.cu) issues 32-bit integer work,
 # counted by the pipe of an SM of compute capability 9.0 that issues it
 # (lanes an SM a clock from the CUDA C++ Programming Guide's table of
@@ -4451,6 +4474,118 @@ def phase_shade_grad(device, scenes, results) -> None:
                             "shape": f"{rays} rays, the demo's bounce 0 at 512x512"}
 
 
+def phase_telemetry(device, seeds=(TELEMETRY_SEED,)) -> None:
+    """Phase telemetry (the module docstring, 25), each cell on each of
+    ``seeds``."""
+    from isaklm_raytracer_tpu_torch import telemetry
+    from isaklm_raytracer_tpu_torch.tools import profiling
+    from perfbench import core as bench
+    from perfbench import trace as bench_trace
+
+    spin = bench_trace.filler_name()
+    offsets = {"device": [], "launch": []}
+    for _ in range(SLEEP_TRIES):
+        telemetry.clear()
+        with bench_trace.cuda_profile() as prof:
+            with telemetry.span("spin") as s:
+                torch.cuda._sleep(SLEEP_CYCLES)
+                torch.cuda.synchronize()
+        rec = max((e for e in bench_trace.cuda_events(prof) if e.name() == spin),
+                  key=lambda e: e.duration_ns())
+        launch = next(e for e in prof.profiler.kineto_results.events()
+                      if e.correlation_id() == rec.correlation_id()
+                      and e.device_type() != rec.device_type() and e.name().startswith("cuda"))
+        for key, e in (("device", rec), ("launch", launch)):
+            offsets[key].append(((e.start_ns() - s.start_ns) / 1e3,
+                                 (s.end_ns - e.start_ns() - e.duration_ns()) / 1e3))
+    inside = {k: sum(h >= 0 and t >= 0 for h, t in v) for k, v in offsets.items()}
+    for key, what in (("launch", "its launch's host record"),
+                      ("device", "the spin's record as kineto maps it")):
+        heads, tails = zip(*offsets[key])
+        log(f"telemetry: {what} inside its span in {inside[key]} of {SLEEP_TRIES}; us from the "
+            f"span's start to the record's {sorted(heads)}; from the record's end to the "
+            f"span's {sorted(tails)}")
+    # kineto maps the device's times onto the host's clock with an error
+    # that drifts and jitters by tens of us to ms (PERF.md): the spans are
+    # held to the host's records, and the device's are logged
+    if inside["launch"] < SLEEP_TRIES:
+        raise RuntimeError("a span did not hold the launch made inside it")
+
+    def site_ns() -> float:
+        t0 = time.perf_counter_ns()
+        for _ in range(SPAN_CALLS):
+            with telemetry.span("cost"):
+                pass
+        return (time.perf_counter_ns() - t0) / SPAN_CALLS
+
+    off = site_ns()
+    with bench_trace.cuda_profile():
+        on = site_ns()
+    telemetry.clear()
+    log(f"telemetry: a span site {off:.0f} ns with no profiler, {on:.0f} ns under one")
+
+    spec = bench.load_benchmark()
+    for name, seed in itertools.product(TELEMETRY_CELLS, seeds):
+        cell, config, traffic = bench.load_cell(spec, name)
+        seconds = float(traffic["trace_seconds"])
+        driver = importlib.import_module(f"perfbench.drivers.{traffic['driver']}")
+        c = driver.Cell(bench.Context(cell, config, traffic, seed, seconds, False, device))
+        name = f"{name} seed {seed}"
+        ms = {False: [], True: []}
+        for traced in (False, True, True, False):
+            telemetry.clear()
+            with bench_trace.cuda_profile() if traced else contextlib.nullcontext() as prof:
+                w = c.window(seconds, time.perf_counter())
+            ms[traced].append(1e3 * w.seconds / w.steps)
+            if traced:
+                telemetry_window(name, cell["name"], spec, traffic, w, prof,
+                                 telemetry.spans())
+        c.release()
+        del c
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"telemetry {name}: ms a step untraced {ms[False]}, traced {ms[True]}: tracing "
+            f"costs {100 * (sum(ms[True]) / sum(ms[False]) - 1):+.2f}%")
+
+
+def telemetry_window(name, cell, spec, traffic, w, prof, spans) -> None:
+    """Logs a traced window of phase telemetry: the device's idle time a
+    step, split by the innermost span open at the launch that ended each
+    gap (``tools.profiling.idle_gaps``, ``idle_by_span``), and the least
+    delay, a second, from such a launch to its record's start as kineto
+    maps it (the mapping's drift); the counts of the spans by name; the
+    cell's per-layer metrics as the benchmark's readers read them."""
+    from isaklm_raytracer_tpu_torch.tools import profiling
+    from perfbench import core as bench
+    from perfbench import trace as bench_trace
+
+    records = bench_trace.device_records(prof)
+    summary = bench_trace.summarize(records, w.steps, w.rays, traffic["kind"], w.units)
+    gaps = profiling.idle_gaps(prof)
+    split = profiling.idle_by_span(gaps, spans)
+    least = {}
+    for _, launch, start in gaps:
+        if launch is not None:
+            b = (start - records[0][1]) // 10**9
+            least[b] = min(least.get(b, float("inf")), (start - launch) / 1e3)
+    counts = collections.defaultdict(collections.Counter)
+    for s in spans:
+        counts[s.name]["spans"] += 1
+        counts[s.name].update(s.counts)
+    read = {m["name"]: bench.load_reader(m["name"])(summary)
+            for m in bench.cell_metrics(spec, cell, "per_layer")}
+    idle = summary.window_s - summary.busy_s
+    log(f"telemetry {name}: {w.steps} steps in {summary.window_s:.3f} s traced, idle "
+        f"{1e3 * idle / w.steps:.4f} ms a step ({1e3 * sum(g[0] for g in gaps) * 1e-9 / w.steps:.4f} "
+        f"in {len(gaps)} gaps); by the innermost span at the launch that ended a gap, ms a step: "
+        + ", ".join(f"{k or 'none'} {ns * 1e-6 / w.steps:.4f}"
+                    for k, ns in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f"; the least launch-to-record delay a second, us "
+        f"{[round(v, 1) for _, v in sorted(least.items())]}")
+    log(f"telemetry {name}: counts {dict((k, dict(v)) for k, v in counts.items())}; "
+        f"metrics {read}")
+
+
 def main() -> int:
     global CARD, LANE_SLOTS_PER_S
     if not torch.cuda.is_available():
@@ -5029,6 +5164,9 @@ def main() -> int:
 
     with Phase("shade_grad"):
         phase_shade_grad(device, {"demo": demo, "hero": hero, "hero20k": hero20k}, results)
+
+    with Phase("telemetry"):
+        phase_telemetry(device)
 
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall in all")
     launches = {"flat": flat_launches, "queue": queue_launches, "blk": blk_launches,

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from isaklm_raytracer_tpu_torch import telemetry
 from isaklm_raytracer_tpu_torch.camera.camera import Camera
 from isaklm_raytracer_tpu_torch.config import RenderConfig, resolve_device
 from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
@@ -441,8 +442,9 @@ def sharded_value_and_grad_fn(scene: Scene, config: RenderConfig, mesh: RenderMe
         inputs = [params.tex_id, camera.fov, camera.aperture_radius, ids]
         mse, grads = steps(scene, leaves, inputs, rng.fold_in(key_words, mesh.sample), head,
                            variant)
-        flat = torch.cat([mse.reshape(1)] + [g.reshape(-1) for g in grads])
-        flat = _all_reduce(flat, dist.ReduceOp.SUM) / mesh.num_sample
+        with telemetry.span("train.all_reduce"):
+            flat = torch.cat([mse.reshape(1)] + [g.reshape(-1) for g in grads])
+            flat = _all_reduce(flat, dist.ReduceOp.SUM) / mesh.num_sample
         out, at = {}, 1
         for name, g in zip(FLOAT_FIELDS + POSE_FIELDS, grads):
             out[name] = flat[at:at + g.numel()].reshape(g.shape)
@@ -463,14 +465,19 @@ def sharded_train_step_fn(scene: Scene, config: RenderConfig, mesh: RenderMesh,
     Defaults to the decorrelated gradient, as the JAX package: its stable
     operating point on the Cornell recovery task is lr 0.1-0.3 with two or
     more sample streams. The gradient replays ``vg``'s graphs on the card
-    (``train_step.graphs``); the update runs eagerly."""
+    (``train_step.graphs``); the update runs eagerly. Under a profiler a
+    step records the ``telemetry`` span ``train.step``, and in it those of
+    its forward, loss, backward, all_reduce and update."""
     vg = sharded_value_and_grad_fn(scene, config, mesh, decorrelate=decorrelate)
 
     def train_step(params: MaterialTable, camera: Camera, target: torch.Tensor, key_words):
-        loss, grads = vg(params, camera, target, key_words)
-        return params.replace(**{
-            f: getattr(params, f).detach() - learning_rate * grads[f] for f in FLOAT_FIELDS
-        }), loss
+        with telemetry.span("train.step"):
+            loss, grads = vg(params, camera, target, key_words)
+            with telemetry.span("train.update"):
+                return params.replace(**{
+                    f: getattr(params, f).detach() - learning_rate * grads[f]
+                    for f in FLOAT_FIELDS
+                }), loss
 
     train_step.graphs = vg.graphs
     return train_step

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from isaklm_raytracer_tpu_torch import telemetry
 from isaklm_raytracer_tpu_torch.accel.kd_traverse import nearest_hit_kd
 from isaklm_raytracer_tpu_torch.accel.wavefront import nearest_hit_wavefront
 from isaklm_raytracer_tpu_torch.camera.camera import Camera, generate_rays
@@ -412,7 +413,9 @@ class GraphStep:
     replayed``: a profiler's kernel records can be held to that
     (``chip_smoke.py``). ``capture_s``, ``instantiate_s`` and ``pool_bytes``
     (the memory the graph's private pool reserved) record the capture;
-    ``captures`` counts the captures of every step in the process."""
+    ``captures`` counts the captures of every step in the process. Under
+    a profiler a call that replays records the ``telemetry`` span
+    ``graph.replay``: copy-in, replay and the output copies."""
 
     captures = 0
     recorded = collections.Counter()
@@ -435,15 +438,15 @@ class GraphStep:
         self.calls += 1
         if self.calls == 1:
             return tuple(fn(*inputs))
-        with torch.cuda.device(self.device):
+        with telemetry.span("graph.replay"), torch.cuda.device(self.device):
             if self.graph is None:
                 self._capture(fn, inputs)
             for static, x in zip(self.static_in, inputs):
                 static.copy_(x, non_blocking=True)
             self.graph.replay()
-        self.replays += 1
-        GraphStep.replayed.update(self.launches)
-        return tuple(out.clone() for out in self.static_out)
+            self.replays += 1
+            GraphStep.replayed.update(self.launches)
+            return tuple(out.clone() for out in self.static_out)
 
     def _capture(self, fn, inputs) -> None:
         self.static_in = [x.clone() for x in inputs]
@@ -533,10 +536,13 @@ def split_value_and_grad(fn, leaves, inputs, head):
     uses ``out`` once, the grads equal those of ``objective`` taken
     through ``fn`` in one backward, bit for bit."""
     with torch.enable_grad():
-        xs = [x.detach().requires_grad_() for x in leaves]
-        out = fn(*xs, *inputs)
-        value, g = _head_grad(head, out)
-        grads = torch.autograd.grad(out, xs, g, allow_unused=True)
+        with telemetry.span("train.forward"):
+            xs = [x.detach().requires_grad_() for x in leaves]
+            out = fn(*xs, *inputs)
+        with telemetry.span("train.loss"):
+            value, g = _head_grad(head, out)
+        with telemetry.span("train.backward"):
+            grads = torch.autograd.grad(out, xs, g, allow_unused=True)
     return value, _zeros_for_unused(grads, xs)
 
 
@@ -568,7 +574,12 @@ class GradGraphStep(GraphStep):
 
     Launches are tallied as ``GraphStep`` tallies them, the forward's and
     the backward's together: ``launches`` is what both captures recorded,
-    ``capture_s``, ``instantiate_s`` and ``pool_bytes`` cover both."""
+    ``capture_s``, ``instantiate_s`` and ``pool_bytes`` cover both. Under
+    a profiler a replayed call records the ``telemetry`` spans of the train
+    step's parts: ``train.forward`` (copy-in and the forward replay),
+    ``train.loss`` (``head`` and its gradient) and ``train.backward`` (the
+    backward replay and the gradients' copies); the eager split records
+    the same three."""
 
     def __init__(self, device: torch.device) -> None:
         super().__init__(device)
@@ -583,16 +594,19 @@ class GradGraphStep(GraphStep):
             if self.graph is None:
                 value = self._capture(fn, leaves, inputs, head)
             else:
-                with torch.no_grad():
-                    for static, x in zip(self.static_in, [*leaves, *inputs]):
-                        static.copy_(x, non_blocking=True)
-                self.graph.replay()
-                value, g = _head_grad(head, self.static_out)
-                self.static_grad_out.copy_(g)
-            self.backward.replay()
-        self.replays += 1
-        GraphStep.replayed.update(self.launches)
-        return value, [g.clone() for g in self.static_grads]
+                with telemetry.span("train.forward"):
+                    with torch.no_grad():
+                        for static, x in zip(self.static_in, [*leaves, *inputs]):
+                            static.copy_(x, non_blocking=True)
+                    self.graph.replay()
+                with telemetry.span("train.loss"):
+                    value, g = _head_grad(head, self.static_out)
+                    self.static_grad_out.copy_(g)
+            with telemetry.span("train.backward"):
+                self.backward.replay()
+                self.replays += 1
+                GraphStep.replayed.update(self.launches)
+                return value, [g.clone() for g in self.static_grads]
 
     def _capture(self, fn, leaves, inputs, head):
         """Captures both graphs and replays the forward; returns ``head``'s
@@ -853,42 +867,59 @@ def render(
 
     Step i uses the key words of sample ``sample_offset + i`` of ``seed``
     (the JAX package's ``fold_in(PRNGKey(seed), sample_offset + i)``).
+    Under a profiler the call, its count reads, its candidate gather and
+    each step record ``telemetry`` spans; a step's counts its lanes and
+    the active pixels among them, from the counts the loop reads anyway.
     """
-    device = scene.device
-    if gbuffer is None:
-        gbuffer = GBuffer.create(config.num_pixels, device)
-    step = make_step_fn(config)
-    count_active = make_active_count_fn(config) if adaptive else None
-    floor = min(config.min_wavefront, config.num_pixels)
+    with telemetry.span("render") as call:
+        call.count("samples", num_samples)
+        call.count("adaptive", int(adaptive))
+        device = scene.device
+        if gbuffer is None:
+            gbuffer = GBuffer.create(config.num_pixels, device)
+        step = make_step_fn(config)
+        count_active = make_active_count_fn(config) if adaptive else None
+        floor = min(config.min_wavefront, config.num_pixels)
 
-    cand = None  # tail-mode candidate ids (ascending, -1 padded)
-    bucket = config.num_pixels
-    for i in range(num_samples):
-        key_words = rng.sample_key_words(seed, sample_offset + i)
-        if adaptive:
-            # One host sync per step sizes the wavefront to the unconverged
-            # set, like the reference's per-thread skip
-            # (path_tracing.cuh:347-379).
-            if cand is None:
-                n_active = int(count_active(gbuffer))
-                if n_active == 0:
-                    break
-                bucket = compact_bucket(n_active, config.num_pixels, floor)
-                if bucket < config.num_pixels:
-                    # tail mode: one O(num_pixels) candidate gather, then
-                    # every step is O(bucket) (the active set only shrinks)
-                    cand, _ = make_candidates_fn(config, bucket)(gbuffer)
-            if cand is not None:
-                gbuffer, cand, n_dev = make_tail_step_fn(config, bucket)(
-                    scene, camera, gbuffer, cand, key_words
-                )
-                n_active = int(n_dev)
-                if n_active == 0:
-                    break
-                nb = compact_bucket(n_active, config.num_pixels, floor)
-                if nb < bucket:
-                    cand = cand[:nb]  # actives are compacted to the front
-                    bucket = nb
-                continue
-        gbuffer = step(scene, camera, gbuffer, key_words, adaptive)
+        cand = None  # tail-mode candidate ids (ascending, -1 padded)
+        bucket = n_active = config.num_pixels
+        for i in range(num_samples):
+            key_words = rng.sample_key_words(seed, sample_offset + i)
+            if adaptive:
+                # One host sync per step sizes the wavefront to the
+                # unconverged set, like the reference's per-thread skip
+                # (path_tracing.cuh:347-379).
+                if cand is None:
+                    with telemetry.span("render.count"):
+                        n_active = int(count_active(gbuffer))
+                    if n_active == 0:
+                        break
+                    bucket = compact_bucket(n_active, config.num_pixels, floor)
+                    if bucket < config.num_pixels:
+                        # tail mode: one O(num_pixels) candidate gather,
+                        # then every step is O(bucket) (the active set only
+                        # shrinks)
+                        with telemetry.span("render.candidates"):
+                            cand, _ = make_candidates_fn(config, bucket)(gbuffer)
+                if cand is not None:
+                    with telemetry.span("render.tail") as s:
+                        gbuffer, cand, n_dev = make_tail_step_fn(config, bucket)(
+                            scene, camera, gbuffer, cand, key_words
+                        )
+                        # the step's own count of the candidates it sampled
+                        with telemetry.span("render.count"):
+                            n_active = int(n_dev)
+                        s.count("lanes", bucket)
+                        s.count("active", n_active)
+                    if n_active == 0:
+                        break
+                    nb = compact_bucket(n_active, config.num_pixels, floor)
+                    if nb < bucket:
+                        cand = cand[:nb]  # actives are compacted to the front
+                        bucket = nb
+                    continue
+            with telemetry.span("render.step") as s:
+                gbuffer = step(scene, camera, gbuffer, key_words, adaptive)
+                s.count("lanes", config.num_pixels)
+                s.count("active", n_active)
     return gbuffer

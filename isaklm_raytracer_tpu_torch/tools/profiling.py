@@ -3,7 +3,10 @@
 ``cuda_profile`` opens a window of CUDA activity with idle time at both
 ends and filler kernels ahead of the block; ``device_records`` reads the
 block's records without the fillers. ``chip_smoke.py`` and
-``tools/compare_render.py`` count kernels through these two. The module
+``tools/compare_render.py`` count kernels through these two.
+``idle_gaps`` and ``idle_by_span`` split a window's idle time by the
+program's spans (``telemetry``) open at the launches that ended each
+gap. The module
 imports torch and the standard library only, so a script can load it from
 its file beside another checkout's package.
 
@@ -25,6 +28,7 @@ records, and raises.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import functools
@@ -95,3 +99,53 @@ def device_records(prof):
     filler = filler_name()
     return [(e.name(), e.start_ns(), e.duration_ns()) for e in cuda_events(prof)
             if e.name() != filler]
+
+
+def idle_gaps(prof) -> list:
+    """The idle gaps of a ``cuda_profile`` window but its fillers (from its
+    first record's start to its last record's end): [(idle ns, the host's
+    ns of the launch of the record that ends the gap or None, that
+    record's device start ns)], in order. A gap's length is a difference
+    of device times, and the launch's time is the host's runtime call of
+    the same correlation id (a kernel, graph or copy launch) on the host's
+    clock: neither depends on how kineto maps the device's clock onto the
+    host's, which drifts within a window (PERF.md)."""
+    from torch.autograd import DeviceType
+
+    filler = filler_name()
+    launched = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.name().startswith("cuda"):
+            launched.setdefault(e.correlation_id(), e.start_ns())
+    records = sorted((e.start_ns(), e.duration_ns(), e.correlation_id())
+                     for e in cuda_events(prof) if e.name() != filler)
+    gaps, end = [], None
+    for start, dur, corr in records:
+        if end is not None and start > end:
+            gaps.append((start - end, launched.get(corr), start))
+        if end is None or start + dur > end:
+            end = start + dur
+    return gaps
+
+
+def idle_by_span(gaps, spans) -> dict:
+    """The idle ns of ``gaps`` (``idle_gaps``) by the innermost of
+    ``spans`` (``telemetry.Span``) open when the host launched the work
+    that ended each gap, the work the card waited for: {span name: ns},
+    and under None the gaps ended by a launch under no span or not in the
+    profile. Of two open spans the one opened later is the innermost."""
+    events = sorted(e for s in spans if s.end_ns is not None
+                    for e in ((s.start_ns, 1, s.id, s.name), (s.end_ns, 0, s.id, s.name)))
+    times, innermost, opened = [], [], {}
+    for t, kind, sid, name in events:
+        if kind:
+            opened[sid] = name
+        else:
+            del opened[sid]
+        times.append(t)
+        innermost.append(opened[max(opened)] if opened else None)
+    split = collections.Counter()
+    for ns, launch, _ in gaps:
+        i = -1 if launch is None else bisect.bisect_right(times, launch) - 1
+        split[innermost[i] if i >= 0 else None] += ns
+    return dict(split)

@@ -20,6 +20,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from isaklm_raytracer_tpu_torch import telemetry
 from isaklm_raytracer_tpu_torch.camera.camera import Camera, camera_movement
 from isaklm_raytracer_tpu_torch.config import RenderConfig
 from isaklm_raytracer_tpu_torch.integrator.adaptive import needs_sample
@@ -49,6 +50,7 @@ class InteractiveSession:
         self._last_time: Optional[float] = None
         self.gbuffer = GBuffer.create(config.num_pixels, scene.device)
         self._step = make_step_fn(config)
+        self._frame_step = None  # the telemetry step id of the last frame
 
     @property
     def sample_count(self) -> int:
@@ -77,19 +79,24 @@ class InteractiveSession:
         """One frame: input -> render one progressive sample
         (call_render, main.cu:20-59) through ``make_step_fn``, as the JAX
         session jits its step: on the card a CUDA graph replays it, with
-        the moved camera copied into the graph's inputs."""
-        if keys:
-            self.handle_input(keys)
-        key_words = rng.sample_key_words(self.seed, self._sample)
-        self.gbuffer = self._step(
-            self.scene, self.camera, self.gbuffer, key_words, self.adaptive
-        )
-        self._sample += 1
+        the moved camera copied into the graph's inputs. Under a profiler
+        the frame records the ``telemetry`` span ``viewer.step``, and the
+        next ``image()`` the span ``viewer.image`` with the same step id."""
+        with telemetry.span("viewer.step") as s:
+            if keys:
+                self.handle_input(keys)
+            key_words = rng.sample_key_words(self.seed, self._sample)
+            self.gbuffer = self._step(
+                self.scene, self.camera, self.gbuffer, key_words, self.adaptive
+            )
+            self._sample += 1
+        self._frame_step = s.step
 
     def image(self) -> np.ndarray:
         """Current tonemapped average, (H, W, 3) float in [0,1]
         (draw_frame, render.cuh:37-59)."""
-        return resolve_image(self.gbuffer, self.config).cpu().numpy()
+        with telemetry.span("viewer.image", step=self._frame_step):
+            return resolve_image(self.gbuffer, self.config).cpu().numpy()
 
     def converged(self) -> bool:
         if int(self.gbuffer.count.min()) < self.config.min_samples:
