@@ -60,6 +60,8 @@ def main(argv=None) -> int:
                 "set": args.set, "units": window.units, "measures": window.measures,
                 "failed": getattr(c, "failed_steps", 0),
                 "program": {k.name: k.value for k in c.check()}}
+        if hasattr(c, "gaps"):  # the numbers the checks take their medians of
+            line["gaps"] = c.gaps()
         if args.control:
             line["control"] = {k.name: k.value for k in driver.control(c)}
         line["seconds"] = time.perf_counter() - t0

@@ -2,30 +2,41 @@
 on a one-rank NCCL mesh (1, 1), with its defaults (SGD, lr 0.05).
 
 The task is the repo's material recovery task (``scripts/recipe_sweep.py``):
-recover the materials of a rendered image from a perturbed start. Set-up brings up the process group (a store on a free localhost
-port), renders the target with the plain reference at the scene's own
-materials (``target_samples`` samples a pixel, key words drawn from
-``--seed``), draws the starting materials (the scene's albedos scaled by
-a factor in [0.7, 1.3) each) from the mix's ``start_seed``, and runs
-three steps through the same ``train_step`` object that the
-window then drives: the eager call, the capture, a replay. Step i draws
-the key words of sample i of a train seed drawn from ``--seed``. The
-window runs jobs of ``job_steps`` steps, each from the same start (a job
-whose loss has stopped being finite ends; such steps count as failed,
-PERF.md); its steps end in a sync, and their count over the window's seconds gives
-``train_step_ms``.
+recover the materials of a rendered image from a perturbed start. Set-up
+brings up the process group (a store on a free localhost port), renders the
+target with the plain reference at the scene's own materials
+(``target_samples`` samples a pixel, key words drawn from ``--seed``), draws
+the starting materials (the scene's albedos scaled by a factor in
+[0.7, 1.3) each) from the mix's ``start_seed``, and runs three steps through
+the same ``train_step`` object that the window then drives: the eager call,
+the capture, a replay, on key words of their own.
 
-The check: the first ``checked_steps`` steps of the window's last job
-that ran them, all replays of the captured graphs; the reference follows
-them from the same start with the same key words in plain autograd (its
-own renders, losses, gradients and SGD updates). The median over the
-steps of the loss's gap, and the median over the leaves of the gaps of
-the first gradient as the update shows it ((p0 - p1) / lr) and of the
-change of the parameters over the checked steps, are held to it.
+The window runs jobs of at most ``job_steps`` steps, each from the same
+start. Job j draws a seed of its own from the train seed and j, and its
+step i the key words of sample i of that seed: a seed a run and a key a
+step's position, as ``scripts/recipe_sweep.py`` keys its runs. So the steps
+a window runs, and the steps it checks, follow from ``--seed`` alone, not
+from the program's speed or from tracing. After every step each material
+leaf is clamped in place to its range in the mix's ``domain`` (projected
+SGD). A job ends at its first loss that is not finite, and the next job
+starts. The host reads each loss ``LAG`` steps after the step that made
+it, so that it never waits for the card's latest work: that step and the
+steps the job ran on in the lag failed. The window ends in a sync, and
+its seconds over its steps that did not fail give ``train_step_ms``.
+
+The check: the first ``checked_steps`` steps of the window's first job,
+all replays of the captured graphs; the reference follows them from the
+same start with the same key words in plain autograd (its own renders,
+losses, gradients, SGD updates and clamps). The median over the steps of
+the loss's gap, and the median over the leaves of the gaps of the first
+gradient as the update shows it before its clamp ((p0 - p1) / lr) and of
+the change of the parameters over the checked steps, are held to it.
 """
 
 from __future__ import annotations
 
+import collections
+import math
 import statistics
 import sys
 import time
@@ -40,6 +51,8 @@ FIELDS = ("albedo", "emittance", "roughness", "ior", "extinction", "transparent"
 # the train step's first call runs eagerly, its second captures and
 # replays, the third replays: set-up runs all three
 WARMUP_STEPS = 3
+# steps between a loss's step and the host's read of it
+LAG = 16
 
 
 def _group(device) -> None:
@@ -58,10 +71,51 @@ def _group(device) -> None:
                             rank=0, device_id=device if backend == "nccl" else None)
 
 
+def project(params: dict, ranges: dict) -> dict:
+    """``params`` with every leaf clamped to its range."""
+    return {f: torch.clamp(v, *ranges[f]) for f, v in params.items()}
+
+
+class Losses:
+    """The window's losses, each read on the host ``LAG`` steps after the
+    step that made it (on the card through a copy to pinned memory and an
+    event). ``first_bad`` maps each job whose loss stopped being finite to
+    the position of its first loss that is not."""
+
+    def __init__(self, device) -> None:
+        self.on_card = device.type == "cuda"
+        self.pending = collections.deque()
+        self.first_bad = {}
+
+    def put(self, job: int, pos: int, loss: torch.Tensor) -> None:
+        if self.on_card:
+            host = torch.empty((), dtype=loss.dtype, pin_memory=True)
+            host.copy_(loss.detach(), non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = loss.detach(), None
+        self.pending.append((job, pos, host, event))
+        while len(self.pending) > LAG:
+            self._read()
+
+    def drain(self) -> None:
+        while self.pending:
+            self._read()
+
+    def _read(self) -> None:
+        job, pos, host, event = self.pending.popleft()
+        if event is not None:
+            event.synchronize()
+        if not math.isfinite(float(host)) and job not in self.first_bad:
+            self.first_bad[job] = pos
+
+
 class Cell:
     def __init__(self, ctx) -> None:
         from isaklm_raytracer_tpu_torch.dist.sharding import (make_render_mesh,
                                                               sharded_train_step_fn)
+        from isaklm_raytracer_tpu_torch.math import rng
 
         self.ctx, t = ctx, ctx.traffic
         device = ctx.device
@@ -77,6 +131,7 @@ class Cell:
         self.lr = t["learning_rate"]
         self.step_fn = sharded_train_step_fn(self.scene, self.config, self.mesh,
                                              learning_rate=self.lr)
+        self.key_words = rng.sample_key_words
         marks.append(time.perf_counter())
         self.target = self._target()
         marks.append(time.perf_counter())
@@ -89,12 +144,18 @@ class Cell:
         self.start = {f: torch.as_tensor(self.arrays.materials[f], device=device)
                       for f in FIELDS}
         self.start["albedo"] = self.start["albedo"] * scale
+        # each leaf's (low, high) range; None leaves that side open
+        self.domain = {f: tuple(t["domain"][f]) for f in FIELDS}
+        inside = project(self.start, self.domain)
+        outside = [f for f in FIELDS if not torch.equal(self.start[f], inside[f])]
+        if outside:
+            raise ValueError(f"the start lies outside the domain in {outside}")
         self.train_seed = common.word(ctx.seed, 5)
         self.params = self._fresh()
-        self.losses, self.checked = [], None
-        self.taken = 0
-        for _ in range(WARMUP_STEPS):
-            self._step()
+        self.calls = 0
+        warmup_seed = common.word(ctx.seed, 7)
+        for i in range(WARMUP_STEPS):
+            self._step(self.key_words(warmup_seed, i))
         common.sync(device)
         marks.append(time.perf_counter())
         spans = [b - a for a, b in zip(marks, marks[1:])]
@@ -124,48 +185,67 @@ class Cell:
     def _fresh(self):
         return self.scene.materials.replace(**{f: v.clone() for f, v in self.start.items()})
 
-    def _step(self):
-        from isaklm_raytracer_tpu_torch.math import rng
-
-        key = rng.sample_key_words(self.train_seed, self.taken)
+    def _step(self, key, unclamped=None):
+        """One train step on ``key``, its parameters clamped in place; a
+        copy of them before the clamp goes into the dict ``unclamped``."""
         self.params, loss = self.step_fn(self.params, self.camera, self.target, key)
-        self.losses.append(loss)
-        self.taken += 1
+        if unclamped is not None:
+            unclamped.update({f: getattr(self.params, f).detach().clone() for f in FIELDS})
+        with torch.no_grad():
+            for f, (lo, hi) in self.domain.items():
+                getattr(self.params, f).clamp_(lo, hi)
+        self.calls += 1
+        return loss
 
     def window(self, seconds: float, t0: float) -> Window:
         t = self.ctx.traffic
         setup_s = time.perf_counter() - t0
-        steps, job = 0, None
+        losses = Losses(self.ctx.device)
+        steps, job, pos = 0, 0, 0
+        seed = common.word(self.train_seed, job)
+        self.params = self._fresh()
+        # the first job's first steps are kept on the card for the check, and
+        # its first step's parameters before their clamp
+        checked = {"first": self.calls, "seed": seed, "losses": [], "params": [self.start],
+                   "unclamped": {}}
+        # the steps each job ran
+        ran = {}
         start = time.perf_counter()
-        while time.perf_counter() - start < seconds:
-            if steps % t["job_steps"] == 0:
-                # a new job from the same start; its first steps are kept on
-                # the card for the check
+        while time.perf_counter() - start < seconds or steps < t["checked_steps"]:
+            first = job == 0 and pos == 0
+            loss = self._step(self.key_words(seed, pos), checked["unclamped"] if first else None)
+            if job == 0 and pos < t["checked_steps"]:
+                checked["losses"].append(loss)
+                checked["params"].append({f: getattr(self.params, f).detach().clone()
+                                          for f in FIELDS})
+            losses.put(job, pos, loss)
+            steps, pos = steps + 1, pos + 1
+            ran[job] = pos
+            if pos == t["job_steps"] or job in losses.first_bad:
+                # the next job, from the same start
+                job, pos = job + 1, 0
+                seed = common.word(self.train_seed, job)
                 self.params = self._fresh()
-                job = {"first": self.taken, "losses": [], "params": [self.start]}
-            self._step()
-            steps += 1
-            if len(job["losses"]) < t["checked_steps"]:
-                job["losses"].append(self.losses[-1])
-                job["params"].append({f: getattr(self.params, f).detach().clone()
-                                      for f in FIELDS})
-                if len(job["losses"]) == t["checked_steps"]:
-                    self.checked = job
         common.sync(self.ctx.device)
         elapsed = time.perf_counter() - start
+        losses.drain()
+        self.checked = checked
+        # a job's steps from its first loss that is not finite on failed
+        self.failed_steps = sum(ran[j] - p for j, p in losses.first_bad.items())
+        good = max(steps - self.failed_steps, 1)
         return Window(elapsed, steps, {"setup_s": setup_s,
-                                       "train_step_ms": 1e3 * elapsed / steps},
+                                       "train_step_ms": 1e3 * elapsed / good},
                       steps=steps, rays=0.0)
 
     def release(self) -> None:
         job = self.checked
-        self.out = None if job is None else {
-            "first": job["first"], "losses": [float(x) for x in job["losses"]],
+        self.out = {
+            "first": job["first"], "seed": job["seed"],
+            "losses": [float(x) for x in job["losses"]],
             "history": [{f: v[f].detach().cpu().clone() for f in FIELDS}
-                        for v in job["params"]]}
-        # steps whose loss is not finite failed (PERF.md)
-        self.failed_steps = sum(not bool(torch.isfinite(x)) for x in self.losses)
-        del self.scene, self.step_fn, self.params, self.losses, self.mesh, self.checked
+                        for v in job["params"]],
+            "unclamped": {f: v.cpu() for f, v in job["unclamped"].items()}}
+        del self.scene, self.step_fn, self.params, self.mesh, self.checked
         import torch.distributed as dist
 
         dist.destroy_process_group()
@@ -175,7 +255,9 @@ class Cell:
 
     def reference(self, dtype=torch.float32):
         """The reference's losses and parameters over the checked steps,
-        from the start, on the key words of the checked job's steps."""
+        from the start, on the key words of the checked job's steps, each
+        update clamped to the domain; and its first step's parameters
+        before their clamp."""
         from torch import autograd
 
         device = self.ctx.device
@@ -188,10 +270,10 @@ class Cell:
         n = self.config.num_pixels
         ids = torch.arange(n, dtype=torch.int32, device=device)
         losses, history = [], [{f: v.float().cpu() for f, v in params.items()}]
+        unclamped = None
         for step in range(t["checked_steps"]):
             # the one sample stream of the (1, 1) mesh folds in its index 0
-            key = plain.fold_in(plain.sample_key_words(self.train_seed, self.out["first"] + step),
-                                0)
+            key = plain.fold_in(plain.sample_key_words(self.out["seed"], step), 0)
             keys = torch.tensor([key], dtype=torch.int64, device=device)
             leaves = {f: v.detach().clone().requires_grad_() for f, v in params.items()}
             scene.materials = {**scene.materials, **leaves}
@@ -210,38 +292,46 @@ class Cell:
                         grads[f] += gf.double()
             losses.append(loss.item())
             params = {f: params[f] - self.lr * grads[f].to(dtype) for f in FIELDS}
+            if unclamped is None:
+                unclamped = {f: v.float().cpu() for f, v in params.items()}
+            params = project(params, self.domain)
             history.append({f: v.float().cpu() for f, v in params.items()})
-        return losses, history
+        return losses, history, unclamped
 
     def check(self, outputs=None) -> list:
         """The checks of the program's first steps (or of ``outputs``,
-        (losses, parameter history), put in their place)."""
-        t = self.ctx.traffic
-        lim = t["limits"]
-        if self.out is None:  # the window ran no job as far as the checked steps
-            return [Check("steps_checked", 0.0, -1.0)]
+        (losses, parameter history, first step's parameters before their
+        clamp), put in their place)."""
+        lim = self.ctx.traffic["limits"]
+        gaps = self.gaps(outputs)
+        return [Check("loss_gap", statistics.median(gaps["loss"]), lim["loss_gap"]),
+                Check("grad_gap", statistics.median(gaps["grad"].values()), lim["grad_gap"]),
+                Check("change_gap", statistics.median(gaps["change"].values()),
+                      lim["change_gap"])]
+
+    def gaps(self, outputs=None) -> dict:
+        """Each checked step's loss gap, and each kept leaf's gap of the
+        first gradient and of the change (``leaf_gaps``)."""
         if not hasattr(self, "_ref"):
             self._ref = self.reference()
-        ref_losses, ref_hist = self._ref
-        losses, hist = (self.out["losses"], self.out["history"]) if outputs is None else outputs
-        loss_gap = statistics.median(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-        grad = [{f: (h0[f].double() - h1[f].double()) / self.lr for f in FIELDS}
-                for h0, h1 in [(hist[0], hist[1])]][0]
-        ref_grad = {f: (ref_hist[0][f].double() - ref_hist[1][f].double()) / self.lr
+        ref_losses, ref_hist, ref_first = self._ref
+        if outputs is None:
+            outputs = self.out["losses"], self.out["history"], self.out["unclamped"]
+        losses, hist, first = outputs
+        grad = {f: (hist[0][f].double() - first[f].double()) / self.lr for f in FIELDS}
+        ref_grad = {f: (ref_hist[0][f].double() - ref_first[f].double()) / self.lr
                     for f in FIELDS}
         change = {f: hist[-1][f].double() - hist[0][f].double() for f in FIELDS}
         ref_change = {f: ref_hist[-1][f].double() - ref_hist[0][f].double() for f in FIELDS}
-        checks = [Check("loss_gap", loss_gap, lim["loss_gap"]),
-                  Check("grad_gap", median_leaf(grad, ref_grad, ref_grad), lim["grad_gap"]),
-                  Check("change_gap", median_leaf(change, ref_change, ref_grad),
-                        lim["change_gap"])]
-        return checks
+        return {"loss": [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)],
+                "grad": leaf_gaps(grad, ref_grad, ref_grad),
+                "change": leaf_gaps(change, ref_change, ref_grad)}
 
 
-def median_leaf(got: dict, ref: dict, ref_grad: dict) -> float:
-    """The median over the leaves of the gap between the program's norm of
-    a leaf and the reference's, over the larger of the reference's norm of
-    that leaf and of the median leaf. The median and not the worst leaf:
+def leaf_gaps(got: dict, ref: dict, ref_grad: dict) -> dict:
+    """Each leaf's gap between the program's norm of it and the
+    reference's, over the larger of the reference's norm of that leaf and
+    of the median leaf. The check takes the median and not the worst leaf:
     one path in 10,000 takes another turn in the program than in the
     reference (rounding in the intersector), and the roughness leaf's
     gradient, which the glass at roughness 0.001 dominates, can then move
@@ -253,8 +343,8 @@ def median_leaf(got: dict, ref: dict, ref_grad: dict) -> float:
     kept = [f for f in ref if gnorm[f] >= 1e-3 * median_g]
     norms = {f: float(torch.linalg.vector_norm(ref[f])) for f in kept}
     median = statistics.median(norms.values())
-    return statistics.median(abs(float(torch.linalg.vector_norm(got[f])) - norms[f])
-                             / max(norms[f], median) for f in kept)
+    return {f: abs(float(torch.linalg.vector_norm(got[f])) - norms[f]) / max(norms[f], median)
+            for f in kept}
 
 
 def control(cell: Cell) -> list:

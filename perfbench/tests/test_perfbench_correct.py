@@ -80,16 +80,16 @@ def test_a_run_whose_rank_loads_jax_is_refused(name, monkeypatch, capsys):
 
 
 def test_the_train_check_reads_replayed_steps():
-    """The steps the train check holds to the reference are the window's,
-    after the set-up's eager call, capture and replay."""
+    """The steps the train check holds to the reference are the window's
+    first, after the set-up's eager call, capture and replay."""
     ctx = tiny.context("demo-train")
     driver = importlib.import_module("perfbench.drivers.train")
     cell = driver.Cell(ctx)
-    warm = cell.taken
+    warm = cell.calls
     cell.window(ctx.seconds, time.perf_counter())
     cell.release()
     assert warm == driver.WARMUP_STEPS == 3
-    assert cell.out["first"] >= warm and len(cell.out["losses"]) == ctx.traffic["checked_steps"]
+    assert cell.out["first"] == warm and len(cell.out["losses"]) == ctx.traffic["checked_steps"]
     assert all(c.ok for c in cell.check())
     json.dumps(cell.out["losses"])
 
